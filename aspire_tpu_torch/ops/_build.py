@@ -1,0 +1,107 @@
+"""Builds the package's CUDA sources into one shared library and loads it.
+
+Every ``csrc/*.cu`` is compiled by a single nvcc command (``--threads`` lets it
+work on the files side by side) into a library with a plain C interface, which
+is loaded with ctypes: the sources include none of PyTorch's headers, so the
+build takes seconds.  The library lands in ``build/aspire_tpu_torch/`` beside
+the package, named after a hash of the sources, and is built at the first
+kernel call -- importing this module needs neither nvcc nor a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aspire_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+
+# name -> argtypes; every function returns the cudaError_t of its launch.
+# Without argtypes ctypes would pass each pointer as a 32-bit int.
+SIGNATURES = {
+    # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters, stream
+    "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    # q, k, v, bias, out, b, nh, t, q/k/v/out strides (batch, head, token) x4,
+    # sm_scale, stream
+    "aspire_attention_bf16": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F, _P],
+    "aspire_attention_f32": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F, _P],
+    # x, w1, b1, w2, b2, out, rows, hidden, inter, stream
+    "aspire_ffn_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "aspire_ffn_f32": [_P] * 6 + [_I] * 3 + [_P],
+}
+
+_lib = None
+build_seconds: float | None = None
+build_log: str = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels of aspire_tpu_torch "
+                       "are built from source and need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on the first call."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libaspire_kernels_{_digest()}.so"
+    if not target.exists():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "--threads", str(len(srcs)),
+               "-o", str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + build_log)
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.aspire_error_string.argtypes = [ctypes.c_int]
+    lib.aspire_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launch was refused (too much shared memory, bad grid...)."""
+    if err != 0:
+        msg = load().aspire_error_string(err).decode()
+        raise RuntimeError(f"CUDA launch of {name} failed: {msg} (error {err})")

@@ -1,0 +1,123 @@
+"""CUDA Sinkhorn solver: wrapper, launch count and plain version.
+
+Replaces the TPU kernel ``aspire_tpu/ops/pallas_sinkhorn.py:_sinkhorn_kernel``
+(entry point ``sinkhorn_potentials_pallas``): forward-only batched balanced
+log-domain Sinkhorn with a per-pair eps schedule.  The CUDA source is
+``csrc/sinkhorn.cu``: one warp per pair, the cost matrix in shared memory,
+the whole annealing loop on chip -- one read of the cost, one write of the
+potentials.  The work is a chain of dependent exp/log rounds on a few hundred
+values per pair, so the card's special-function rate bounds it, not its
+memory: the design keeps every intermediate out of device memory and lets
+each pair stop after its own schedule length, which also removes the
+host-side read of the batch maximum that the TPU version needs.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .cdist import pairwise_l2
+from .sinkhorn import log_weights, resolve_diameter
+
+MAX_ATOMS = 32   # one lane per atom of either cloud
+
+
+def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
+                         scaling: float = 0.9, max_iters: int = 128):
+    """Plain PyTorch version of the kernel, same arithmetic order.
+
+    cost f32[B, n, m], log_a f32[B, n], log_b f32[B, m], diam f32[B]
+    -> (f [B, n], g [B, m]).
+    """
+    log_s = math.log(scaling)
+    ratio = torch.log(blur / torch.clamp_min(diam, 1e-30)) / log_s
+    lane_iters = torch.ceil(torch.clamp_min(ratio, 0.0)) + 2.0    # [B]
+    d = torch.clamp_min(diam, 1e-12)
+
+    def eps_at(i):
+        k = float(max(i - 1, 0))
+        return torch.where(i >= lane_iters - 1.0, torch.full_like(d, blur),
+                           d * math.exp(k * log_s))[:, None]
+
+    def softmin_m(eps, ce, h):      # over the m axis -> [B, n]
+        return -eps * torch.logsumexp(h[:, None, :] - ce, dim=2)
+
+    def softmin_n(eps, ce, h):      # over the n axis -> [B, m]
+        return -eps * torch.logsumexp(h[:, :, None] - ce, dim=1)
+
+    eps = eps_at(0)
+    ce = cost * (1.0 / eps)[:, :, None]
+    f = softmin_m(eps, ce, log_b)
+    g = softmin_n(eps, ce, log_a)
+    n_cap = min(int(lane_iters.max()), max_iters)
+    for i in range(n_cap):
+        eps = eps_at(i)
+        inv = 1.0 / eps
+        ce = cost * inv[:, :, None]
+        ft = softmin_m(eps, ce, log_b + g * inv)
+        gt = softmin_n(eps, ce, log_a + f * inv)
+        live = (i < lane_iters)[:, None]
+        f, g = (torch.where(live, 0.5 * (f + ft), f),
+                torch.where(live, 0.5 * (g + gt), g))
+    ce = cost * (1.0 / blur)
+    return (softmin_m(blur, ce, log_b + g / blur),
+            softmin_n(blur, ce, log_a + f / blur))
+
+
+def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
+                   scaling: float = 0.9, max_iters: int = 128):
+    """The kernel's wrapper: CUDA tensors launch it, CPU tensors run the
+    plain version.  Same arguments and results as `sinkhorn_solve_plain`."""
+    if not cost.is_cuda:
+        return sinkhorn_solve_plain(cost, log_a, log_b, diam, blur, scaling,
+                                    max_iters)
+    bsz, n, m = cost.shape
+    if n > MAX_ATOMS or m > MAX_ATOMS:
+        raise ValueError(f"the Sinkhorn kernel takes at most {MAX_ATOMS} atoms "
+                         f"a side, got {n} x {m}")
+    if log_a.shape != (bsz, n) or log_b.shape != (bsz, m) or diam.shape != (bsz,):
+        raise ValueError("log_a, log_b, diam must be [B, n], [B, m], [B]")
+    args = [t.detach().float().contiguous() for t in (cost, log_a, log_b, diam)]
+    if any(t.device != cost.device for t in args):
+        raise ValueError("all inputs must lie on the same device")
+    f = torch.empty((bsz, n), dtype=torch.float32, device=cost.device)
+    g = torch.empty((bsz, m), dtype=torch.float32, device=cost.device)
+    if bsz == 0:
+        return f, g
+    lib = _build.load()
+    with torch.cuda.device(cost.device):
+        err = lib.aspire_sinkhorn_f32(
+            *(t.data_ptr() for t in args), f.data_ptr(), g.data_ptr(),
+            bsz, n, m, float(blur), math.log(scaling), int(max_iters),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "aspire_sinkhorn_f32")
+    sinkhorn_solve.launches += 1
+    return f, g
+
+
+sinkhorn_solve.launches = 0
+
+
+def sinkhorn_potentials_kernel(
+    a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
+    blur: float = 0.05, scaling: float = 0.9, max_iters: int = 128,
+    cost: torch.Tensor | None = None, use_cost: bool = False,
+    diameter: str = "global", diameter_value: torch.Tensor | None = None,
+):
+    """Forward-only replacement for sinkhorn_potentials (balanced case).
+
+    a: [bsz, n]; x: [bsz, n, d]; b: [bsz, m]; y: [bsz, m, d].
+    cost: optional precomputed f32[bsz, n, m] ground cost (use_cost=True).
+    diameter: 'global' or 'pair'; either way the kernel receives a per-pair
+    diameter computed here in plain PyTorch.
+    Returns (f [bsz, n], g [bsz, m]) float32, without gradients.
+    """
+    if not 0.0 < scaling < 1.0:
+        raise ValueError(f"scaling must be in (0, 1), got {scaling}")
+    with torch.no_grad():
+        c = cost.float() if use_cost else pairwise_l2(x, y)
+        diam = resolve_diameter(x, y, a, b, diameter, diameter_value)
+        return sinkhorn_solve(c, log_weights(a.float()), log_weights(b.float()),
+                              diam, blur, scaling, max_iters)
