@@ -1,58 +1,36 @@
-// Fused attention forward without dropout: softmax(q.k^T * scale + bias) . v.
+// Fused attention forward: softmax(q.k^T * scale + bias) . v, with or without
+// dropout on the probabilities.
 //
 // Takes the place of the TPU kernel aspire_tpu/ops/pallas_attention.py
-// (_fwd_kernel built at dropout_p = 0).  One block owns 64 query rows of one
-// (batch, head); each of its 4 warps owns 16 of them.  Keys and values stream
-// through shared memory in tiles of 64.  The scores of a tile live only on
-// chip.  Rounding points follow the TPU kernel: scores, max, exp, sum
-// and the division in f32; the normalised probabilities are cast to the
-// compute type; probs.v accumulates in f32 and is cast on store.  To divide
+// (_fwd_kernel, built at dropout_p = 0 and at dropout_p > 0).  One block owns
+// 64 query rows of one (batch, head); each of its 4 warps owns 16 of them.
+// Keys and values stream through shared memory in tiles of 64.  The scores of a
+// tile live only on chip.  Rounding points follow the TPU kernel: scores, max,
+// exp, sum and the division in f32; the normalised probabilities are cast to
+// the compute type; probs.v accumulates in f32 and is cast on store.  To divide
 // before the cast without keeping a whole [64, t] score block, the keys are
 // walked twice: pass 1 finds each row's max and sum, pass 2 recomputes the
 // scores, normalises, casts and accumulates the context.
 //
+// Dropout is a compile-time mode (kDrop: 0 none, 1 Philox bits made in the
+// kernel, 2 bits read from an operand).  The cast probability is divided by
+// (1 - p) in the compute type and cast again, dropped ones are zeroed, and the
+// result feeds the second product.  The bits are a function of the element's
+// position (common.cuh), so the backward, which tiles differently, recomputes
+// the same mask.  In the bf16 kernel a thread holds two neighbouring columns of
+// a row in the mma accumulator layout while one Philox call covers four: the
+// counter takes column / 4 all the same, and the two threads of a pair each
+// make one call (rows g and g + 8) and swap halves (acc_bits).  Mode 0 compiles
+// to the kernel without any of this.
+//
 // bf16 runs both products on the tensor cores (mma.sync m16n8k16 fed by
 // ldmatrix, f32 accumulate) with scores and probabilities in registers; f32
 // runs them as plain FMAs so that the result is true f32.
-#include <math.h>
-
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-using aspire::copy16;
-
-constexpr int kHd = 64;        // head width
-constexpr int kBq = 64;        // query rows per block
-constexpr int kBk = 64;        // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBq / kWarps;   // 16 query rows per warp
-constexpr int kLdS = 68;       // pitch of the f32 kernel's score rows (float4 reads on store)
-
-template <typename T> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> { static constexpr int ld = 72; };   // 16-byte rows, skewed banks
-template <> struct Cfg<float> { static constexpr int ld = 65; };           // odd pitch: k[c][d] by lane c
-
-// rows [row0, row0 + 64) of a [t, 64] matrix with row pitch `stride`; zero past t
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride, int row0,
-                                          int t) {
-  constexpr int vec = 16 / sizeof(T), per_row = kHd / vec, ld = Cfg<T>::ld;
-  for (int idx = threadIdx.x; idx < kBk * per_row; idx += kThreads) {
-    const int r = idx / per_row, cv = (idx % per_row) * vec;
-    const bool valid = row0 + r < t;
-    const T* p = src + (long long)(row0 + r) * stride + cv;
-    if constexpr (sizeof(T) == 2) {
-      copy16(dst + r * ld + cv, p, valid);
-    } else {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (valid) v = *reinterpret_cast<const float4*>(p);
-      float* o = reinterpret_cast<float*>(dst) + r * ld + cv;
-      o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-    }
-  }
-}
+using namespace aspire;
 
 // ---------------------------------------------------------------- bf16 kernel
 // Both products run on the tensor cores (mma.sync m16n8k16, f32 accumulate).
@@ -60,6 +38,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride
 // accumulator layout, in which the softmax runs (a row is spread over the four
 // threads of a quad); cast to bf16 pairs they are exactly the A fragments of
 // the second product, so neither scores nor probabilities touch shared memory.
+template <int kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
@@ -67,13 +46,9 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       long long qsb, long long qsh, long long qst,
                       long long ksb, long long ksh, long long kst,
                       long long vsb, long long vsh, long long vst,
-                      long long osb, long long osh, long long ost, float sm_scale) {
+                      long long osb, long long osh, long long ost, float sm_scale, Drop drop,
+                      float* __restrict__ stats) {
   using bf16 = __nv_bfloat16;
-  using aspire::frag_addr;
-  using aspire::ldmatrix_x4;
-  using aspire::ldmatrix_x4_trans;
-  using aspire::mma_bf16_16816;
-  using aspire::pack_bf16;
   constexpr int ld = Cfg<bf16>::ld;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -114,67 +89,49 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       __syncthreads();
 
       float s[kBk / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBk / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-      for (int np = 0; np < kBk / 16; ++np) {
-#pragma unroll
-        for (int kk = 0; kk < kHd / 16; ++kk) {
-          unsigned bfr[4];             // k is [key][hd]: B fragments without a transpose
-          ldmatrix_x4(bfr, frag_addr(ks + np * 16 * ld + kk * 16, ld, lane, false));
-          mma_bf16_16816(s[2 * np], qa[kk], bfr[0], bfr[1]);
-          mma_bf16_16816(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kBk / 8; ++nt) {
-        const float b0 = bias_s[nt * 8 + 2 * tq], b1 = bias_s[nt * 8 + 2 * tq + 1];
-        s[nt][0] = s[nt][0] * sm_scale + b0;
-        s[nt][1] = s[nt][1] * sm_scale + b1;
-        s[nt][2] = s[nt][2] * sm_scale + b0;
-        s[nt][3] = s[nt][3] * sm_scale + b1;
-      }
+      mma_abT(s, qa, ks, lane);
+      scale_bias(s, bias_s, sm_scale, tq);
 
       if (pass == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int nt = 0; nt < kBk / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m_run[h], mx);
-          float sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < kBk / 8; ++nt)
-            sum += expf(s[nt][2 * h] - m_new) + expf(s[nt][2 * h + 1] - m_new);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          l_run[h] = l_run[h] * expf(m_run[h] - m_new) + sum;
-          m_run[h] = m_new;
-        }
+        row_stats(s, m_run, l_run);
       } else {
 #pragma unroll
         for (int j = 0; j < kBk / 16; ++j) {
           // normalised in f32, then cast: the A fragment of keys 16j .. 16j + 15
           unsigned pa[4];
-          pa[0] = pack_bf16(expf(s[2 * j][0] - m_run[0]) / l_run[0],
-                            expf(s[2 * j][1] - m_run[0]) / l_run[0]);
-          pa[1] = pack_bf16(expf(s[2 * j][2] - m_run[1]) / l_run[1],
-                            expf(s[2 * j][3] - m_run[1]) / l_run[1]);
-          pa[2] = pack_bf16(expf(s[2 * j + 1][0] - m_run[0]) / l_run[0],
-                            expf(s[2 * j + 1][1] - m_run[0]) / l_run[0]);
-          pa[3] = pack_bf16(expf(s[2 * j + 1][2] - m_run[1]) / l_run[1],
-                            expf(s[2 * j + 1][3] - m_run[1]) / l_run[1]);
 #pragma unroll
-          for (int np = 0; np < kHd / 16; ++np) {
-            unsigned bfr[4];           // v is [key][hd]: transposed on load
-            ldmatrix_x4_trans(bfr, frag_addr(vs + j * 16 * ld + np * 16, ld, lane, true));
-            mma_bf16_16816(oacc[2 * np], pa, bfr[0], bfr[1]);
-            mma_bf16_16816(oacc[2 * np + 1], pa, bfr[2], bfr[3]);
+          for (int u = 0; u < 2; ++u) {
+            const int nt = 2 * j + u;
+            float p[4];
+            p[0] = expf(s[nt][0] - m_run[0]) / l_run[0];
+            p[1] = expf(s[nt][1] - m_run[0]) / l_run[0];
+            p[2] = expf(s[nt][2] - m_run[1]) / l_run[1];
+            p[3] = expf(s[nt][3] - m_run[1]) / l_run[1];
+            if constexpr (kDrop != 0) {
+              unsigned bits[4];
+              acc_bits<kDrop>(drop, b * gridDim.y + head, t, q0 + warp * kRows + g, k0 + nt * 8,
+                              lane, bits);
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                p[i] = drop_prob_bf16(p[i], bits[i] >= drop.thresh, drop.keep_div);
+            }
+            pa[2 * u] = pack_bf16(p[0], p[1]);
+            pa[2 * u + 1] = pack_bf16(p[2], p[3]);
           }
+          mma_ab_chunk(oacc, pa, vs, j, lane);
+        }
+      }
+    }
+    if (pass == 0 && stats != nullptr && tq == 0) {
+      // a training forward leaves each row's max and sum for the backward
+      const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + warp * kRows + g + 8 * h;
+        if (row < t) {
+          float* st = stats + (long long)(b * gridDim.y + head) * t + row;
+          st[0] = m_run[h];
+          st[planes_t] = l_run[h];
         }
       }
     }
@@ -203,59 +160,11 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // Plain FMAs so that the result is true f32.  A warp keeps its 16 x 64 scores
 // and probabilities in shared memory; lane c owns columns c and c + 32 of both
 // products; two lanes share a row of the softmax.
-struct AccF32 {
-  float o0[kRows], o1[kRows];   // columns lane and lane + 32 of the warp's 16 rows
-
-  __device__ void init() {
-    for (int r = 0; r < kRows; ++r) o0[r] = o1[r] = 0.f;
-  }
-  // s[16, 64] = q_w . k_tile^T
-  __device__ void scores(const float* qw, const float* ks, float* sw) {
-    const int lane = threadIdx.x & 31;
-    float a0[kRows], a1[kRows];
-    for (int r = 0; r < kRows; ++r) a0[r] = a1[r] = 0.f;
-    const float* k0 = ks + lane * 65;
-    const float* k1 = ks + (lane + 32) * 65;
-    for (int d = 0; d < kHd; ++d) {
-      const float x0 = k0[d], x1 = k1[d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = qw[r * 65 + d];
-        a0[r] = fmaf(qv, x0, a0[r]);
-        a1[r] = fmaf(qv, x1, a1[r]);
-      }
-    }
-    for (int r = 0; r < kRows; ++r) {
-      sw[r * kLdS + lane] = a0[r];
-      sw[r * kLdS + lane + 32] = a1[r];
-    }
-  }
-  // o += p_w[16, 64] . v_tile[64, 64]
-  __device__ void context(const float* pw, const float* vs) {
-    const int lane = threadIdx.x & 31;
-    for (int j = 0; j < kBk; ++j) {
-      const float v0 = vs[j * 65 + lane], v1 = vs[j * 65 + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = pw[r * 65 + j];
-        o0[r] = fmaf(p, v0, o0[r]);
-        o1[r] = fmaf(p, v1, o1[r]);
-      }
-    }
-  }
-  __device__ void store(float* sw) {
-    const int lane = threadIdx.x & 31;
-    for (int r = 0; r < kRows; ++r) {
-      sw[r * kLdS + lane] = o0[r];
-      sw[r * kLdS + lane + 32] = o1[r];
-    }
-  }
-};
-
 constexpr size_t kSmemF32 =
     (size_t)(3 * kBq * 65 + kWarps * kRows * 65 + kWarps * kRows * kLdS + kBk) * sizeof(float);
 constexpr size_t kSmemBf16 = (size_t)(3 * kBq * 72) * sizeof(__nv_bfloat16) + kBk * sizeof(float);
 
+template <int kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
@@ -263,7 +172,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long qsb, long long qsh, long long qst,
                      long long ksb, long long ksh, long long kst,
                      long long vsb, long long vsh, long long vst,
-                     long long osb, long long osh, long long ost, float sm_scale) {
+                     long long osb, long long osh, long long ost, float sm_scale, Drop drop,
+                     float* __restrict__ stats) {
   constexpr int ld = Cfg<float>::ld;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
@@ -286,8 +196,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<float>(qs, qg, qst, q0, t);
   __syncthreads();
-  AccF32 acc;
-  acc.init();
+  float o0[kRows], o1[kRows];   // columns lane and lane + 32 of the warp's 16 rows
+  for (int r = 0; r < kRows; ++r) o0[r] = o1[r] = 0.f;
 
   // two lanes share a row: lane = 2 * row + half, columns half, half + 2, ...
   const int row = lane >> 1, half = lane & 1;
@@ -301,7 +211,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (threadIdx.x < kBk)           // keys past t get -inf: zero weight, no part in the max
         bias_s[threadIdx.x] = (k0 + threadIdx.x < t) ? bg[k0 + threadIdx.x] : -INFINITY;
       __syncthreads();
-      acc.scores(qw, ks, sw);
+      f32_abT(qw, ks, sw);
       __syncwarp();
       if (pass == 0) {
         float mx = -INFINITY;
@@ -319,13 +229,37 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = half; c < kBk; c += 2)
           pw[row * ld + c] = expf(sw[row * kLdS + c] * sm_scale + bias_s[c] - m_run) / l_run;
         __syncwarp();
-        acc.context(pw, vs);
+        if constexpr (kDrop != 0) {
+          // one item = four neighbouring columns of a row = one Philox call
+          for (int idx = lane; idx < kRows * (kBk / 4); idx += 32) {
+            const int r = idx / (kBk / 4), c4 = idx % (kBk / 4);
+            const uint4 w = row_bits<kDrop>(drop, b * gridDim.y + head, t, q0 + warp * kRows + r,
+                                            k0 / 4 + c4);
+            const unsigned bits[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float* p = pw + r * ld + c4 * 4 + i;
+              *p = bits[i] >= drop.thresh ? *p / drop.keep_div : 0.f;
+            }
+          }
+          __syncwarp();
+        }
+        f32_ab(o0, o1, pw, ld, vs);
       }
       __syncwarp();                    // sw is rewritten by the next tile
     }
+    if (pass == 0 && stats != nullptr && half == 0 && q0 + warp * kRows + row < t) {
+      const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+      float* st = stats + (long long)(b * gridDim.y + head) * t + q0 + warp * kRows + row;
+      st[0] = m_run;
+      st[planes_t] = l_run;
+    }
   }
 
-  acc.store(sw);
+  for (int r = 0; r < kRows; ++r) {
+    sw[r * kLdS + lane] = o0[r];
+    sw[r * kLdS + lane + 32] = o1[r];
+  }
   __syncwarp();
   float* og = out + b * osb + head * osh;
   for (int idx = lane; idx < kRows * (kHd / 4); idx += 32) {
@@ -341,7 +275,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, typename KernelFn>
 int launch(KernelFn kernel, size_t smem, const void* q, const void* k, const void* v,
            const void* bias, void* out, int b, int nh, int t, const long long* s,
-           float sm_scale, void* stream) {
+           float sm_scale, const Drop& drop, void* stats, void* stream) {
   if (b < 1 || nh < 1 || t < 1 || nh > 65535 || b > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel has to opt in
   cudaError_t err =
@@ -350,20 +284,35 @@ int launch(KernelFn kernel, size_t smem, const void* q, const void* k, const voi
   dim3 grid((t + kBq - 1) / kBq, nh, b);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, t, s[0], s[1], s[2],
-      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], sm_scale);
+      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], sm_scale, drop, (float*)stats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// mode: 0 no dropout, 1 Philox bits from (seed, c0), 2 bits from the operand;
+// stats: null, or a [2 or more, b * nh, t] f32 array that receives each row's
+// max (plane 0) and sum (plane 1) for the backward
 #define ASPIRE_ATTENTION(NAME, T, KERNEL, SMEM)                                                \
   extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias,           \
                       void* out, int b, int nh, int t, long long qsb, long long qsh,           \
                       long long qst, long long ksb, long long ksh, long long kst,              \
                       long long vsb, long long vsh, long long vst, long long osb,              \
-                      long long osh, long long ost, float sm_scale, void* stream) {            \
+                      long long osh, long long ost, float sm_scale, int mode,                  \
+                      unsigned long long seed, unsigned c0, unsigned thresh, float keep_div,   \
+                      const void* bits, void* stats, void* stream) {                           \
     const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};      \
-    return launch<T>(KERNEL, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, stream);         \
+    const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};           \
+    if (mode == 0)                                                                             \
+      return launch<T>(KERNEL<0>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
+                       stats, stream);                                                         \
+    if (mode == 1)                                                                             \
+      return launch<T>(KERNEL<1>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
+                       stats, stream);                                                         \
+    if (mode == 2 && bits != nullptr)                                                          \
+      return launch<T>(KERNEL<2>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
+                       stats, stream);                                                         \
+    return (int)cudaErrorInvalidValue;                                                         \
   }
 
 ASPIRE_ATTENTION(aspire_attention_bf16, __nv_bfloat16, attention_bf16_kernel, kSmemBf16)

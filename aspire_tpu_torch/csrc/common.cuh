@@ -78,4 +78,93 @@ __device__ __forceinline__ unsigned frag_addr(const __nv_bfloat16* base, int ld,
   return smem_addr(base + r * ld + c);
 }
 
+
+// ---- dropout bits: Philox4x32-10, keyed on the element's position -----------
+// One call gives the 32-bit words of four neighbouring columns of one row:
+//   key     = the call's 64-bit seed (low word, high word)
+//   counter = (kind << 24 | site, batch * heads + head, row, column / 4)
+// with kind 0 for hidden dropout (second word 0) and 1 for attention, so the
+// two never share a counter.  Word (column % 4) belongs to the column.  An
+// element is kept when its word >= round(p * 2^32), compared unsigned.
+// ops/philox.py computes the same words in plain PyTorch.
+struct Drop {
+  unsigned long long seed;
+  unsigned c0;            // kind << 24 | site
+  unsigned thresh;        // round(p * 2^32)
+  float keep_div;         // 1 - p rounded to the compute type (forward divides by it)
+  float keep_div32;       // 1 - p in f32 (the backward's division)
+  const unsigned* bits;   // explicit bits operand (mode 2), else null
+};
+
+__device__ __forceinline__ uint4 philox4x32_10(unsigned c0, unsigned c1, unsigned c2, unsigned c3,
+                                               unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const unsigned n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
+    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint4 drop_words(const Drop& d, unsigned plane, unsigned row,
+                                            unsigned col4) {
+  return philox4x32_10(d.c0, plane, row, col4, (unsigned)d.seed, (unsigned)(d.seed >> 32));
+}
+
+// Bits of a thread's four elements of one 8-column mma accumulator tile (rows
+// g and g + 8, columns col0 + 2t, + 1; col0 a multiple of 8).  kMode 1: one
+// Philox call a thread -- the even thread of a pair makes row g's call, the odd
+// one row g + 8's, and they swap the two words the other needs.  The whole warp
+// must call this together.  kMode 2: read from the bits operand, a [planes, t, t]
+// array; positions past t count as kept.
+template <int kMode>
+__device__ __forceinline__ void acc_bits(const Drop& d, int plane, int t, int row_g, int col0,
+                                         int lane, unsigned (&bits)[4]) {
+  const int tq = lane & 3;
+  if constexpr (kMode == 1) {
+    const int odd = tq & 1;
+    const uint4 w = drop_words(d, (unsigned)plane, (unsigned)(row_g + 8 * odd),
+                               (unsigned)((col0 + 2 * (tq - odd)) >> 2));
+    const unsigned r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+    const unsigned r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+    bits[0] = odd ? r0 : w.x;
+    bits[1] = odd ? r1 : w.y;
+    bits[2] = odd ? w.z : r0;
+    bits[3] = odd ? w.w : r1;
+  } else {
+    const int col = col0 + 2 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      const unsigned* p = d.bits + ((long long)plane * t + row) * t + col;
+      bits[2 * h] = (row < t && col < t) ? p[0] : 0xffffffffu;
+      bits[2 * h + 1] = (row < t && col + 1 < t) ? p[1] : 0xffffffffu;
+    }
+  }
+}
+
+// Bits of four neighbouring columns col4 * 4 .. + 3 of one row of a [t, t] plane.
+template <int kMode>
+__device__ __forceinline__ uint4 row_bits(const Drop& d, int plane, int t, int row, int col4) {
+  if constexpr (kMode == 1) {
+    return drop_words(d, (unsigned)plane, (unsigned)row, (unsigned)col4);
+  } else {
+    unsigned w[4];
+    const unsigned* p = d.bits + ((long long)plane * t + row) * t + col4 * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = (row < t && col4 * 4 + i < t) ? p[i] : 0xffffffffu;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// dropped probability in bf16: the normalised f32 value is cast, divided by
+// (1 - p) in the compute type and cast again; dropped elements are zero
+__device__ __forceinline__ float drop_prob_bf16(float p, bool keep, float keep_div) {
+  const float cast = __bfloat162float(__float2bfloat16_rn(p));
+  return keep ? cast / keep_div : 0.f;
+}
+
 }  // namespace aspire

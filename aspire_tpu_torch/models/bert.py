@@ -11,9 +11,14 @@
     (``layer_3.attention_self.query.weight``), so carrying weights across is
     a rename plus a transpose (models/convert.py).
 
-This slice of the port is the deterministic (eval) pass.  A module in
-``train()`` mode with dropout p > 0 raises: the dropout kernels and the
-attention backward come with the training slice.
+A module in ``eval()`` mode runs the deterministic pass.  In ``train()`` mode
+it applies hidden dropout at 25 sites an encode (site 0 on the float32
+embedding LayerNorm output before the cast, sites 1 + 2i and 2 + 2i in layer
+i on the compute dtype before each residual add) and attention-probability
+dropout (site = layer index), all keyed on one 64-bit ``seed`` per encode that
+the caller passes to ``forward`` (ops/philox.py).  Under grad, reduced-dtype
+copies of the float32 parameters are made inside the graph, so the parameters
+receive float32 gradients.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.types import require_device
-from ..ops.attention_kernel import fused_attention, fused_attention_plain
+from ..ops.attention_kernel import (attention_keep_mask, fused_attention,
+                                    fused_attention_plain)
+from ..ops.dropout_kernel import dropout_plain, fused_dropout, keep_mask
 from ..ops.ffn_kernel import fused_ffn
 
 
@@ -59,8 +66,8 @@ def _select_impl(attention_impl: str, deterministic: bool, dropout_p: float,
 
       * 'auto' on CUDA: deterministic (or p=0) passes -> 'fused_det', the
         CUDA kernel of ops/attention_kernel.py; dropout training passes ->
-        'fused' (the kernel with in-kernel dropout, which the training slice
-        brings).  'auto' on the CPU -> 'naive'.
+        'fused' (the same kernel with in-kernel dropout).  'auto' on the CPU
+        -> 'naive'.
       * 'fused': as 'auto' on CUDA; on the CPU it still sends dropout
         training passes to 'fused' and everything else to 'naive'.
       * 'fused_det': by explicit request on either device (on CPU tensors the
@@ -95,13 +102,42 @@ def _select_ffn(ffn_impl: str, on_cuda: bool = True) -> str:
     return "naive"
 
 
+def _select_hidden_dropout(hidden_dropout_impl: str, on_cuda: bool = True) -> str:
+    """Hidden-dropout backend policy: 'auto' on CUDA and 'fused' everywhere ->
+    ops/dropout_kernel.fused_dropout (mask made in the kernel, nothing
+    mask-shaped kept for the backward; on CPU tensors its plain version);
+    'naive', and 'auto' on the CPU -> a materialised mask applied with plain
+    tensor operations.  Both draw the same Philox bits from the same seed."""
+    if hidden_dropout_impl not in ("auto", "fused", "naive"):
+        raise ValueError(f"unknown hidden_dropout_impl {hidden_dropout_impl!r}")
+    if hidden_dropout_impl == "fused":
+        return "fused"
+    if hidden_dropout_impl == "auto" and on_cuda:
+        return "fused"
+    return "naive"
+
+
+def _hidden_dropout(x, p: float, training: bool, impl: str, seed, site: int):
+    """One hidden/embedding dropout site; identity in eval mode or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    if seed is None:
+        raise ValueError("a training pass with dropout needs the encode's "
+                         "seed: forward(..., seed=<64-bit int>)")
+    if _select_hidden_dropout(impl, on_cuda=x.is_cuda) == "fused":
+        return fused_dropout(x, p, seed=seed, site=site)
+    keep = keep_mask(x.shape, p, seed=seed, site=site, device=x.device)
+    return dropout_plain(x, keep, p)
+
+
 class _CastCache:
     """Compute-dtype copies of float32 parameters, cast once and reused.
 
     The modules keep float32 parameters; an inference pass in bfloat16 would
     otherwise cast every weight at every call.  An entry is refreshed when its
     parameter was modified in place (optimizer step, load_state_dict), moved,
-    or asked for in another dtype.
+    or asked for in another dtype.  Used for no-grad passes only: under grad
+    the cast has to be part of the graph (`_param`).
     """
 
     def __init__(self):
@@ -122,12 +158,15 @@ class _CastCache:
         return value
 
 
-def _check_cast_grad(params) -> None:
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        raise NotImplementedError(
-            "running the encoder in a reduced dtype with gradients enabled "
-            "belongs to the training slice of the port; wrap inference in "
-            "torch.inference_mode()")
+def _param(cache: _CastCache, key: str, param: torch.Tensor,
+           dtype: torch.dtype, transpose: bool = False) -> torch.Tensor:
+    """The parameter in the compute dtype: a cached detached copy without
+    grad, a cast inside the graph with it (float32 parameters then receive
+    float32 gradients, as Flax's param_dtype=float32, dtype=bf16 does)."""
+    if torch.is_grad_enabled() and param.requires_grad:
+        value = param.to(dtype)
+        return value.t() if transpose else value
+    return cache.get(key, param, dtype, transpose)
 
 
 def _layer_norm(x, ln: nn.LayerNorm, dtype):
@@ -146,17 +185,17 @@ class _Base(nn.Module):
 
     def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
         lin = getattr(self, name)
-        if self.dtype != torch.float32:
-            _check_cast_grad((lin.weight, lin.bias))
-        w = self._cache.get(name + ".w", lin.weight, self.dtype)
-        b = self._cache.get(name + ".b", lin.bias, self.dtype)
+        w = _param(self._cache, name + ".w", lin.weight, self.dtype)
+        b = _param(self._cache, name + ".b", lin.bias, self.dtype)
         return F.linear(x.to(self.dtype), w, b)
 
 
 class BertEmbeddings(_Base):
-    def __init__(self, config: BertConfig, dtype=torch.float32, device="cuda"):
+    def __init__(self, config: BertConfig, dtype=torch.float32, device="cuda",
+                 hidden_dropout_impl: str = "auto"):
         super().__init__(dtype)
         cfg = self.config = config
+        self.hidden_dropout_impl = hidden_dropout_impl
         kw = dict(device=require_device(device), dtype=torch.float32)
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.position_embeddings = nn.Embedding(
@@ -165,7 +204,7 @@ class BertEmbeddings(_Base):
             cfg.type_vocab_size, cfg.hidden_size, **kw)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
 
-    def forward(self, input_ids, token_type_ids):
+    def forward(self, input_ids, token_type_ids, seed=None):
         cfg = self.config
         seq_len = input_ids.shape[1]
         if seq_len > cfg.max_position_embeddings:
@@ -177,27 +216,37 @@ class BertEmbeddings(_Base):
         word = self.word_embeddings(input_ids).to(self.dtype)
         pos = self.position_embeddings(pos_ids).to(self.dtype)
         typ = self.token_type_embeddings(token_type_ids).to(self.dtype)
-        return _layer_norm(word + pos + typ, self.LayerNorm, self.dtype)
+        ln = self.LayerNorm
+        x = F.layer_norm((word + pos + typ).float(), ln.normalized_shape,
+                         ln.weight, ln.bias, ln.eps)
+        # dropout on the float32 LayerNorm output, then the cast
+        x = _hidden_dropout(x, cfg.hidden_dropout_prob, self.training,
+                            self.hidden_dropout_impl, seed, site=0)
+        return x.to(self.dtype)
 
 
 class BertSelfAttention(_Base):
     """Self-attention with two backends: 'naive' (materialised [b, h, t, t]
-    scores) and 'fused_det' (the CUDA kernel: scores, softmax and context on
-    chip); see `_select_impl`."""
+    scores, probabilities and mask) and 'fused' / 'fused_det' (the CUDA
+    kernels: scores, softmax, dropout and context on chip, the backward from
+    q, k, v alone); see `_select_impl`."""
 
     def __init__(self, config: BertConfig, dtype=torch.float32,
-                 attention_impl: str = "auto", device="cuda"):
+                 attention_impl: str = "auto", device="cuda",
+                 layer_idx: int = 0):
         super().__init__(dtype)
         self.config = config
         self.attention_impl = attention_impl
+        self.layer_idx = layer_idx
         h = config.hidden_size
         kw = dict(device=require_device(device), dtype=torch.float32)
         self.query = nn.Linear(h, h, **kw)
         self.key = nn.Linear(h, h, **kw)
         self.value = nn.Linear(h, h, **kw)
 
-    def forward(self, x, attn_bias):
-        """x: [b, t, h]; attn_bias: f32[b, t] additive key mask."""
+    def forward(self, x, attn_bias, seed=None):
+        """x: [b, t, h]; attn_bias: f32[b, t] additive key mask; seed: the
+        encode's 64-bit seed (training passes with dropout)."""
         cfg = self.config
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
@@ -205,31 +254,42 @@ class BertSelfAttention(_Base):
         impl = _select_impl(self.attention_impl, not self.training,
                             cfg.attention_probs_dropout_prob,
                             on_cuda=x.is_cuda)
-        if impl == "fused":
-            raise NotImplementedError(
-                "attention with dropout belongs to the training slice of the "
-                "port; call .eval() for the deterministic pass")
+        p = cfg.attention_probs_dropout_prob if self.training else 0.0
+        if p > 0.0 and seed is None:
+            raise ValueError("a training pass with dropout needs the encode's "
+                             "seed: forward(..., seed=<64-bit int>)")
         # [b, t, nh, hd] -> [b, nh, t, hd] as views, no copies
         q, k, v = (self._dense(n, x).view(b, t, nh, hd).permute(0, 2, 1, 3)
                    for n in ("query", "key", "value"))
         sm_scale = 1.0 / math.sqrt(hd)
         if impl == "fused_det":
             ctx = fused_attention(q, k, v, attn_bias, sm_scale)
+        elif impl == "fused":
+            ctx = fused_attention(q, k, v, attn_bias, sm_scale, p, seed=seed,
+                                  site=self.layer_idx)
         else:
-            ctx = fused_attention_plain(q, k, v, attn_bias, sm_scale)
+            keep = None
+            if p > 0.0:
+                keep = attention_keep_mask(q.shape, p, seed=seed,
+                                           site=self.layer_idx, device=x.device)
+            ctx = fused_attention_plain(q, k, v, attn_bias, sm_scale, p, keep)
         return ctx.permute(0, 2, 1, 3).reshape(b, t, cfg.hidden_size)
 
 
 class BertLayer(_Base):
     def __init__(self, config: BertConfig, dtype=torch.float32,
                  attention_impl: str = "auto", ffn_impl: str = "auto",
-                 device="cuda"):
+                 device="cuda", hidden_dropout_impl: str = "auto",
+                 layer_idx: int = 0):
         super().__init__(dtype)
         cfg = self.config = config
         self.ffn_impl = ffn_impl
+        self.hidden_dropout_impl = hidden_dropout_impl
+        self.layer_idx = layer_idx
         dev = require_device(device)
         kw = dict(device=dev, dtype=torch.float32)
-        self.attention_self = BertSelfAttention(cfg, dtype, attention_impl, dev)
+        self.attention_self = BertSelfAttention(cfg, dtype, attention_impl, dev,
+                                                layer_idx)
         self.attention_output_dense = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
         self.attention_output_LayerNorm = nn.LayerNorm(
             cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
@@ -240,20 +300,25 @@ class BertLayer(_Base):
 
     def _ffn_fused(self, x):
         i, o = self.intermediate_dense, self.output_dense
-        if self.dtype != torch.float32:
-            _check_cast_grad((i.weight, i.bias, o.weight, o.bias))
-        # the kernel takes [in, out] weights in the compute dtype
-        get = self._cache.get
+        # fused_ffn takes [in, out] weights in the compute dtype: cached
+        # contiguous copies without grad, transposed views of in-graph casts
+        # with it
+        get = lambda key, param, tr=False: _param(self._cache, key, param,
+                                                  self.dtype, tr)
         return fused_ffn(
             x,
-            get("ffn.w1", i.weight, self.dtype, transpose=True),
-            get("ffn.b1", i.bias, self.dtype),
-            get("ffn.w2", o.weight, self.dtype, transpose=True),
-            get("ffn.b2", o.bias, self.dtype))
+            get("ffn.w1", i.weight, True), get("ffn.b1", i.bias),
+            get("ffn.w2", o.weight, True), get("ffn.b2", o.bias))
 
-    def forward(self, x, attn_bias):
-        attn_out = self.attention_self(x, attn_bias)
+    def _dropout(self, x, seed, site: int):
+        return _hidden_dropout(x, self.config.hidden_dropout_prob,
+                               self.training, self.hidden_dropout_impl, seed,
+                               site)
+
+    def forward(self, x, attn_bias, seed=None):
+        attn_out = self.attention_self(x, attn_bias, seed)
         attn_out = self._dense("attention_output_dense", attn_out)
+        attn_out = self._dropout(attn_out, seed, 1 + 2 * self.layer_idx)
         x = _layer_norm(x + attn_out, self.attention_output_LayerNorm, self.dtype)
         if _select_ffn(self.ffn_impl, on_cuda=x.is_cuda) == "fused":
             out = self._ffn_fused(x)
@@ -261,44 +326,43 @@ class BertLayer(_Base):
             inter = F.gelu(self._dense("intermediate_dense", x),
                            approximate="none")
             out = self._dense("output_dense", inter)
+        out = self._dropout(out, seed, 2 + 2 * self.layer_idx)
         return _layer_norm(x + out, self.output_LayerNorm, self.dtype)
 
 
 class BertModel(nn.Module):
     """BERT encoder returning all hidden states (embeddings + each layer).
 
-    forward(input_ids, attention_mask, token_type_ids=None)
+    forward(input_ids, attention_mask, token_type_ids=None, seed=None)
       -> (last_hidden_state f32[b, t, h],
           hidden_states: tuple of layer_count+1 f32 tensors).
+    `seed` is the encode's 64-bit dropout seed: needed in train() mode when a
+    dropout probability is above 0, unused in eval() mode.
     """
 
     def __init__(self, config: BertConfig, dtype=torch.float32,
                  attention_impl: str = "auto", ffn_impl: str = "auto",
-                 device="cuda"):
+                 device="cuda", hidden_dropout_impl: str = "auto"):
         super().__init__()
         dev = require_device(device)
         self.config = config
         self.dtype = dtype
-        self.embeddings = BertEmbeddings(config, dtype, dev)
+        self.embeddings = BertEmbeddings(config, dtype, dev, hidden_dropout_impl)
         for i in range(config.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(
-                config, dtype, attention_impl, ffn_impl, dev))
+                config, dtype, attention_impl, ffn_impl, dev,
+                hidden_dropout_impl, layer_idx=i))
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                seed=None):
         cfg = self.config
-        if self.training and (cfg.hidden_dropout_prob > 0
-                              or cfg.attention_probs_dropout_prob > 0):
-            raise NotImplementedError(
-                "the training pass (dropout kernels, attention backward) "
-                "belongs to the training slice of the port; call .eval() for "
-                "the deterministic pass")
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, seed)
         attn_bias = torch.where(attention_mask > 0, 0.0, -1e9).float()
         hidden_states = [x.float()]
         for i in range(cfg.num_hidden_layers):
-            x = getattr(self, f"layer_{i}")(x, attn_bias)
+            x = getattr(self, f"layer_{i}")(x, attn_bias, seed)
             hidden_states.append(x.float())
         return hidden_states[-1], tuple(hidden_states)
 

@@ -1,4 +1,5 @@
-"""Carrying weights into the port (counterpart of aspire_tpu/models/convert.py).
+"""Carrying weights into the port and back (counterpart of
+aspire_tpu/models/convert.py).
 
 Two sources, both as plain arrays, so that nothing here imports another
 framework:
@@ -9,7 +10,12 @@ framework:
 
 The port's parameter names follow the Flax tree, so the first bridge is a
 rename plus a transpose: dense ``kernel`` [in, out] -> ``weight`` [out, in],
-LayerNorm ``scale`` -> ``weight``, ``embedding`` -> ``weight``.
+LayerNorm ``scale`` -> ``weight``, ``embedding`` -> ``weight``.  A whole
+doc or sentence model holds its encoder as ``self.encoder`` (``ICTModel``: its
+towers as ``sent_encoder`` / ``context_encoder``), which the ``model_*``
+functions add and strip.  ``flax_params_from_state_dict`` is the way back, so
+that trained weights -- and gradients, through the same renaming -- can be
+handed to the JAX model and compared.
 """
 from __future__ import annotations
 
@@ -34,12 +40,15 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def state_dict_from_flax_params(params: dict,
-                                config: BertConfig | None = None) -> dict:
+                                config: BertConfig | None = None,
+                                prefix: str = "") -> dict:
     """Flax parameter tree (nested dicts of numpy arrays) -> port state_dict.
 
     Works for the trees of ConSentEncoder / ConSentSpanEncoder / BiEncoder
-    (``{"bert": ..., ["layer_weights": ...]}``), BertModel and BertPooler.
-    With a config, the number of ``layer_<i>`` subtrees is checked against it.
+    (``{"bert": ..., ["layer_weights": ...]}``), BertModel, BertPooler,
+    FeedForwardNet and GatedAttention.  With a config, the number of
+    ``layer_<i>`` subtrees is checked against it.  `prefix` is put before
+    every name.
     """
     out = {}
 
@@ -52,7 +61,7 @@ def state_dict_from_flax_params(params: dict,
             if key == "kernel":
                 arr = arr.T
             name = ".".join(path + [_LEAF_RENAME.get(key, key)])
-            out[name] = _tensor(arr)
+            out[prefix + name] = _tensor(arr)
 
     walk(params, [])
     if config is not None:
@@ -62,6 +71,59 @@ def state_dict_from_flax_params(params: dict,
             raise ValueError(f"parameter tree has {len(layers)} layers, config "
                              f"has {config.num_hidden_layers}")
     return out
+
+
+def flax_params_from_state_dict(state_dict: dict, prefix: str = "") -> dict:
+    """Port state_dict (or any name -> tensor/ndarray mapping with the same
+    names, such as gradients) -> Flax-layout nested dict of numpy arrays: the
+    inverse of `state_dict_from_flax_params`.  Names not starting with
+    `prefix` are left out."""
+    tree: dict = {}
+    for name, val in state_dict.items():
+        if not name.startswith(prefix):
+            continue
+        *path, leaf = name[len(prefix):].split(".")
+        arr = _t(val)
+        if leaf == "weight":
+            if path and path[-1].endswith("_embeddings"):
+                leaf = "embedding"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf, arr = "kernel", arr.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, dtype=np.float32, order="C", copy=True)
+    return tree
+
+
+# top-level Flax subtree -> attribute holding it in the port's model
+_ICT_TOWERS = {"sent": "sent_encoder", "context": "context_encoder"}
+
+
+def model_state_dict_from_flax_params(params: dict, model_name: str,
+                                      config: BertConfig | None = None) -> dict:
+    """The Flax tree of a whole model (`model.init_params(...)` of
+    aspire_tpu's doc_models / sent_models) -> the state_dict of the port's
+    model of the same registry name."""
+    if model_name == "ictsentbert":
+        out = {}
+        for tower, attr in _ICT_TOWERS.items():
+            out.update(state_dict_from_flax_params(params[tower], config,
+                                                   prefix=attr + "."))
+        return out
+    return state_dict_from_flax_params(params, config, prefix="encoder.")
+
+
+def flax_params_from_model_state_dict(state_dict: dict, model_name: str) -> dict:
+    """The way back: a port model's state_dict (or its gradients under the
+    same names) -> the Flax tree `train_loss(params, ...)` of the JAX model
+    takes."""
+    if model_name == "ictsentbert":
+        return {tower: flax_params_from_state_dict(state_dict, attr + ".")
+                for tower, attr in _ICT_TOWERS.items()}
+    return flax_params_from_state_dict(state_dict, "encoder.")
 
 
 def state_dict_from_hf_state_dict(state_dict: dict, config: BertConfig,

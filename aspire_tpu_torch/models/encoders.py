@@ -8,6 +8,9 @@
     BERT forward, CLS doc rep + per-sentence mean-pooled reps.
   * `BiEncoder` == MySPECTER / AspireBiEnc (disent_models.py:24-205):
     softmax scalar-mix over the 13 hidden-state layers, CLS rep.
+
+`train()` / `eval()` take the place of the Flax `deterministic` flag, and a
+training pass gets its dropout seed through `forward(..., seed=...)`.
 """
 from __future__ import annotations
 
@@ -50,21 +53,23 @@ def span_pool(hidden: torch.Tensor, span_mask: torch.Tensor) -> torch.Tensor:
 class ConSentEncoder(nn.Module):
     """Contextual sentence multi-vector encoder (AspireConSent).
 
-    forward(token_ids, attn_mask, sent_ids, token_type_ids=None)
+    forward(token_ids, attn_mask, sent_ids, token_type_ids=None, seed=None)
       -> (doc_cls f32[b, h], sent_reps f32[b, max_sents, h])
     """
 
     def __init__(self, config: BertConfig, max_sents: int = 24,
                  dtype=torch.float32, attention_impl: str = "auto",
-                 ffn_impl: str = "auto", device="cuda"):
+                 ffn_impl: str = "auto", device="cuda",
+                 hidden_dropout_impl: str = "auto"):
         super().__init__()
         self.config = config
         self.max_sents = max_sents
         self.bert = BertModel(config, dtype, attention_impl, ffn_impl,
-                              require_device(device))
+                              require_device(device), hidden_dropout_impl)
 
-    def forward(self, token_ids, attn_mask, sent_ids, token_type_ids=None):
-        last, _ = self.bert(token_ids, attn_mask, token_type_ids)
+    def forward(self, token_ids, attn_mask, sent_ids, token_type_ids=None,
+                seed=None):
+        last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
         return last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents)
 
 
@@ -78,8 +83,8 @@ class ConSentSpanEncoder(ConSentEncoder):
     """
 
     def forward(self, token_ids, attn_mask, sent_ids, span_mask,
-                token_type_ids=None):
-        last, _ = self.bert(token_ids, attn_mask, token_type_ids)
+                token_type_ids=None, seed=None):
+        last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
         return (last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents),
                 span_pool(last, span_mask))
 
@@ -93,16 +98,17 @@ class BiEncoder(nn.Module):
 
     def __init__(self, config: BertConfig, dtype=torch.float32,
                  attention_impl: str = "auto", ffn_impl: str = "auto",
-                 device="cuda"):
+                 device="cuda", hidden_dropout_impl: str = "auto"):
         super().__init__()
         dev = require_device(device)
         self.config = config
-        self.bert = BertModel(config, dtype, attention_impl, ffn_impl, dev)
+        self.bert = BertModel(config, dtype, attention_impl, ffn_impl, dev,
+                              hidden_dropout_impl)
         self.layer_weights = nn.Parameter(torch.zeros(
             config.num_hidden_layers + 1, dtype=torch.float32, device=dev))
 
-    def forward(self, token_ids, attn_mask, token_type_ids=None):
-        _, hidden_states = self.bert(token_ids, attn_mask, token_type_ids)
+    def forward(self, token_ids, attn_mask, token_type_ids=None, seed=None):
+        _, hidden_states = self.bert(token_ids, attn_mask, token_type_ids, seed)
         mix = torch.softmax(self.layer_weights, dim=0)
         cls_stack = torch.stack([h[:, 0, :] for h in hidden_states], dim=-1)
         return torch.matmul(cls_stack, mix)

@@ -23,7 +23,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LL = ctypes.c_longlong
+_LL, _U64, _U32 = ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_uint
+# dropout mode and bits: mode (0 none, 1 Philox, 2 operand), seed, counter
+# word 0, keep threshold
+_DROP = [_I, _U64, _U32, _U32]
 
 # name -> argtypes; every function returns the cudaError_t of its launch.
 # Without argtypes ctypes would pass each pointer as a 32-bit int.
@@ -31,9 +34,20 @@ SIGNATURES = {
     # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters, stream
     "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     # q, k, v, bias, out, b, nh, t, q/k/v/out strides (batch, head, token) x4,
-    # sm_scale, stream
-    "aspire_attention_bf16": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F, _P],
-    "aspire_attention_f32": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F, _P],
+    # sm_scale, dropout mode.., 1 - p in the compute dtype, bits, row
+    # statistics for the backward (or null), stream
+    "aspire_attention_bf16": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
+    "aspire_attention_f32": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
+    # q, k, v, bias, g, out, dq, dk, dv, stats, b, nh, t, 24 strides (q, k, v,
+    # g, out, dq, dk, dv), sm_scale, dropout mode.., 1 - p in the compute dtype
+    # and in f32, bits, stream
+    "aspire_attention_bwd_bf16": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
+                                 + [_F, _F, _P, _P],
+    "aspire_attention_bwd_f32": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
+                                + [_F, _F, _P, _P],
+    # x, out, bits, rows, h, mode, seed, counter word 0, threshold, scale, stream
+    "aspire_dropout_bf16": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
+    "aspire_dropout_f32": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
     # x, w1, b1, w2, b2, out, rows, hidden, inter, stream
     "aspire_ffn_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "aspire_ffn_f32": [_P] * 6 + [_I] * 3 + [_P],

@@ -17,7 +17,7 @@ import torch
 
 from ..core.types import MultiVec, masked_2d_softmax
 from .cdist import pairwise_l2, require_fp32_matmul
-from .sinkhorn import sinkhorn_potentials, sinkhorn_cost
+from .sinkhorn import sinkhorn_cost, sinkhorn_potentials
 from .sinkhorn_kernel import sinkhorn_potentials_kernel
 
 
@@ -137,6 +137,10 @@ def wasserstein_dist(
     solver: 'torch' (default; differentiable plain PyTorch) or 'kernel' (the
     CUDA solver of ops/sinkhorn_kernel.py: forward-only, balanced OT, both
     diameter modes -- the serving/rerank path).
+    diameter_value: the annealing's starting diameter, a scalar or f32[bsz],
+    instead of the one `diameter` names.  With `grouped_max_diameter` of the
+    batch one call gives what a loop of separate 'global' calls on equal
+    slices of it would (the grouped training loss, one slice a micro batch).
     """
     if solver not in ("torch", "kernel"):
         raise ValueError(f"solver must be 'torch' or 'kernel', got {solver!r}")
@@ -208,10 +212,11 @@ def get_dist_function(score_agg_type: str, hp=None):
         reach = getattr(hp, "geoml_reach", None) if hp is not None else None
         temp = getattr(hp, "sent_sm_temp", 1.0) if hp is not None else 1.0
 
-        def fn(query, cand, return_pair_sims=False):
+        def fn(query, cand, return_pair_sims=False, diameter_value=None):
             return wasserstein_dist(
                 query, cand, blur=blur, scaling=scaling, reach=reach,
-                temp=temp, return_pair_sims=return_pair_sims)
+                temp=temp, return_pair_sims=return_pair_sims,
+                diameter_value=diameter_value)
         return fn
     if score_agg_type == "l2attention":
         temp = getattr(hp, "cdatt_sm_temp", 1.0) if hp is not None else 1.0

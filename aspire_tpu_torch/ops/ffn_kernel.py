@@ -1,4 +1,5 @@
-"""CUDA fused FFN forward: wrapper, launch count and plain version.
+"""CUDA fused FFN forward: wrapper, launch count, plain version, and the
+split between no-grad and grad passes.
 
 Replaces the TPU kernel ``aspire_tpu/ops/pallas_ffn.py:_fwd_kernel`` (the
 primal of ``fused_ffn``): ``gelu_erf(x.W1 + b1).W2 + b2`` with the
@@ -11,6 +12,14 @@ gelu in f32, cast to the compute dtype, second product.  The weights are
 re-read by every row block, are served from the L2 cache, and reach shared
 memory through a ring of asynchronous copies kept in flight by two warps that
 do nothing else.
+
+Under grad the kernel is not used, as in the JAX package
+(``pallas_ffn.py`` ``fwd``/``bwd``): the forward is the plain composition,
+which rounds the pre-activation to x's dtype (the kernel does not), and the
+backward is the standard five products.  Those are plain large products that
+the JAX package leaves to XLA, so they go to ``torch.matmul`` here.  gelu and
+its derivative use the exact ``erf`` (the JAX package's polynomial differs by
+at most 1.5e-7).
 """
 from __future__ import annotations
 
@@ -35,13 +44,45 @@ def fused_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+class _FfnTrain(torch.autograd.Function):
+    """The grad-enabled split: plain composition forward saving (x, pre, w1,
+    w2), five-product backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        pre = torch.addmm(b1, x, w1)                      # rounded to x's dtype
+        # gelu works in f32 inside and rounds once, whatever pre's dtype
+        h = F.gelu(pre, approximate="none")
+        out = torch.addmm(b2, h, w2)
+        ctx.save_for_backward(x, pre, w1, w2)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, pre, w1, w2 = ctx.saved_tensors
+        dtype = x.dtype
+        h = F.gelu(pre, approximate="none")               # recomputed, not saved
+        dy = dy.to(dtype)
+        dh = torch.matmul(dy, w2.t())
+        # dh * (Phi(pre) + pre * phi(pre)) in f32, rounded once: one
+        # elementwise pass instead of a chain of them over [rows, f]
+        dpre = torch.ops.aten.gelu_backward(dh, pre, approximate="none")
+        dx = torch.matmul(dpre, w1.t())
+        dw1 = torch.matmul(x.t(), dpre)
+        db1 = dpre.float().sum(dim=0).to(dtype)
+        dw2 = torch.matmul(h.t(), dy)
+        db2 = dy.float().sum(dim=0).to(dtype)
+        return dx, dw1, db1, dw2, db2
+
+
 def fused_ffn(x, w1, b1, w2, b2) -> torch.Tensor:
-    """gelu-FFN forward with the intermediate kept on chip.
+    """gelu-FFN: with grad disabled the kernel (intermediate kept on chip),
+    with grad enabled the plain forward and the five-product backward.
 
     x: [..., h] bf16 or f32, flattened to [rows, h]; w1: [h, f], b1: [f],
-    w2: [f, h], b2: [h] in the same dtype (the caller casts parameters once).
-    Forward only: with grad enabled on inputs that require grad it raises.
-    CUDA tensors launch the kernel, CPU tensors run the plain version.
+    w2: [f, h], b2: [h] in the same dtype (the caller casts parameters).
+    Differentiable in all five.  Without grad, CUDA tensors launch the
+    kernel and CPU tensors run its plain version.
     """
     h = x.shape[-1]
     f = w1.shape[1]
@@ -52,10 +93,10 @@ def fused_ffn(x, w1, b1, w2, b2) -> torch.Tensor:
                          f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "fused_ffn is forward-only in this slice of the port (the split "
-            "autograd.Function comes with the training slice); call it under "
-            "torch.inference_mode() or torch.no_grad()")
+        if any(t.dtype != x.dtype for t in (w1, b1, w2, b2)):
+            raise TypeError("x and the parameters must share one dtype")
+        out = _FfnTrain.apply(x.reshape(-1, h), w1, b1, w2, b2)
+        return out.reshape(x.shape)
     if not x.is_cuda:
         return fused_ffn_plain(x, w1, b1, w2, b2)
     if h != HIDDEN or f % INTER_CHUNK:

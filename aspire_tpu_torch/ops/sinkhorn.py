@@ -52,6 +52,22 @@ def max_diameter(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(maxs - mins)
 
 
+def grouped_max_diameter(x: torch.Tensor, y: torch.Tensor,
+                         groups: int) -> torch.Tensor:
+    """`max_diameter` of each of `groups` equal contiguous slices of the batch,
+    repeated for the slice's elements: f32[bsz].  What a loop of `groups`
+    separate calls with diameter='global' would anneal from, in one call."""
+    bsz, d = x.shape[0], x.shape[-1]
+    if groups < 1 or bsz % groups:
+        raise ValueError(f"batch {bsz} does not split into {groups} groups")
+    xf = x.reshape(groups, -1, d)
+    yf = y.reshape(groups, -1, d)
+    mins = torch.minimum(xf.min(dim=1).values, yf.min(dim=1).values)
+    maxs = torch.maximum(xf.max(dim=1).values, yf.max(dim=1).values)
+    diam = torch.linalg.vector_norm(maxs - mins, dim=-1)
+    return diam.repeat_interleave(bsz // groups)
+
+
 def _box(x: torch.Tensor, w: torch.Tensor | None):
     if w is None:
         return x.min(dim=1).values, x.max(dim=1).values

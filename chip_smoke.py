@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
+    python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
 
 Phases, one JSON object a line:
 
@@ -9,12 +10,24 @@ Phases, one JSON object a line:
            torch / CUDA / nvcc / triton versions;
   build    nvcc builds aspire_tpu_torch/csrc/*.cu into one shared library;
   kernels  each CUDA kernel against its plain PyTorch version on the card, at
-           the shapes the serving path gives it and a few more, with times;
+           the shapes the serving and training paths give it and a few more,
+           with times; the dropout kernels with the bits given and with the
+           bits made in the kernel (masks equal to ops/philox.py's);
   serve    full-width BERT-base ConSent encode (bf16, 12 layers, weights from
            a numpy seed) of 16 abstracts x 256 tokens, then an OT rerank of
            document 0 against all 16; three requests; the same requests
            through the plain path (naive attention and FFN, PyTorch solver);
-           then once more in f32 at two layers.
+           then once more in f32 at two layers;
+  train    full-width BERT-base ts+otAspire model (sbalisentbienc, bf16 over
+           f32 parameters, weights from a numpy seed): the first step's loss
+           and gradient norms through the kernels against the plain path fed
+           the same Philox masks (the same model, superbatch and seed as the
+           step that follows); then Trainer.train for four
+           optimizer steps on superbatches [10, 3, 512] with one wide encode
+           a side, a dev-loss check on a batch with explicit negatives, the
+           checkpoint restored into a fresh model, the full state saved,
+           restored and one more step taken; then one step of the sequential
+           accumulation path at two layers.
 
 Any failed check raises: the run then prints {"ok": false, ...} and exits
 with code 1.  Without CUDA it exits with code 1 before printing any result.
@@ -50,9 +63,15 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+HEAD_START_CYCLES = 2_000_000      # about a millisecond of device spinning
+
+
 def cuda_ms(fn) -> dict:
     """Median / min / max milliseconds of fn() by CUDA events: REPEATS
-    readings of INNER back-to-back calls each, after WARMUP calls."""
+    readings of INNER back-to-back calls each, after WARMUP calls.  Before
+    each reading the device is kept spinning for about a millisecond, so that
+    the host has the INNER launches queued when the first event fires and the
+    reading is the device's time, not the wrapper's time on the host."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -60,6 +79,7 @@ def cuda_ms(fn) -> dict:
     for _ in range(REPEATS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HEAD_START_CYCLES)
         start.record()
         for _ in range(INNER):
             fn()
@@ -85,6 +105,21 @@ def check_close(name, got, want, atol, rtol=0.0, mask=None) -> dict:
                              f"{atol} + rtol {rtol}")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, "atol": atol,
             "rtol": rtol}
+
+
+def check_norm(name, got, want, rel: float, abs_of_max: float) -> dict:
+    """Holds a whole tensor: the error's norm over the reference's norm, and
+    the largest error as a share of the reference's largest value."""
+    got, want = got.float(), want.float()
+    err = got - want
+    norm_rel = float(err.norm() / want.norm())
+    max_abs, peak = float(err.abs().max()), float(want.abs().max())
+    if not (norm_rel <= rel and max_abs <= abs_of_max * peak):
+        raise AssertionError(f"{name}: error norm {norm_rel} of the reference's "
+                             f"(limit {rel}), max abs err {max_abs} of a largest "
+                             f"value {peak} (limit {abs_of_max} of it)")
+    return {"norm_rel_err": norm_rel, "max_abs_err": max_abs,
+            "max_abs_of_max": max_abs / peak}
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> dict:
@@ -244,6 +279,297 @@ def case_attention(b, nh, t, hd, dtype, dev) -> dict:
     return res
 
 
+def _tol(dtype) -> float:
+    """bf16: outputs are rounded to bf16 once on each side, so they differ by
+    an ulp or two (2^-8 relative) of O(1) values.  f32: other summation order
+    and expf routine."""
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+# K5b as a whole against the plain version in f32 on the same inputs: the
+# error's norm over the reference's, and the largest error over the
+# reference's largest value (check_norm).  bf16 rounds pd, ds and the outputs
+# to 8 bits and reads 2e-3 to 4e-3 and 4e-3 to 6e-3; a backward without the
+# 1 / (1 - p) of dprobs reads 0.10 in dq and dk, one without delta 0.16 and
+# 0.10 (bwd_sensitivity measures both in every run).
+BWD_NORM_TOL = {torch.bfloat16: {"rel": 1e-2, "abs_of_max": 1e-2},
+                torch.float32: {"rel": 2e-6, "abs_of_max": 2e-6}}
+
+
+def _random_bits(shape, seed, dev):
+    """uint32 bits from numpy, as the int32 pattern the kernels read."""
+    bits = np.random.default_rng(seed).integers(0, 2 ** 32, shape, dtype=np.uint32)
+    return torch.from_numpy(bits.view(np.int32)).to(dev)
+
+
+def case_attention_dropout(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
+    """K5a: the forward with dropout against its plain version, with the
+    bits given and with the bits made in the kernel (plain version fed by
+    ops/philox.py: the masks must be equal)."""
+    from aspire_tpu_torch.ops import attention_kernel as ak
+    q, k, v, bias = attention_inputs(b, nh, t, hd, dtype, 17 + t, dev)
+    scale, seed = 1.0 / math.sqrt(hd), 0x1234_5678_9ABC_DEF0 + t
+    tol = _tol(dtype)
+    # in-kernel Philox: v = identity-like probe recovers the mask exactly
+    keep = ak.attention_keep_mask(q.shape, p, seed=seed, site=site, device=dev)
+    out = ak.fused_attention(q, k, v, bias, scale, p, seed=seed, site=site)
+    torch.cuda.synchronize()
+    want = ak.fused_attention_plain(q, k, v, bias, scale, p, keep)
+    res = check_close("attention_dropout (philox)", out, want, atol=tol)
+    again = ak.fused_attention(q, k, v, bias, scale, p, seed=seed, site=site)
+    if not torch.equal(out, again):
+        raise AssertionError("attention_dropout: same seed, different output")
+    other = ak.fused_attention(q, k, v, bias, scale, p, seed=seed + 1, site=site)
+    if torch.equal(out, other):
+        raise AssertionError("attention_dropout: other seed, same output")
+    # the mask itself: one-hot values pick out the kept keys of 64 columns
+    eye = torch.zeros_like(v)
+    cols = torch.arange(min(t, hd), device=dev)
+    eye[:, :, cols, cols] = 1.0
+    probe = ak.fused_attention(q, k, eye, torch.zeros_like(bias), scale, p,
+                               seed=seed, site=site)
+    got_keep = probe[..., :len(cols)] != 0
+    want_keep = keep[..., :len(cols)]
+    probs_pos = ak.fused_attention(q, k, eye, torch.zeros_like(bias), scale)[
+        ..., :len(cols)] != 0                 # a probability can underflow bf16
+    if not torch.equal(got_keep & probs_pos, want_keep & probs_pos):
+        raise AssertionError("attention_dropout: kernel mask != philox mask")
+    keep_rate = float(keep.float().mean())
+    if keep.numel() >= 10 ** 7 and abs(keep_rate - (1 - p)) > 1e-3:
+        raise AssertionError(f"attention_dropout: keep rate {keep_rate}")
+    # explicit bits
+    bits = _random_bits((b, nh, t, t), 23 + t, dev)
+    keep_b = ak.attention_keep_mask(q.shape, p, rng_bits=bits)
+    out_b = ak.fused_attention(q, k, v, bias, scale, p, rng_bits=bits)
+    res_b = check_close("attention_dropout (bits)", out_b,
+                        ak.fused_attention_plain(q, k, v, bias, scale, p, keep_b),
+                        atol=tol)
+    mask = bias[:, None, None, :].to(dtype)
+    size = q.element_size()
+    res.update(
+        case=f"[{b},{nh},{t},{hd}] {str(dtype).split('.')[-1]} p={p}",
+        bits_max_abs_err=res_b["max_abs_err"], keep_rate=keep_rate,
+        masks_equal=True,
+        kernel_ms=cuda_ms(lambda: ak.fused_attention(
+            q, k, v, bias, scale, p, seed=seed, site=site)),
+        plain_ms=cuda_ms(lambda: ak.fused_attention_plain(
+            q, k, v, bias, scale, p, keep)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=p, scale=scale)),
+        **bound(4.0 * b * nh * t * hd * size + 4.0 * b * t,
+                4.0 * b * nh * t * t * hd,
+                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+    return res
+
+
+def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
+    """K5b: dq, dk, dv against autograd of the plain version, with the bits
+    given and made in the kernel; p = 0 differentiates the deterministic
+    forward.  Each gradient is held twice: element by element against the
+    plain version in the same dtype, and as a whole (error norm over reference
+    norm, largest error over largest value) against the plain version run in
+    f32 on the same inputs, which is what catches a wrong factor: typical
+    gradient entries are far below the element check's absolute part.
+    `bwd_sensitivity` reads what two such faults give under the second."""
+    from aspire_tpu_torch.ops import attention_kernel as ak
+    q, k, v, bias = attention_inputs(b, nh, t, hd, dtype, 19 + t, dev)
+    g = torch.from_numpy(np.random.default_rng(29 + t).standard_normal(
+        (b, t, nh, hd)).astype(np.float32)).to(dev, dtype).permute(0, 2, 1, 3)
+    scale, seed = 1.0 / math.sqrt(hd), 0x0FED_CBA9_8765_4321 + t
+    # gradients are sums of up to t products of O(1) values rounded to bf16
+    # once; the plain version's autograd rounds at other places (its dprobs
+    # passes through bf16), so bf16 gets a relative part as well
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 \
+        else dict(atol=1e-4, rtol=1e-4)
+
+    def grads(fn):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves).backward(g)
+        return [x.grad for x in leaves]
+
+    def grads_f32(keep_):
+        leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        ak.fused_attention_plain(*leaves, bias, scale, p, keep_).backward(g.float())
+        return [x.grad for x in leaves]
+
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0, "norm_rel_err": 0.0,
+             "max_abs_err_f32_ref": 0.0, "max_abs_of_max_f32_ref": 0.0}
+    norm_tol = BWD_NORM_TOL[dtype]
+
+    def compare(label, got, want, ref):
+        for name, a_, w_, r_ in zip(("dq", "dk", "dv"), got, want, ref):
+            r = check_close(f"attention_bwd {label} {name}", a_, w_, **tol)
+            n = check_norm(f"attention_bwd {label} {name} against f32", a_, r_,
+                           **norm_tol)
+            for key, val in (("max_abs_err", r["max_abs_err"]),
+                             ("max_rel_err", r["max_rel_err"]),
+                             ("norm_rel_err", n["norm_rel_err"]),
+                             ("max_abs_err_f32_ref", n["max_abs_err"]),
+                             ("max_abs_of_max_f32_ref", n["max_abs_of_max"])):
+                worst[key] = max(worst[key], val)
+
+    if p > 0:
+        keep = ak.attention_keep_mask(q.shape, p, seed=seed, site=site, device=dev)
+        kernel = lambda q_, k_, v_: ak.fused_attention(
+            q_, k_, v_, bias, scale, p, seed=seed, site=site)
+        got = grads(kernel)
+        torch.cuda.synchronize()
+        compare("philox", got, grads(lambda q_, k_, v_: ak.fused_attention_plain(
+            q_, k_, v_, bias, scale, p, keep)), grads_f32(keep))
+        # the backward's mask is the forward's: with a cotangent of ones in
+        # query row 0 only, dv of key j is pd[0, j] in every column -- zero
+        # exactly where the forward dropped (or the key is padding)
+        row = torch.zeros_like(g)
+        row[:, :, 0, :] = 1.0
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        kernel(*leaves).backward(row)
+        dv_zero = (leaves[2].grad.float().abs().sum(-1) == 0)      # [b, nh, t]
+        dropped = ~keep[:, :, 0, :]
+        pad = (bias < 0)[:, None, :].expand_as(dropped)
+        if not torch.equal(dv_zero | pad, dropped | pad):
+            raise AssertionError("attention_bwd: backward mask != forward mask")
+        bits = _random_bits((b, nh, t, t), 31 + t, dev)
+        keep_b = ak.attention_keep_mask(q.shape, p, rng_bits=bits)
+        compare("bits", grads(lambda q_, k_, v_: ak.fused_attention(
+            q_, k_, v_, bias, scale, p, rng_bits=bits)),
+            grads(lambda q_, k_, v_: ak.fused_attention_plain(
+                q_, k_, v_, bias, scale, p, keep_b)), grads_f32(keep_b))
+    else:
+        kernel = lambda q_, k_, v_: ak.fused_attention(q_, k_, v_, bias, scale)
+        got = grads(kernel)
+        torch.cuda.synchronize()
+        compare("p=0", got, grads(lambda q_, k_, v_: ak.fused_attention_plain(
+            q_, k_, v_, bias, scale)), grads_f32(None))
+    again = grads(kernel)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError("attention_bwd: two runs differ")
+
+    mask = bias[:, None, None, :].to(dtype)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out_k = kernel(*leaves)
+    out_p = ak.fused_attention_plain(*leaves, bias, scale, p,
+                                     keep if p > 0 else None)
+    out_l = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           dropout_p=p, scale=scale)
+
+    def bwd_ms(out):
+        return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                   retain_graph=True))
+
+    size = q.element_size()
+    res = dict(worst, atol=tol["atol"], rtol=tol["rtol"],
+               norm_rel_limit=norm_tol["rel"],
+               max_abs_limit_of_max=norm_tol["abs_of_max"])
+    res.update(
+        case=f"[{b},{nh},{t},{hd}] {str(dtype).split('.')[-1]} p={p}",
+        kernel_ms=bwd_ms(out_k), plain_ms=bwd_ms(out_p),
+        library_ms=bwd_ms(out_l),
+        # reads q, k, v, g, the forward's output and two floats a row,
+        # writes dq, dk, dv; five products of 2 t t hd
+        **bound(8.0 * b * nh * t * hd * size + 4.0 * b * t + 8.0 * b * nh * t,
+                10.0 * b * nh * t * t * hd,
+                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+    return res
+
+
+def bwd_sensitivity(dev, b=4, nh=12, t=512, hd=64, p=0.1) -> dict:
+    """What `check_norm` reads for a backward with a fault, on the inputs of
+    the bf16 case of this shape: the backward's formulas written out in f32
+    PyTorch, right and with one term left out, against autograd of the plain
+    version in f32.  Fails unless each fault reads above the bf16 limit."""
+    from aspire_tpu_torch.ops import attention_kernel as ak
+    q, k, v, bias = (x.float() for x in attention_inputs(
+        b, nh, t, hd, torch.bfloat16, 19 + t, dev))
+    g = torch.from_numpy(np.random.default_rng(29 + t).standard_normal(
+        (b, t, nh, hd)).astype(np.float32)).to(dev, torch.bfloat16).permute(
+        0, 2, 1, 3).float()
+    scale = 1.0 / math.sqrt(hd)
+    keep = ak.attention_keep_mask(q.shape, p, seed=5, site=3, device=dev)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ak.fused_attention_plain(*leaves, bias, scale, p, keep).backward(g)
+    ref = [x.grad for x in leaves]
+
+    def backward(inv_keep: float, with_delta: bool):
+        probs = torch.softmax(q @ k.transpose(-1, -2) * scale
+                              + bias[:, None, None, :], dim=-1)
+        pd = torch.where(keep, probs / (1.0 - p), 0.0)
+        dprobs = torch.where(keep, (g @ v.transpose(-1, -2)) * inv_keep, 0.0)
+        delta = (dprobs * probs).sum(-1, keepdim=True) if with_delta else 0.0
+        ds = probs * (dprobs - delta) * scale
+        return ds @ k, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ g
+
+    def reads(got):
+        return {n: float((a_ - r_).norm() / r_.norm())
+                for n, a_, r_ in zip(("dq", "dk", "dv"), got, ref)}
+
+    out = {"right": reads(backward(1.0 / (1.0 - p), True)),
+           "without_1_over_keep_prob": reads(backward(1.0, True)),
+           "without_delta": reads(backward(1.0 / (1.0 - p), False))}
+    limit = BWD_NORM_TOL[torch.bfloat16]["rel"]
+    if max(out["right"].values()) > 2e-6 or any(
+            min(out[f]["dq"], out[f]["dk"]) <= 2 * limit
+            for f in ("without_1_over_keep_prob", "without_delta")):
+        raise AssertionError(f"attention_bwd: the norm check at {limit} does "
+                             f"not tell a faulty backward apart: {out}")
+    return dict(out, case=f"[{b},{nh},{t},{hd}] f32 formulas p={p}",
+                norm_rel_limit=limit)
+
+
+def case_dropout(rows, h, dtype, dev, p=0.1, site=7) -> dict:
+    """K6: exact against the plain version in both modes, forward and
+    backward; keep rate; same seed, same output."""
+    from aspire_tpu_torch.ops import dropout_kernel as dk
+    x = torch.from_numpy(np.random.default_rng(37 + rows).standard_normal(
+        (rows, h)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(np.random.default_rng(41 + rows).standard_normal(
+        (rows, h)).astype(np.float32)).to(dev, dtype)
+    seed = 0x5EED_0000_0000_0001 + rows
+    keep = dk.keep_mask(x.shape, p, seed=seed, site=site, device=dev)
+    xr = x.clone().requires_grad_(True)
+    out = dk.fused_dropout(xr, p, seed=seed, site=site)
+    out.backward(g)
+    torch.cuda.synchronize()
+    diffs = []
+
+    def differs(got, want) -> bool:
+        diffs.append(check_close("dropout", got, want, atol=0.0))
+        return not torch.equal(got, want)
+
+    if differs(out.detach(), dk.dropout_plain(x, keep, p)):
+        raise AssertionError("dropout: kernel != plain version (philox)")
+    if differs(xr.grad, dk.dropout_plain(g, keep, p)):
+        raise AssertionError("dropout: backward != plain version (philox)")
+    if not torch.equal(out.detach(), dk.fused_dropout(x, p, seed=seed, site=site)):
+        raise AssertionError("dropout: same seed, different output")
+    if torch.equal(out.detach(), dk.fused_dropout(x, p, seed=seed, site=site + 1)):
+        raise AssertionError("dropout: other site, same mask")
+    keep_rate = float(keep.float().mean())
+    if keep.numel() >= 10 ** 7 and abs(keep_rate - (1 - p)) > 1e-3:
+        raise AssertionError(f"dropout: keep rate {keep_rate}")
+    bits = _random_bits((rows, h), 43 + rows, dev)
+    keep_b = dk.keep_mask(x.shape, p, rng_bits=bits)
+    xr = x.clone().requires_grad_(True)
+    out_b = dk.fused_dropout(xr, p, rng_bits=bits)
+    out_b.backward(g)
+    if differs(out_b.detach(), dk.dropout_plain(x, keep_b, p)) \
+            or differs(xr.grad, dk.dropout_plain(g, keep_b, p)):
+        raise AssertionError("dropout: kernel != plain version (bits)")
+    size = x.element_size()
+    xl = x.clone().requires_grad_(True)
+    out_l = F.dropout(xl, p, training=True)
+    return dict(
+        max_abs_err=max(d["max_abs_err"] for d in diffs),
+        max_rel_err=max(d["max_rel_err"] for d in diffs), atol=0.0, rtol=0.0,
+        case=f"[{rows},{h}] {str(dtype).split('.')[-1]} p={p}",
+        keep_rate=keep_rate, masks_equal=True,
+        kernel_ms=cuda_ms(lambda: dk.fused_dropout(x, p, seed=seed, site=site)),
+        plain_ms=cuda_ms(lambda: dk.dropout_plain(x, keep, p)),
+        library_ms=cuda_ms(lambda: F.dropout(x, p, training=True)),
+        library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+            out_l, xl, g, retain_graph=True)),
+        **bound(2.0 * rows * h * size, 1.0 * rows * h, PEAK_FP32))
+
+
 def ffn_inputs(rows, dtype, seed, dev, h=768, f=3072):
     rng = np.random.default_rng(seed)
 
@@ -282,8 +608,10 @@ def case_ffn(rows, dtype, dev) -> dict:
 
 
 def phase_kernels(dev) -> dict:
-    """Runs every case; the first case of each kernel is the serving path's
-    shape and feeds the contract line."""
+    """Runs every case; the first case of each kernel is its main path's shape
+    (serving for the first three, training for the rest) and feeds the
+    contract line.  Attention [3,12,512,64] and the FFN at 1536 rows are what
+    the training path's dev check gives the deterministic kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
         "sinkhorn": [case_sinkhorn(16, "global", dev),
@@ -291,16 +619,40 @@ def phase_kernels(dev) -> dict:
                      case_sinkhorn(1024, "global", dev),
                      case_sinkhorn(1024, "pair", dev)],
         "attention": [case_attention(16, 12, 256, 64, bf16, dev),
+                      case_attention(3, 12, 512, 64, bf16, dev),
                       case_attention(4, 12, 512, 64, bf16, dev),
                       case_attention(16, 12, 256, 64, f32, dev),
                       case_attention(4, 12, 512, 64, f32, dev),
                       case_attention(2, 12, 200, 64, bf16, dev)],
-        "ffn": [case_ffn(4096, bf16, dev), case_ffn(4059, bf16, dev),
+        "ffn": [case_ffn(4096, bf16, dev), case_ffn(1536, bf16, dev),
+                case_ffn(4059, bf16, dev),
                 case_ffn(1024, bf16, dev),
                 case_ffn(4096, f32, dev), case_ffn(1001, f32, dev)],
+        # the training shape first: 30 sequences of 512 tokens an encode
+        "attention_dropout": [
+            case_attention_dropout(30, 12, 512, 64, bf16, dev),
+            case_attention_dropout(16, 12, 256, 64, bf16, dev),
+            case_attention_dropout(4, 12, 512, 64, bf16, dev),
+            case_attention_dropout(2, 12, 200, 64, bf16, dev),
+            case_attention_dropout(4, 12, 512, 64, f32, dev),
+            case_attention_dropout(2, 12, 200, 64, f32, dev)],
+        "attention_bwd": [
+            case_attention_bwd(30, 12, 512, 64, bf16, dev),
+            case_attention_bwd(30, 12, 512, 64, bf16, dev, p=0.0),
+            case_attention_bwd(16, 12, 256, 64, bf16, dev),
+            case_attention_bwd(4, 12, 512, 64, bf16, dev),
+            case_attention_bwd(2, 12, 200, 64, bf16, dev),
+            case_attention_bwd(2, 12, 200, 64, bf16, dev, p=0.0),
+            case_attention_bwd(4, 12, 512, 64, f32, dev),
+            case_attention_bwd(2, 12, 200, 64, f32, dev),
+            case_attention_bwd(2, 12, 200, 64, f32, dev, p=0.0)],
+        "dropout": [case_dropout(15360, 768, bf16, dev),
+                    case_dropout(15360, 768, f32, dev),
+                    case_dropout(1001, 768, bf16, dev)],
     }
     for name, rows in cases.items():
         emit("kernel_cases", kernel=name, cases=rows)
+    emit("attention_bwd_sensitivity", **bwd_sensitivity(dev))
     return cases
 
 
@@ -386,11 +738,26 @@ def answer(enc, request, solver: str):
 
 
 def counters() -> dict:
+    """Kernel name -> (wrapper, the attribute holding its launch count)."""
     from aspire_tpu_torch.ops.attention_kernel import fused_attention
+    from aspire_tpu_torch.ops.dropout_kernel import fused_dropout
     from aspire_tpu_torch.ops.ffn_kernel import fused_ffn
     from aspire_tpu_torch.ops.sinkhorn_kernel import sinkhorn_solve
-    return {"sinkhorn": sinkhorn_solve, "attention": fused_attention,
-            "ffn": fused_ffn}
+    return {"sinkhorn": (sinkhorn_solve, "launches"),
+            "attention": (fused_attention, "launches"),
+            "ffn": (fused_ffn, "launches"),
+            "attention_dropout": (fused_attention, "dropout_launches"),
+            "attention_bwd": (fused_attention, "bwd_launches"),
+            "dropout": (fused_dropout, "launches")}
+
+
+def read_counts() -> dict:
+    return {k: getattr(w, attr) for k, (w, attr) in counters().items()}
+
+
+def reset_counts() -> None:
+    for w, attr in counters().values():
+        setattr(w, attr, 0)
 
 
 def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
@@ -405,19 +772,18 @@ def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
     plain.load_state_dict(state)
     requests = [make_request(cfg, 100 + i, dev) for i in range(n_requests)]
     layers = cfg.num_hidden_layers
-    wrappers = counters()
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     answers, per_request = [], []
     with torch.inference_mode():
         for request in requests:
-            before = {k: w.launches for k, w in wrappers.items()}
+            before = read_counts()
             answers.append(answer(enc, request, solver="kernel"))
-            per_request.append({k: w.launches - before[k]
-                                for k, w in wrappers.items()})
-    launches = {k: w.launches for k, w in wrappers.items()}
-    want = {"sinkhorn": 1, "attention": layers, "ffn": layers}
+            per_request.append({k: v - before[k]
+                                for k, v in read_counts().items()})
+    launches = read_counts()
+    want = {"sinkhorn": 1, "attention": layers, "ffn": layers,
+            "attention_dropout": 0, "attention_bwd": 0, "dropout": 0}
     for got in per_request:
         if got != want:
             raise AssertionError(f"{label}: launches per request {got}, "
@@ -480,6 +846,233 @@ def phase_serve(dev, layers: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- train
+def synth_superbatch(seed: int, n_micro: int, micro: int, seq: int, smax: int,
+                     vocab: int, neg: bool = False) -> dict:
+    """A training superbatch in the tokenizer's layout, from a numpy seed:
+    [n_micro, micro, ...] token and sentence arrays (about seq / smax tokens a
+    sentence, all smax sentences present) and pre-aligned index pairs."""
+    rng = np.random.default_rng(seed)
+    shape = (n_micro, micro, seq)
+    sent_ids = np.broadcast_to(
+        np.clip(np.arange(seq) * smax // seq, 0, smax - 1), shape).copy()
+
+    def feats():
+        return {"token_ids": rng.integers(5, vocab, shape),
+                "attn_mask": np.ones(shape, np.int64), "sent_ids": sent_ids,
+                "abs_lens": np.full((n_micro, micro), smax, np.int64)}
+
+    out = {"query": feats(), "pos": feats()}
+    out["pos"]["align"] = rng.integers(0, smax, (n_micro, micro, 2))
+    if neg:
+        out["neg"] = feats()
+    return out
+
+
+TRAIN_COUNTERS = ("attention_dropout", "attention_bwd", "dropout")
+
+
+def flagship(cfg, dev, impl: str = "auto"):
+    """The ts+otAspire training configuration on `cfg`, weights from seed 0."""
+    from aspire_tpu_torch.core.config import ModelHParams
+    from aspire_tpu_torch.models.convert import model_state_dict_from_flax_params
+    from aspire_tpu_torch.models.doc_models import build_model
+    hp = ModelHParams(model_name="sbalisentbienc",
+                      score_aggregation="l2wasserstein", sent_sm_temp=5000.0,
+                      sent_loss_prop=1.0, sentsup_loss_prop=1.0,
+                      max_seq_len=512, max_sents=20, attention_impl=impl,
+                      hidden_dropout_impl=impl, ffn_impl=impl)
+    model = build_model(hp, cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(model_state_dict_from_flax_params(
+        random_flax_tree(cfg, seed=0), hp.model_name, cfg))
+    return hp, model
+
+
+def _group_norms(model) -> dict:
+    """Gradient norm of each parameter group: embeddings and every layer."""
+    sums = {}
+    for name, p in model.named_parameters():
+        group = name.split(".")[2]           # encoder.bert.<group>...
+        sums[group] = sums.get(group, 0.0) + float(p.grad.float().pow(2).sum())
+    return {k: math.sqrt(v) for k, v in sums.items()}
+
+
+def kernel_against_plain_step(cfg, dev, superbatch, seed: int) -> dict:
+    """The main path's first step (its model, superbatch and generator seed):
+    loss and gradients through the kernels and through the plain path (naive
+    attention, dropout and FFN) fed the same Philox masks.  The plain path
+    keeps [30, 12, 512, 512] scores, probabilities and masks of every layer
+    for its backward."""
+    from aspire_tpu_torch.train.trainer import tree_to_device as _to
+    sb = _to(superbatch, dev)
+    out, peak_mb = {}, {}
+    for label, impl in (("kernel", "auto"), ("plain", "naive")):
+        torch.cuda.reset_peak_memory_stats()
+        _, model = flagship(cfg, dev, impl)
+        loss, _ = model.train_loss_grouped(
+            sb, torch.Generator().manual_seed(seed), True)
+        loss.backward()
+        out[label] = (float(loss.detach()), _group_norms(model))
+        peak_mb[label] = torch.cuda.max_memory_allocated() / 2 ** 20
+        del model, loss
+        torch.cuda.empty_cache()
+    (lk, nk), (lp, np_) = out["kernel"], out["plain"]
+    # bf16 activations: both paths round at the same places but for the FFN
+    # pre-activation and the backward's dprobs, independently over 12 layers
+    if not math.isfinite(lk) or abs(lk - lp) > 1e-2 * abs(lp):
+        raise AssertionError(f"train: first-step loss {lk} (kernels) against "
+                             f"{lp} (plain path)")
+    worst = max(abs(nk[g] - np_[g]) / np_[g] for g in np_)
+    if not worst <= 0.05:
+        raise AssertionError(f"train: gradient norms differ by {worst}: "
+                             f"{nk} against {np_}")
+    return {"superbatch": list(sb["query"]["token_ids"].shape),
+            "loss_kernel": lk, "loss_plain": lp, "peak_memory_mb": peak_mb,
+            "tolerance": {"loss_rel": 1e-2, "grad_norm_rel": 0.05},
+            "grad_norm_rel_worst": worst, "grad_norms_kernel": nk,
+            "grad_norms_plain": np_}
+
+
+def _timed(batches, marks, counts):
+    """Yields the superbatches, noting the host clock (after a synchronise)
+    and the launch counts before each."""
+    for sb in batches:
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(read_counts())
+        yield sb
+
+
+def phase_train(dev, layers: int) -> dict:
+    import tempfile
+    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
+    from aspire_tpu_torch.models.bert import BertConfig
+    from aspire_tpu_torch.train.trainer import Trainer
+    from aspire_tpu_torch.train.trainer import tree_to_device as _to
+    cfg = BertConfig(num_hidden_layers=layers)
+    vocab = cfg.vocab_size
+    steps = [synth_superbatch(300 + i, 10, 3, 512, 20, vocab) for i in range(5)]
+    train_seed = 11
+    against_plain = kernel_against_plain_step(cfg, dev, steps[0], train_seed)
+
+    hp, model = flagship(cfg, dev)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tp = TrainHParams(batch_size=3, accumulated_batch_size=30,
+                      update_rule="adam", learning_rate=2e-5,
+                      lr_decay_method="warmuplin", num_warmup_steps=20,
+                      train_size=3000, es_check_every=40)
+    rc = RunConfig(model=hp, train=tp)
+    dev_sb = synth_superbatch(400, 1, 3, 512, 20, vocab, neg=True)
+    dev_batch = {k: {n: a[0] for n, a in v.items()} for k, v in dev_sb.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks, counts = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, rc, tmp, fused_accum=True)
+        state = trainer.init_state()
+        state = trainer.train(state, _timed(steps[:4], marks, counts),
+                              dev_batches_fn=lambda: [dev_batch],
+                              seed=train_seed)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(read_counts())
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        per_step = [{k: b_[k] - a_[k] for k in a_}
+                    for a_, b_ in zip(counts[:-1], counts[1:])]
+        # two encodes a step; a backward is two launches (rows, keys); 25
+        # dropout sites at 12 layers, forward and backward
+        want = {"attention_dropout": 2 * layers, "attention_bwd": 2 * 2 * layers,
+                "dropout": 2 * 2 * (1 + 2 * layers)}
+        for i, got in enumerate(per_step):
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"train: step {i} launched {got}, "
+                                     f"expected {want}")
+        # the dev check came after step 4: three deterministic encodes
+        dev_want = {"attention": 3 * layers, "ffn": 3 * layers}
+        if {k: per_step[3][k] for k in dev_want} != dev_want \
+                or any(got["attention"] or got["ffn"] for got in per_step[:3]):
+            raise AssertionError(f"train: dev check launched {per_step}")
+        if state.step != 4 or len(trainer.dev_score_history) != 1:
+            raise AssertionError(f"train: step {state.step}, dev checks "
+                                 f"{trainer.dev_score_history}")
+        losses = trainer.loss_history
+        if not losses or not all(math.isfinite(x) for x in losses) \
+                or not math.isfinite(trainer.dev_score_history[0]):
+            raise AssertionError(f"train: losses {losses}, dev score "
+                                 f"{trainer.dev_score_history}")
+        # the step held against the plain path above was this run's first
+        first_loss = sum(losses[:10])
+        if abs(first_loss - against_plain["loss_kernel"]) > 1e-4 * first_loss:
+            raise AssertionError(
+                f"train: the first step's loss {first_loss} is not the "
+                f"{against_plain['loss_kernel']} held against the plain path")
+        after = model.state_dict()
+        changed = sum(not torch.equal(before[k], after[k]) for k in before)
+        finite = all(bool(torch.isfinite(v).all()) for v in after.values())
+        if changed != len(before) or not finite:
+            raise AssertionError(f"train: {changed} of {len(before)} "
+                                 f"parameters changed, finite={finite}")
+        # checkpoint -> a fresh model gives the same dev loss
+        _, restored = flagship(cfg, dev)
+        restored.load_state_dict(trainer.load_checkpoint("cur_best"))
+        dev_dev = _to(dev_batch, dev)
+        with torch.no_grad():
+            loss_a = float(model.train_loss(dev_dev, None, False))
+            loss_b = float(restored.train_loss(dev_dev, None, False))
+        if loss_a != loss_b or abs(-loss_a - trainer.dev_score_history[0]) \
+                > 1e-6 * abs(loss_a):
+            raise AssertionError(f"train: dev loss {loss_a}, restored "
+                                 f"{loss_b}, check {trainer.dev_score_history}")
+        # full state -> another trainer takes the fifth step
+        trainer.save_full_state(state)
+        resumed = Trainer(restored, rc, tmp, fused_accum=True)
+        state2 = resumed.restore_full_state()
+        lr = state2.scheduler.get_last_lr()[0]
+        state2 = resumed.train(state2, [steps[4]], seed=12)
+        if state2.step != 5 or resumed.best_score != trainer.best_score \
+                or not all(math.isfinite(x) for x in resumed.loss_history):
+            raise AssertionError(f"train: resumed to step {state2.step}, "
+                                 f"losses {resumed.loss_history}")
+    launches = read_counts()
+    step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])]
+
+    # the sequential accumulation path, once, at two layers
+    small = BertConfig(num_hidden_layers=2)
+    _, model2 = flagship(small, dev)
+    base = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_trainer = Trainer(model2, rc, tmp, fused_accum=False)
+        state3 = seq_trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq_losses = seq_trainer.train_step(
+            state3, _to(steps[0], dev), torch.Generator().manual_seed(13))
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    seq_counts = {k: read_counts()[k] - base[k] for k in TRAIN_COUNTERS}
+    seq_want = {"attention_dropout": 10 * 2 * 2,
+                "attention_bwd": 10 * 2 * 2 * 2, "dropout": 10 * 2 * 2 * 5}
+    if seq_counts != seq_want or state3.step != 1 \
+            or not bool(torch.isfinite(seq_losses).all()):
+        raise AssertionError(f"train: sequential path launched {seq_counts}, "
+                             f"expected {seq_want}; losses {seq_losses}")
+
+    emit("train", model="sbalisentbienc l2wasserstein", dtype="bfloat16",
+         layers=layers, hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         superbatch=[10, 3, 512], max_sents=20, optimizer="adam warmuplin",
+         first_step_ms=step_ms[0], later_step_ms=step_ms[1:3],
+         step_with_dev_check_and_checkpoints_ms=step_ms[3],
+         peak_memory_mb=peak_mb, launches_per_step=want,
+         launches_dev_check=dev_want, launches=launches,
+         first_losses=losses[:10], first_step_loss=first_loss, dev_score=trainer.dev_score_history[0],
+         lr_at_resume=lr, resumed_step=state2.step,
+         kernel_path_against_plain_path=against_plain,
+         sequential_path={"layers": 2, "step_ms": seq_ms,
+                          "launches": seq_counts,
+                          "losses": [float(x) for x in seq_losses]})
+    return launches
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -488,7 +1081,20 @@ KERNELS = [
      "aspire_tpu/ops/pallas_attention.py:210"),
     ("ffn", "aspire_tpu_torch/csrc/ffn.cu",
      "aspire_tpu/ops/pallas_ffn.py:102"),
+    ("attention_dropout", "aspire_tpu_torch/csrc/attention.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_bwd", "aspire_tpu_torch/csrc/attention_bwd.cu",
+     "aspire_tpu/ops/pallas_attention.py:229"),
+    ("dropout", "aspire_tpu_torch/csrc/dropout.cu",
+     "aspire_tpu/ops/pallas_dropout.py:110"),
 ]
+
+
+# the kernels each path must launch (its counts are set to 0 just before it
+# is driven and read just after)
+SERVE_KERNELS = ("sinkhorn", "attention", "ffn")
+TRAIN_KERNELS = ("attention", "ffn", "attention_dropout", "attention_bwd",
+                 "dropout")
 
 
 def run(args) -> dict:
@@ -499,18 +1105,25 @@ def run(args) -> dict:
     phase_device()
     phase_build()
     cases = phase_kernels(dev)
-    launches = phase_serve(dev, args.layers)
+    served = phase_serve(dev, args.layers)
+    trained = phase_train(dev, args.train_layers)
+    for path, counts, names in (("serving", served, SERVE_KERNELS),
+                                ("training", trained, TRAIN_KERNELS)):
+        idle = [name for name in names if counts[name] < 1]
+        if idle:
+            raise AssertionError(f"the {path} path launched no {idle}")
     rows = []
     for name, source, replaces in KERNELS:
-        first = cases[name][0]              # the serving path's shape
-        if launches[name] < 1:
-            raise AssertionError(f"the serving path never launched {name}")
+        first = cases[name][0]              # the main path's shape
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": served[name] + trained[name],
+            "launches_serve": served[name], "launches_train": trained[name],
             "shape": first["case"], "max_abs_err": first["max_abs_err"],
             "max_rel_err": first["max_rel_err"],
             "tolerance": {"atol": first["atol"], "rtol": first["rtol"]},
+            **{key: first[key] for key in ("norm_rel_err", "norm_rel_limit")
+               if key in first},
             "ms": first["kernel_ms"]["median"],
             "kernel_ms": first["kernel_ms"]["median"],
             "kernel_ms_spread": [first["kernel_ms"]["min"],
@@ -526,6 +1139,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--layers", type=int, default=12,
                         help="depth of the bf16 serving model (widths stay "
+                             "BERT-base)")
+    parser.add_argument("--train-layers", type=int, default=12,
+                        help="depth of the bf16 training model (widths stay "
                              "BERT-base)")
     args = parser.parse_args()
     if not torch.cuda.is_available():

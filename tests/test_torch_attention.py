@@ -85,8 +85,15 @@ def test_cpu_tensors_count_no_launch(rng):
 
 def test_dropout_and_bad_shapes_raise(rng):
     q, k, v, bias = (torch.from_numpy(a) for a in _inputs(rng))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="seed or rng_bits"):
         fused_attention(q, k, v, bias, float(SCALE), dropout_p=0.1)
+    with pytest.raises(ValueError, match="rng_bits must be"):
+        fused_attention(q, k, v, bias, float(SCALE), dropout_p=0.1,
+                        rng_bits=torch.zeros((1, 1, 2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="dropout_p"):
+        fused_attention(q, k, v, bias, float(SCALE), dropout_p=1.0, seed=1)
+    dropped = fused_attention(q, k, v, bias, float(SCALE), dropout_p=0.1, seed=1)
+    assert dropped.shape == q.shape and bool(torch.isfinite(dropped).all())
     with pytest.raises(ValueError, match="bias"):
         fused_attention(q, k, v, bias[:, :-1], float(SCALE))
     with pytest.raises(ValueError, match="share"):

@@ -192,8 +192,10 @@ def test_train_mode_with_dropout_raises_and_cuda_default_is_explicit(rng):
     cfg = tb.BertConfig.tiny()
     model = tb.BertModel(cfg, device="cpu")         # a fresh module is in train()
     tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(tok, torch.ones_like(tok))
+    with pytest.raises(ValueError, match="needs the encode's seed"):
+        model(tok, torch.ones_like(tok))            # dropout without a seed
+    last, _ = model(tok, torch.ones_like(tok), seed=3)
+    assert bool(torch.isfinite(last).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             te.ConSentEncoder(cfg)                  # default device is the GPU
@@ -215,3 +217,100 @@ def test_cast_cache_follows_parameter_updates(rng):
     with torch.inference_mode():
         moved, _ = model(tok, mask)
     assert float((moved - first).abs().max()) > 1e-3
+
+
+# ---- train() mode -----------------------------------------------------------
+def _train_inputs(rng, cfg):
+    tok, mask, typ, _ = _inputs(rng, cfg)
+    return (torch.from_numpy(tok).long(), torch.from_numpy(mask).long(),
+            torch.from_numpy(typ).long())
+
+
+@pytest.mark.parametrize("impls", ["auto", "fused", "naive"])
+def test_train_mode_bf16_runs_backward_and_gives_f32_gradients(rng, impls):
+    cfg = tb.BertConfig.tiny()
+    model = tb.BertModel(cfg, dtype=torch.bfloat16, attention_impl=impls,
+                         ffn_impl=impls, hidden_dropout_impl=impls, device="cpu")
+    assert model.training
+    tok, mask, typ = _train_inputs(rng, cfg)
+    last, hidden = model(tok, mask, typ, seed=17)
+    assert last.dtype == torch.float32 and len(hidden) == cfg.num_hidden_layers + 1
+    last.square().mean().backward()
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert bool(torch.isfinite(p.grad).all()), name
+    assert float(model.layer_0.intermediate_dense.weight.grad.abs().max()) > 0
+    # the same seed gives the same pass, another seed another one
+    again, _ = model(tok, mask, typ, seed=17)
+    other, _ = model(tok, mask, typ, seed=18)
+    assert torch.equal(last, again) and not torch.equal(last, other)
+
+
+def test_dropout_sites_dtypes_and_attention_sites(rng, monkeypatch):
+    """25 hidden sites an encode at 12 layers, here 1 + 2 * layers: site 0 on
+    the f32 LayerNorm output, 1 + 2i and 2 + 2i on the compute dtype; the
+    attention site is the layer index; one seed serves them all."""
+    cfg = tb.BertConfig.tiny(num_hidden_layers=3)
+    model = tb.BertModel(cfg, dtype=torch.bfloat16, attention_impl="fused",
+                         hidden_dropout_impl="fused", device="cpu")
+    hidden, attention = [], []
+    real_dropout, real_attention = tb.fused_dropout, tb.fused_attention
+
+    def spy_dropout(x, p, *, seed, site):
+        hidden.append((site, x.dtype, p, seed))
+        return real_dropout(x, p, seed=seed, site=site)
+
+    def spy_attention(q, k, v, bias, scale, p=0.0, *, seed=None, site=0):
+        attention.append((site, p, seed))
+        return real_attention(q, k, v, bias, scale, p, seed=seed, site=site)
+
+    monkeypatch.setattr(tb, "fused_dropout", spy_dropout)
+    monkeypatch.setattr(tb, "fused_attention", spy_attention)
+    model(*_train_inputs(rng, cfg), seed=99)
+    assert [s for s, *_ in hidden] == list(range(1 + 2 * 3))
+    assert hidden[0][1] == torch.float32
+    assert {d for _, d, *_ in hidden[1:]} == {torch.bfloat16}
+    assert {(p, seed) for _, _, p, seed in hidden} == {(0.1, 99)}
+    assert attention == [(i, 0.1, 99) for i in range(3)]
+    hidden.clear(), attention.clear()
+    model.eval()
+    model(*_train_inputs(rng, cfg))
+    assert hidden == [] and attention == []           # eval: identity, naive
+
+
+def test_select_hidden_dropout_policy():
+    sel = tb._select_hidden_dropout
+    assert sel("auto", on_cuda=True) == "fused"
+    assert sel("auto", on_cuda=False) == "naive"
+    assert sel("fused", on_cuda=False) == "fused"
+    assert sel("naive", on_cuda=True) == "naive"
+    with pytest.raises(ValueError, match="hidden_dropout_impl"):
+        sel("flash")
+    assert tb._select_impl("auto", False, 0.1, on_cuda=True) == "fused"
+    assert tb._select_impl("auto", False, 0.0, on_cuda=True) == "fused_det"
+    assert tb._select_impl("fused", False, 0.1, on_cuda=False) == "fused"
+    assert tb._select_impl("auto", False, 0.1, on_cuda=False) == "naive"
+
+
+def test_cast_copies_are_cached_without_grad_and_in_graph_with_it(rng):
+    cfg = tb.BertConfig.tiny(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    layer = tb.BertLayer(cfg, dtype=torch.bfloat16, ffn_impl="fused", device="cpu")
+    x = torch.from_numpy(rng.standard_normal((2, 5, cfg.hidden_size))
+                         .astype(np.float32)).bfloat16()
+    bias = torch.zeros((2, 5))
+    with torch.no_grad():
+        a = layer(x, bias)
+    cached = dict(layer._cache._store)
+    assert cached and all(not v[1].requires_grad for v in cached.values())
+    out = layer(x, bias)                              # under grad: no cache use
+    assert {k: id(v[1]) for k, v in layer._cache._store.items()} \
+        == {k: id(v[1]) for k, v in cached.items()}
+    out.float().sum().backward()
+    w = layer.intermediate_dense.weight
+    assert w.grad is not None and w.grad.dtype == torch.float32
+    assert w.grad.shape == w.shape
+    # the training forward rounds the FFN pre-activation; the no-grad kernel
+    # path does not: a few bf16 ulps apart at most
+    assert float((a.float() - out.detach().float()).abs().max()) < 0.1

@@ -142,3 +142,49 @@ def test_bienc_layer_weights_extraction():
     assert w.shape == (13,) and float(w[12]) == 12.0
     with pytest.raises(KeyError):
         te.bienc_layer_weights_from_state_dict({})
+
+
+# ---- whole models, and the way back -----------------------------------------
+from aspire_tpu.core.config import ModelHParams as JHP
+from aspire_tpu.models import doc_models as jdm
+from aspire_tpu_torch.core.config import ModelHParams as THP
+from aspire_tpu_torch.models import doc_models as tdm
+
+MODEL_NAMES = ["cospecter", "miswordbienc", "miswordabsbienc", "miswordpolyenc",
+               "sbalisentbienc", "cosentbert", "ictsentbert"]
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_model_bridge_covers_every_parameter_and_comes_back(name, rng):
+    cfg, tcfg = jb.BertConfig.tiny(), tb.BertConfig.tiny()
+    jmodel = jdm.build_model(JHP(model_name=name, max_sents=3), cfg)
+    params = jax.tree.map(
+        lambda x: np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32),
+        jmodel.init_params(jax.random.key(0), seq_len=6))
+    tmodel = tdm.build_model(THP(model_name=name, max_sents=3), tcfg, device="cpu")
+    state = tc.model_state_dict_from_flax_params(params, name, cfg)
+    assert set(state) == set(tmodel.state_dict())
+    tmodel.load_state_dict(state, strict=True)
+    back = tc.flax_params_from_model_state_dict(tmodel.state_dict(), name)
+    want = dict(jax.tree_util.tree_leaves_with_path(params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert set(got) == set(want)
+    for path, w in want.items():
+        assert got[path].dtype == np.float32 and got[path].flags["C_CONTIGUOUS"]
+        np.testing.assert_array_equal(got[path], w)
+
+
+def test_way_back_names_leaves_by_kind_and_honours_the_prefix(rng):
+    state = {"encoder.bert.embeddings.word_embeddings.weight": torch.ones(5, 4),
+             "encoder.bert.embeddings.LayerNorm.weight": torch.ones(4),
+             "encoder.bert.layer_0.output_dense.weight": torch.arange(12.).reshape(3, 4),
+             "encoder.bert.layer_0.output_dense.bias": torch.zeros(3),
+             "encoder.layer_weights": torch.zeros(2),
+             "other.thing.weight": torch.zeros(2, 2)}
+    tree = tc.flax_params_from_state_dict(state, prefix="encoder.")
+    assert set(tree) == {"bert", "layer_weights"}
+    assert set(tree["bert"]["embeddings"]["word_embeddings"]) == {"embedding"}
+    assert set(tree["bert"]["embeddings"]["LayerNorm"]) == {"scale"}
+    dense = tree["bert"]["layer_0"]["output_dense"]
+    assert dense["kernel"].shape == (4, 3) and dense["bias"].shape == (3,)
+    np.testing.assert_array_equal(dense["kernel"], np.arange(12.).reshape(3, 4).T)

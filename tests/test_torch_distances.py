@@ -138,3 +138,31 @@ def test_get_dist_function_registry(rng, agg):
 def test_get_dist_function_unknown():
     with pytest.raises(ValueError, match="Unknown"):
         td.get_dist_function("nope")
+
+
+def test_diameter_groups_equal_separate_calls(rng):
+    """One OT call over a batch that holds several micro batches, each
+    annealed from its own diameter, gives what separate calls give."""
+    from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter, max_diameter
+    parts = []
+    for scale in (1.0, 3.0, 0.3):                    # clouds of different size
+        _, _, tq, tc = _pair(rng)
+        parts.append((TMV(tq.embed * scale, tq.lens), TMV(tc.embed * scale, tc.lens)))
+    wide_q = TMV(torch.cat([q.embed for q, _ in parts]), torch.cat([q.lens for q, _ in parts]))
+    wide_c = TMV(torch.cat([c.embed for _, c in parts]), torch.cat([c.lens for _, c in parts]))
+    diam = grouped_max_diameter(wide_q.embed, wide_c.embed, 3)
+    assert diam.shape == (3 * B,)
+    for g, (q, c) in enumerate(parts):
+        assert torch.equal(diam[g * B:(g + 1) * B],
+                           max_diameter(q.embed, c.embed).expand(B))
+    kw = dict(temp=5000.0)
+    separate = torch.cat([td.wasserstein_dist(q, c, **kw) for q, c in parts])
+    together = td.wasserstein_dist(wide_q, wide_c, diameter_value=diam, **kw)
+    np.testing.assert_allclose(together.numpy(), separate.numpy(), rtol=1e-6)
+    whole = td.wasserstein_dist(wide_q, wide_c, **kw)       # one diameter for all
+    assert not np.allclose(whole.numpy(), separate.numpy(), rtol=1e-6)
+    fn = td.get_dist_function("l2wasserstein")
+    np.testing.assert_allclose(fn(wide_q, wide_c, diameter_value=diam).numpy(),
+                               td.wasserstein_dist(wide_q, wide_c, diameter_value=diam).numpy())
+    with pytest.raises(ValueError, match="groups"):
+        grouped_max_diameter(wide_q.embed, wide_c.embed, 4)

@@ -49,9 +49,14 @@ def test_forward_only_and_shape_checks(rng):
     before = fused_ffn.launches
     fused_ffn(x, w1, b1, w2, b2)
     assert fused_ffn.launches == before        # CPU tensors launch nothing
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_ffn(x.clone().requires_grad_(True), w1, b1, w2, b2)
+    # under grad the split runs the plain composition and is differentiable
+    xg = x.clone().requires_grad_(True)
+    fused_ffn(xg, w1, b1, w2, b2).sum().backward()
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
     with torch.no_grad():
-        fused_ffn(x.clone().requires_grad_(True), w1, b1, w2, b2)
+        out = fused_ffn(x.clone().requires_grad_(True), w1, b1, w2, b2)
+    assert not out.requires_grad
+    with pytest.raises(TypeError, match="dtype"):
+        fused_ffn(xg, w1.double(), b1, w2, b2)
     with pytest.raises(ValueError, match="FFN"):
         fused_ffn(x, w1.t(), b1, w2, b2)

@@ -1,5 +1,5 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
-pulls in no jax, flax, orbax or aspire_tpu module, and needs neither nvcc nor
+pulls in no jax, flax, optax, orbax or aspire_tpu module, and needs neither nvcc nor
 triton; `chip_smoke.py` imports none of them either."""
 import ast
 import os
@@ -10,7 +10,7 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "orbax", "aspire_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "aspire_tpu")
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -21,7 +21,8 @@ for m in pkgutil.walk_packages(aspire_tpu_torch.__path__, "aspire_tpu_torch."):
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "aspire_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "aspire_tpu"))
 assert not bad, bad
 assert "triton" not in sys.modules
 must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
@@ -29,7 +30,12 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.ops.attention_kernel", "aspire_tpu_torch.ops.ffn_kernel",
         "aspire_tpu_torch.ops._build", "aspire_tpu_torch.ops.distances",
         "aspire_tpu_torch.models.bert", "aspire_tpu_torch.models.encoders",
-        "aspire_tpu_torch.models.convert", "aspire_tpu_torch.index.serve"}
+        "aspire_tpu_torch.models.convert", "aspire_tpu_torch.index.serve",
+        "aspire_tpu_torch.core.config", "aspire_tpu_torch.ops.philox",
+        "aspire_tpu_torch.ops.dropout_kernel", "aspire_tpu_torch.models.layers",
+        "aspire_tpu_torch.models.doc_models", "aspire_tpu_torch.models.sent_models",
+        "aspire_tpu_torch.train.schedules", "aspire_tpu_torch.train.trainer",
+        "aspire_tpu_torch.train.predict_utils", "aspire_tpu_torch.utils.checkpoint"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
@@ -67,8 +73,8 @@ def test_source_imports_nothing_of_jax(path):
 
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "aspire_tpu_torch" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"sinkhorn.cu", "attention.cu",
-                                                  "ffn.cu"}
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "sinkhorn.cu", "attention.cu", "attention_bwd.cu", "dropout.cu", "ffn.cu"}
     text = (REPO / "pyproject.toml").read_text()
     assert "aspire_tpu_torch" in text and "csrc" in text
     from aspire_tpu_torch.ops import _build
