@@ -1,0 +1,243 @@
+// First-stage corpus scans over one dense bucket: per document the largest
+//   rs[row] * (x_row . q_col) + rb[row] + qadd[col]
+// over the document's S sentence rows and over the columns of one query.
+//
+// Takes the place of two TPU kernels of aspire_tpu/ops/pallas_scan.py:
+//   _scan_kernel       rows bf16, one query:   rs = 2, rb = -|x|^2 (+inf norms
+//                      give -inf and lose the max);
+//   _scan_int8_kernel  rows int8 upcast to bf16 (exact), a batch of queries:
+//                      rs = 2 * scale, rb = -|x|^2 with +inf norms folded to
+//                      -1e30 first, so that 0 * sims - inf never meets +inf.
+// Both products are bf16 x bf16 with f32 accumulation (mma.sync m16n8k16); the
+// query is rounded to bf16 by the caller and never quantised.  qadd carries
+// the per-column term: -|q_j|^2 (or 0) at valid query sentences, -1e30 at
+// padded ones.  Only [n_docs, queries] leaves the kernel.
+//
+// What bounds it: one query column group reads every row once, so a single
+// query is bound by device memory; at 32 queries of 16 sentences the product
+// (2 * rows * D * 512 operations) passes the memory time and the tensor cores
+// bound it.  The design: a block owns 64 whole documents and one group of up
+// to 128 query columns, which it keeps in shared memory for its whole life.
+// Its eight warps take the block's rows 32 at a time.  A warp reads its rows'
+// fragments straight from device memory -- 16 contiguous bytes a lane for
+// bf16, 8 for int8, converted in registers -- by pairing k indices so that
+// what one lane loads in one instruction is what it owns in two mma steps (the
+// query fragments are read from shared memory under the same pairing, so the
+// product is unchanged).  Every query column of the group is accumulated in
+// registers while the rows go by once.  Blocks that share rows and differ in
+// column group are neighbours in the grid, so the groups after the first find
+// the rows in the L2 cache.  Per row and query the maximum over the query's
+// columns is taken in registers and across the four lanes of a quad, then
+// merged per document in shared memory.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace aspire;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDocs = 64;             // documents a block
+constexpr int kPad = 32;              // bf16 added to a query row's pitch: with D % 64 == 0 the
+                                      // eight lanes of a 16-byte load phase hit 32 distinct banks
+constexpr float kNeg = -1e30f;
+
+// max into a float in shared memory (initialised to -inf), by the ordering of
+// the bit patterns: as signed ints for values >= 0, reversed as unsigned for < 0
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  v += 0.f;                            // -0 -> +0
+  if (v >= 0.f)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+// two neighbouring int8 of a word -> one register of two bf16 (exact)
+__device__ __forceinline__ unsigned int8x2_to_bf16x2(unsigned word, int shift) {
+  const float lo = (float)(signed char)(word >> shift);
+  const float hi = (float)(signed char)(word >> (shift + 8));
+  return pack_bf16(lo, hi);
+}
+
+// A fragments of rows `lo` (g) and `hi` (g + 8) for the two mma steps of one
+// 32-wide k chunk: a lane's eight elements k = 8t .. 8t+7 stand for the
+// logical columns (2t, 2t+1), (2t+8, 2t+9) of step 0 and of step 1.
+__device__ __forceinline__ void load_a(const __nv_bfloat16* lo, const __nv_bfloat16* hi,
+                                       unsigned (&a)[2][4]) {
+  const uint4 l = *reinterpret_cast<const uint4*>(lo);
+  const uint4 h = *reinterpret_cast<const uint4*>(hi);
+  a[0][0] = l.x; a[0][1] = h.x; a[0][2] = l.y; a[0][3] = h.y;
+  a[1][0] = l.z; a[1][1] = h.z; a[1][2] = l.w; a[1][3] = h.w;
+}
+
+__device__ __forceinline__ void load_a(const signed char* lo, const signed char* hi,
+                                       unsigned (&a)[2][4]) {
+  const uint2 l = *reinterpret_cast<const uint2*>(lo);
+  const uint2 h = *reinterpret_cast<const uint2*>(hi);
+  a[0][0] = int8x2_to_bf16x2(l.x, 0);  a[0][1] = int8x2_to_bf16x2(h.x, 0);
+  a[0][2] = int8x2_to_bf16x2(l.x, 16); a[0][3] = int8x2_to_bf16x2(h.x, 16);
+  a[1][0] = int8x2_to_bf16x2(l.y, 0);  a[1][1] = int8x2_to_bf16x2(h.y, 0);
+  a[1][2] = int8x2_to_bf16x2(l.y, 16); a[1][3] = int8x2_to_bf16x2(h.y, 16);
+}
+
+// sents: [n_docs, S, D] of T; scales (int8 only), norms: [n_docs, S];
+// q: [groups * 8 * NT, D] bf16; qadd: [groups * 8 * NT]; out: [n_docs, out_cols].
+// A query holds `tq` neighbouring 8-column tiles (tq even, NT % tq == 0).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
+            const float* __restrict__ norms, const __nv_bfloat16* __restrict__ q,
+            const float* __restrict__ qadd, float* __restrict__ out, int n_docs, int S, int D,
+            int tq, int groups, int out_cols) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr int kColsGroup = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pitch = D + kPad;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);            // [kColsGroup][pitch]
+  float* qadd_s = reinterpret_cast<float*>(qs + (size_t)kColsGroup * pitch);   // [kColsGroup]
+  float* docmax = qadd_s + kColsGroup;                                   // [kDocs][qg]
+  const int group = blockIdx.x % groups;
+  const long long doc0 = (long long)(blockIdx.x / groups) * kDocs;
+  const int qg = NT / tq;              // queries a group
+  const int tid = threadIdx.x;
+
+  const __nv_bfloat16* qsrc = q + (size_t)group * kColsGroup * D;
+  const int vec_row = D / 8;
+  for (int i = tid; i < kColsGroup * vec_row; i += kThreads) {
+    const int r = i / vec_row, c = (i % vec_row) * 8;
+    *reinterpret_cast<uint4*>(qs + (size_t)r * pitch + c) =
+        *reinterpret_cast<const uint4*>(qsrc + (size_t)r * D + c);
+  }
+  for (int i = tid; i < kColsGroup; i += kThreads) qadd_s[i] = qadd[group * kColsGroup + i];
+  for (int i = tid; i < kDocs * qg; i += kThreads) docmax[i] = -INFINITY;
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int docs_here = (int)min((long long)kDocs, n_docs - doc0);
+  const int rows_here = docs_here * S;
+  const long long row0 = doc0 * S;
+
+  for (int chunk = warp; chunk * 32 < rows_here; chunk += kWarps) {
+    float acc[2][NT][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
+
+    // rows past the block's last are read as its last and left out below
+    int rl[4];
+    const T* rowp[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      rl[i] = chunk * 32 + i * 8 + g;
+      rowp[i] = sents + (size_t)(row0 + min(rl[i], rows_here - 1)) * D + t * 8;
+    }
+    const __nv_bfloat16* qrow = qs + (size_t)g * pitch + t * 8;
+
+#pragma unroll 2
+    for (int k0 = 0; k0 < D; k0 += 32) {
+      unsigned a[2][2][4];
+      load_a(rowp[0] + k0, rowp[1] + k0, a[0]);
+      load_a(rowp[2] + k0, rowp[3] + k0, a[1]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4 b = *reinterpret_cast<const uint4*>(qrow + (size_t)nt * 8 * pitch + k0);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16_16816(acc[m][nt], a[m][0], b.x, b.y);
+          mma_bf16_16816(acc[m][nt], a[m][1], b.z, b.w);
+        }
+      }
+    }
+
+    // a lane holds rows g (+ 8) of each 16-row tile at columns 2t, 2t+1 of
+    // each 8-column tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool valid = rl[i] < rows_here;
+      const long long row = row0 + min(rl[i], rows_here - 1);
+      const float norm = norms[row];
+      float rs = 2.f, rb = -norm;
+      if constexpr (kInt8) {
+        rs = 2.f * scales[row];
+        rb = isfinite(norm) ? -norm : kNeg;
+      }
+      const int doc = min(rl[i], rows_here - 1) / S;
+      const int m = i >> 1, h = (i & 1) * 2;
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        float v = -INFINITY;
+#pragma unroll
+        for (int j = nt; j < nt + 2; ++j) {
+          v = fmaxf(v, rs * acc[m][j][h] + rb + qadd_s[j * 8 + 2 * t]);
+          v = fmaxf(v, rs * acc[m][j][h + 1] + rb + qadd_s[j * 8 + 2 * t + 1]);
+        }
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        if (t == 0 && valid) atomic_max_float(&docmax[doc * qg + nt / tq], v);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < docs_here * qg; i += kThreads)
+    out[(size_t)(doc0 + i / qg) * out_cols + group * qg + i % qg] = docmax[i];
+}
+
+template <typename T, int NT>
+int launch_nt(const void* sents, const float* scales, const float* norms, const void* q,
+              const float* qadd, float* out, int n_docs, int S, int D, int tq, int groups,
+              int out_cols, cudaStream_t stream) {
+  const size_t smem = (size_t)8 * NT * (D + kPad) * sizeof(__nv_bfloat16) + 8 * NT * sizeof(float) +
+                      (size_t)kDocs * (NT / tq) * sizeof(float);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = scan_kernel<T, NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)groups * ((n_docs + kDocs - 1) / kDocs);
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const T*)sents, scales, norms, (const __nv_bfloat16*)q, qadd, out, n_docs, S, D, tq,
+      groups, out_cols);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* sents, const float* scales, const float* norms, const void* q,
+           const float* qadd, float* out, int n_docs, int S, int D, int nt, int tq, int groups,
+           int out_cols, void* stream) {
+  if (n_docs < 1 || S < 1 || D < 32 || D % 32 != 0 || tq < 2 || tq % 2 != 0 || nt % tq != 0 ||
+      groups < 1 || out_cols < groups * (nt / tq))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nt) {
+    case 2: return launch_nt<T, 2>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
+    case 4: return launch_nt<T, 4>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
+    case 8: return launch_nt<T, 8>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
+    case 16: return launch_nt<T, 16>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// nt: 8-column tiles a group (2, 4, 8 or 16); tq: tiles a query; groups: column
+// groups; out: [n_docs, out_cols] with out_cols >= groups * nt / tq.
+extern "C" int aspire_scan_bf16(const void* sents, const void* norms, const void* q,
+                                const void* qadd, void* out, int n_docs, int S, int D, int nt,
+                                int tq, int groups, int out_cols, void* stream) {
+  return launch<__nv_bfloat16>(sents, nullptr, (const float*)norms, q, (const float*)qadd,
+                               (float*)out, n_docs, S, D, nt, tq, groups, out_cols, stream);
+}
+
+extern "C" int aspire_scan_int8(const void* sents, const void* scales, const void* norms,
+                                const void* q, const void* qadd, void* out, int n_docs, int S,
+                                int D, int nt, int tq, int groups, int out_cols, void* stream) {
+  return launch<signed char>(sents, (const float*)scales, (const float*)norms, q,
+                             (const float*)qadd, (float*)out, n_docs, S, D, nt, tq, groups,
+                             out_cols, stream);
+}

@@ -18,11 +18,12 @@ import torch
 import torch.nn as nn
 
 from ..core.types import require_device
+from ..ops.pool_kernel import sentence_pool_fused, sentence_pool_plain
 from .bert import BertConfig, BertModel
 
 
 def sentence_pool(hidden: torch.Tensor, sent_ids: torch.Tensor,
-                  max_sents: int) -> torch.Tensor:
+                  max_sents: int, impl: str = "auto") -> torch.Tensor:
     """Mean-pool contextual token embeddings into per-sentence vectors.
 
     hidden:   [b, t, h] -- final BERT hidden states.
@@ -30,12 +31,24 @@ def sentence_pool(hidden: torch.Tensor, sent_ids: torch.Tensor,
               abstract sentences (CLS/SEP/title/pad).
     Returns f32[b, max_sents, h]; sentences with no tokens give zero vectors
     (the reference divides by clamp(count, 1) -- same result).
+
+    impl: 'auto' sends a CUDA tensor that wants no gradient (grad disabled,
+    or `hidden` does not require it) through the CUDA kernel of
+    ops/pool_kernel.py, which has no backward, and everything else -- a pass
+    under grad, a CPU tensor -- through the plain one-hot product; 'fused'
+    asks for the kernel's wrapper on either device (its plain version on the
+    CPU) and raises under grad; 'naive' is the plain product everywhere.
     """
-    sents = torch.arange(max_sents, device=hidden.device)[None, None, :]
-    one_hot = (sent_ids[:, :, None] == sents).float()          # [b, t, s]
-    sums = torch.matmul(one_hot.transpose(1, 2), hidden.float())
-    counts = torch.clamp_min(one_hot.sum(dim=1), 1.0)
-    return sums / counts[:, :, None]
+    if impl not in ("auto", "fused", "naive"):
+        raise ValueError(f"unknown pool_impl {impl!r}")
+    wants_grad = torch.is_grad_enabled() and hidden.requires_grad
+    if impl == "fused" and wants_grad:
+        raise ValueError("pool_impl='fused' has no backward: run it under "
+                         "torch.no_grad() or pass 'auto'")
+    if impl == "fused" or (impl == "auto" and hidden.is_cuda
+                           and not wants_grad):
+        return sentence_pool_fused(hidden, sent_ids, max_sents)
+    return sentence_pool_plain(hidden, sent_ids, max_sents)
 
 
 def span_pool(hidden: torch.Tensor, span_mask: torch.Tensor) -> torch.Tensor:
@@ -60,17 +73,19 @@ class ConSentEncoder(nn.Module):
     def __init__(self, config: BertConfig, max_sents: int = 24,
                  dtype=torch.float32, attention_impl: str = "auto",
                  ffn_impl: str = "auto", device="cuda",
-                 hidden_dropout_impl: str = "auto"):
+                 hidden_dropout_impl: str = "auto", pool_impl: str = "auto"):
         super().__init__()
         self.config = config
         self.max_sents = max_sents
+        self.pool_impl = pool_impl
         self.bert = BertModel(config, dtype, attention_impl, ffn_impl,
                               require_device(device), hidden_dropout_impl)
 
     def forward(self, token_ids, attn_mask, sent_ids, token_type_ids=None,
                 seed=None):
         last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
-        return last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents)
+        return last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents,
+                                            self.pool_impl)
 
 
 class ConSentSpanEncoder(ConSentEncoder):
@@ -85,7 +100,8 @@ class ConSentSpanEncoder(ConSentEncoder):
     def forward(self, token_ids, attn_mask, sent_ids, span_mask,
                 token_type_ids=None, seed=None):
         last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
-        return (last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents),
+        return (last[:, 0, :],
+                sentence_pool(last, sent_ids, self.max_sents, self.pool_impl),
                 span_pool(last, span_mask))
 
 

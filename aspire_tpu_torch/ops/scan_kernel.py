@@ -1,0 +1,201 @@
+"""CUDA first-stage corpus scans: wrappers, launch counts and plain versions.
+
+Replace the two TPU kernels of ``aspire_tpu/ops/pallas_scan.py``:
+
+  * ``_scan_kernel`` (entry point ``fused_l2max_scan``): one query against a
+    bf16 bucket, per document the largest ``2 q.x - |x|^2`` over (sentence,
+    query sentence);
+  * ``_scan_int8_kernel`` (``fused_l2max_scan_int8_batched``): a batch of
+    queries against an int8 bucket, rows upcast int8 -> bf16 (exact), the
+    query rounded to bf16 and never quantised, f32 accumulation; per document
+    and query the largest ``2 scale (q.x_i8) - |x|^2 - |q_j|^2``.
+
+Both run the one CUDA kernel of ``csrc/scan.cu`` (its head says how it is laid
+out): the [rows, columns] similarities stay in registers and only per-document
+maxima reach device memory.  A single query is bound by the one read of the
+bucket; a batch of 32 by the tensor cores.
+
+`fused_l2max_scan` takes one argument the TPU kernel lacks, `qadd`: a term
+added per query sentence *inside* the max.  The TPU kernel leaves "-|q|^2" to
+its caller, which is right only while every query sentence has the same norm;
+the index scorer (index/dense._bucket_topk) subtracts |q_j|^2 inside the max.
+Without `qadd` the function is the TPU kernel (0 at valid query sentences,
+-1e30 at padded ones); with ``qadd = -|q_j|^2`` it is what the index needs.
+
+The TPU block rules (n % block_docs, D % 128, Qpad % 8) are gone: any n, any
+S, any number of query sentences up to 128 a query; the kernel needs
+D % 32 == 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+NEG = -1e30
+MAX_TILES = 16        # 8-column tiles a block keeps in registers: 128 columns
+MAX_DIM = 1024        # a group's query rows must fit a block's shared memory
+
+
+def _query_mask(qmax: int, q_lens: torch.Tensor) -> torch.Tensor:
+    return torch.arange(qmax, device=q_lens.device)[None, :] < q_lens[:, None]
+
+
+def fused_l2max_scan_plain(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
+    """Plain PyTorch version of `fused_l2max_scan`: the product in the
+    bucket's dtype with f32 accumulation, written as a float32 product of the
+    (exactly representable) rounded operands."""
+    x = sents.float()
+    qq = q.to(sents.dtype).float()
+    sims = torch.einsum("nsd,qd->nsq", x, qq)
+    scores = 2.0 * sims - norms[:, :, None]
+    valid = torch.arange(q.shape[0], device=q.device) < q_n
+    if qadd is not None:
+        scores = scores + qadd.float()[None, None, :]
+    scores = torch.where(valid[None, None, :], scores,
+                         torch.full_like(scores, NEG))
+    return scores.amax(dim=(1, 2))
+
+
+def fused_l2max_scan_int8_batched_plain(sents, scales, norms, q, q_lens,
+                                        qmax: int) -> torch.Tensor:
+    """Plain PyTorch version of `fused_l2max_scan_int8_batched`."""
+    n, s, d = sents.shape
+    bsz = q.shape[0]
+    qf = q.float()
+    q_norms = (qf * qf).sum(dim=2)                               # [B, qmax]
+    qadd = torch.where(_query_mask(qmax, q_lens), -q_norms,
+                       torch.full_like(q_norms, NEG))
+    qb = qf.to(torch.bfloat16).float().reshape(bsz * qmax, d)
+    sims = torch.matmul(sents.reshape(n * s, d).float(), qb.t())
+    rs = (2.0 * scales).reshape(n * s, 1)
+    rb = torch.where(torch.isfinite(norms), -norms,
+                     torch.full_like(norms, NEG)).reshape(n * s, 1)
+    scores = rs * sims + rb + qadd.reshape(1, bsz * qmax)
+    return scores.reshape(n, s, bsz, qmax).amax(dim=(1, 3))
+
+
+def _pow2_at_least(x: int, floor: int) -> int:
+    p = floor
+    while p < x:
+        p *= 2
+    return p
+
+
+def _tiling(bsz: int, qmax: int):
+    """How a [bsz, qmax] batch of query sentences is laid over the kernel's
+    column groups: (8-column tiles a group, tiles a query, groups, padded
+    batch).  A query takes a power of two of columns (16 at least), a group a
+    power of two of queries within MAX_TILES tiles, and the batch is padded to
+    whole groups."""
+    tiles_q = _pow2_at_least(qmax, 16) // 8
+    per_group = min(_pow2_at_least(bsz, 1), MAX_TILES // tiles_q)
+    groups = -(-bsz // per_group)
+    return tiles_q * per_group, tiles_q, groups, groups * per_group
+
+
+def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
+    """sents [n, s, d] (bf16 or int8), norms (and scales) f32[n, s], q
+    f32[B, qmax, d], qadd f32[B, qmax] -> f32[n, B]."""
+    n, s, d = sents.shape
+    bsz, qmax, _ = q.shape
+    if d % 32 or d > MAX_DIM:
+        raise ValueError(f"the scan kernel takes a width that is a multiple "
+                         f"of 32 up to {MAX_DIM}, got {d}")
+    if qmax < 1 or qmax > 8 * MAX_TILES:
+        raise ValueError(f"the scan kernel takes 1 to {8 * MAX_TILES} query "
+                         f"sentences a query, got {qmax}")
+    rows = (norms,) if scales is None else (norms, scales)
+    if any(t.shape != (n, s) or t.dtype != torch.float32 for t in rows):
+        raise ValueError("norms and scales must be float32 [n, s]")
+    if any(t.device != sents.device for t in (*rows, q, qadd)):
+        raise ValueError("all inputs must lie on the same device")
+    # pad columns hold zero rows and -1e30, so they never win a max
+    tiles, tiles_q, groups, padded = _tiling(bsz, qmax)
+    qcols = 8 * tiles_q
+    qp = torch.zeros((padded, qcols, d), dtype=torch.bfloat16,
+                     device=sents.device)
+    qp[:bsz, :qmax] = q
+    qa = torch.full((padded, qcols), NEG, dtype=torch.float32,
+                    device=sents.device)
+    qa[:bsz, :qmax] = qadd
+    out = torch.empty((n, padded), dtype=torch.float32, device=sents.device)
+    if n == 0:
+        return out[:, :bsz]
+    sents, norms = sents.contiguous(), norms.contiguous()
+    args = [sents.data_ptr()]
+    if scales is not None:
+        scales = scales.contiguous()
+        args.append(scales.data_ptr())
+    if sents.data_ptr() % 16:
+        raise ValueError("the bucket's rows must start at a 16-byte boundary")
+    lib = _build.load()
+    with torch.cuda.device(sents.device):
+        err = getattr(lib, name)(
+            *args, norms.data_ptr(), qp.data_ptr(), qa.data_ptr(),
+            out.data_ptr(), n, s, d, tiles, tiles_q, groups, padded,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return out[:, :bsz]
+
+
+def fused_l2max_scan(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
+    """Per-document max-similarity scores of one query over one dense bucket.
+
+    sents: [N, S, D] bf16 (f32 on the CPU as well); q: [Qpad, D] query
+    sentence matrix, the first `q_n` rows valid; norms: f32[N, S] squared
+    sentence norms (+inf at pads); qadd: optional f32[Qpad] added per query
+    sentence inside the max.  Returns f32[N]: max over (sentence, valid query
+    sentence) of 2 q.x - |x|^2 (+ qadd); a document of pads only gives -inf
+    (or -1e30 where padded query sentences exist).  CUDA tensors launch the
+    kernel, which takes bf16 rows only; CPU tensors run the plain version.
+    """
+    if not sents.is_cuda:
+        return fused_l2max_scan_plain(sents, q, norms, q_n, qadd)
+    if sents.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 scan kernel takes bfloat16 rows, got "
+                        f"{sents.dtype}; float32 buckets are scored by the "
+                        f"plain float32 product (index/dense.score_buckets)")
+    qpad = q.shape[0]
+    valid = torch.arange(qpad, device=q.device) < q_n
+    add = torch.zeros(qpad, dtype=torch.float32, device=q.device) \
+        if qadd is None else qadd.float()
+    add = torch.where(valid, add, torch.full_like(add, NEG))
+    out = _launch("aspire_scan_bf16", sents, None, norms, q.float()[None],
+                  add[None])
+    fused_l2max_scan.launches += 1
+    return out[:, 0]
+
+
+fused_l2max_scan.launches = 0
+
+
+def fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens,
+                                  qmax: int) -> torch.Tensor:
+    """Batched-query int8 l2max scan over one dense bucket.
+
+    sents: int8[N, S, D]; scales, norms: f32[N, S] per-sentence dequantisation
+    scale and squared norm of the stored vector (+inf at pads); q:
+    f32[B, qmax, D]; q_lens: int[B].  Returns f32[N, B]: per document the max
+    of 2 scale (q.x_i8) - |x|^2 - |q_j|^2 over (sentence, valid query
+    sentence), the scores of index/dense.score_buckets_batched (about -1e30 at
+    padded documents, by the +inf norm fold).  CUDA tensors launch the kernel,
+    CPU tensors run the plain version.
+    """
+    if q.shape[1] != qmax:
+        raise ValueError(f"q is {tuple(q.shape)}, qmax {qmax}")
+    if not sents.is_cuda:
+        return fused_l2max_scan_int8_batched_plain(sents, scales, norms, q,
+                                                   q_lens, qmax)
+    if sents.dtype != torch.int8:
+        raise TypeError(f"the int8 scan kernel takes int8 rows, got {sents.dtype}")
+    qf = q.float()
+    q_norms = (qf * qf).sum(dim=2)
+    qadd = torch.where(_query_mask(qmax, q_lens), -q_norms,
+                       torch.full_like(q_norms, NEG))
+    out = _launch("aspire_scan_int8", sents, scales, norms, qf, qadd)
+    fused_l2max_scan_int8_batched.launches += 1
+    return out
+
+
+fused_l2max_scan_int8_batched.launches = 0

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving, training and index paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
     python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
+    python3 chip_smoke.py --phases index --index-docs 20000   # the index path alone
+
+Phases run in the order device, build, kernels, serve, train, index.
 
 Phases, one JSON object a line:
 
@@ -18,6 +21,20 @@ Phases, one JSON object a line:
            document 0 against all 16; three requests; the same requests
            through the plain path (naive attention and FFN, PyTorch solver);
            then once more in f32 at two layers;
+  index    the path from a corpus to an answered query.  A bf16 and an int8
+           dense-bucket index of 125,000 documents (clip(poisson(9), 3, 20)
+           sentences of 768-d reps, buckets (12, 24), numpy seed 0) are built
+           by build_dense_index on the host and put on the card; the scan
+           kernels are held against their plain versions on its buckets.
+           Then, with the launch counts at 0: 512 synthetic abstracts through
+           encode_corpus (12-layer bf16 ConSentEncoder, batches of 64 x 256
+           tokens, 20 sentences; once with f32 reps out, once quantised to
+           int8 on the card), a bf16 and a prequantised int8 index of them,
+           saved, loaded, and queried with a document's own sentences; on the
+           large index a single fused query on bf16 (k=50) and on int8 (k=64),
+           a batch of 32 on int8 (k=64) and a pool ranking of 8 queries x 512
+           ids.  After the counts are read, the same through the plain route
+           (scan='torch', solver='torch'), compared, and the stages timed;
   train    full-width BERT-base ts+otAspire model (sbalisentbienc, bf16 over
            f32 parameters, weights from a numpy seed): the first step's loss
            and gradient norms through the kernels against the plain path fed
@@ -607,6 +624,139 @@ def case_ffn(rows, dtype, dev) -> dict:
     return res
 
 
+def case_pool(b, t, h, max_sents, dtype, dev, ragged=False) -> dict:
+    """K4 against the one-hot product.  Regular: sentences in runs after
+    [CLS], a padded tail.  Ragged: ids drawn at random with gaps, -1 and ids
+    past max_sents."""
+    from aspire_tpu_torch.ops import pool_kernel as pk
+    rng = np.random.default_rng(47 + b + t)
+    hidden = torch.from_numpy(rng.standard_normal((b, t, h)).astype(
+        np.float32)).to(dev, dtype)
+    if ragged:
+        ids = rng.integers(-1, max_sents + 2, (b, t))
+        ids[ids == 3] = -1                      # sentence 3 has no token
+    else:
+        per = max(1, (t - 8) // max_sents)
+        ids = np.full((b, t), -1, np.int64)
+        ids[:, 1:1 + per * max_sents] = np.repeat(np.arange(max_sents), per)
+    ids = torch.from_numpy(ids).to(dev)
+    out = pk.sentence_pool_fused(hidden, ids, max_sents)
+    torch.cuda.synchronize()
+    want = pk.sentence_pool_plain(hidden, ids, max_sents)
+    # both sides add the same f32 values (bf16 inputs are exact in f32), the
+    # kernel in token order, the product in cuBLAS's: means of up to t values
+    # of O(1) differ by a few f32 roundings
+    res = check_close("pool", out, want, atol=1e-5, rtol=1e-5)
+    if not torch.equal(out, pk.sentence_pool_fused(hidden, ids, max_sents)):
+        raise AssertionError("pool: two launches differ")
+    one_hot = pk._one_hot(ids, max_sents).transpose(1, 2).contiguous()
+    hf = hidden.float()
+    size = hidden.element_size()
+    res.update(
+        case=f"[{b},{t},{h}] {str(dtype).split('.')[-1]} {max_sents} sentences"
+             + (" ragged ids" if ragged else ""),
+        kernel_ms=cuda_ms(lambda: pk.sentence_sums(hidden, ids, max_sents)),
+        wrapper_ms=cuda_ms(lambda: pk.sentence_pool_fused(hidden, ids, max_sents)),
+        plain_ms=cuda_ms(lambda: pk.sentence_pool_plain(hidden, ids, max_sents)),
+        library_ms=cuda_ms(lambda: torch.matmul(one_hot, hf)),
+        # reads hidden and the ids, writes the sums; one add a token element
+        **bound(size * b * t * h + 4.0 * b * t + 4.0 * b * max_sents * h,
+                1.0 * b * t * h, PEAK_FP32))
+    return res
+
+
+def _scan_queries(bsz, qmax, seed, dev):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((bsz, qmax, 768)).astype(
+        np.float32) * 2.0).to(dev)
+    q_lens = torch.from_numpy(rng.integers(3, qmax + 1, bsz)).to(dev)
+    if bsz == 1:
+        q_lens[:] = 10
+    return q, q_lens
+
+
+def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
+    """K8 on one bf16 bucket, as the TPU kernel computes it (no qadd) and as
+    the index needs it (qadd = -|q_j|^2 inside the max)."""
+    from aspire_tpu_torch.ops import scan_kernel as sk
+    sents, norms = bucket["sents"], bucket["norms"]
+    n, s, d = sents.shape
+    q = _scan_queries(1, qmax, 53 + s, dev)[0][0]
+    qadd = -(q * q).sum(dim=1)
+    live = bucket["doc_idx"] >= 0
+    # bf16 operands are exact in f32 on both sides; sums of 768 products of
+    # O(4) values in another order, against scores of O(1e3)
+    tol = dict(atol=1e-2, rtol=1e-4)
+    got = sk.fused_l2max_scan(sents, q, norms, q_n)
+    torch.cuda.synchronize()
+    want = sk.fused_l2max_scan_plain(sents, q, norms, q_n)
+    res = check_close("scan_bf16", got, want, mask=live, **tol)
+    if not bool((got[~live] <= sk.NEG).all()):
+        raise AssertionError("scan_bf16: a padded document scored")
+    got_q = sk.fused_l2max_scan(sents, q, norms, q_n, qadd)
+    res_q = check_close("scan_bf16 qadd", got_q,
+                        sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd),
+                        mask=live, **tol)
+    qb = q.to(torch.bfloat16)
+
+    def library():
+        sims = torch.einsum("nsd,qd->nsq", sents, qb[:q_n]).float()
+        return (2.0 * sims - norms[:, :, None]).amax(dim=(1, 2))
+
+    res.update(
+        case=f"{label}: [{n},{s},{d}] bf16, {q_n} of {qmax} query sentences",
+        qadd_max_abs_err=res_q["max_abs_err"],
+        kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan(sents, q, norms, q_n, qadd)),
+        plain_ms=cuda_ms(lambda: sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd)),
+        library_ms=cuda_ms(library),
+        **bound(2.0 * n * s * d + 4.0 * n * s + 2.0 * qmax * d + 4.0 * n,
+                2.0 * n * s * d * qmax, PEAK_BF16))
+    return res
+
+
+def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
+    """K7 on one int8 bucket against its plain version."""
+    from aspire_tpu_torch.ops import scan_kernel as sk
+    sents, scales, norms = bucket["sents"], bucket["scales"], bucket["norms"]
+    n, s, d = sents.shape
+    q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev)
+    live = bucket["doc_idx"] >= 0
+    got = sk.fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens, qmax)
+    torch.cuda.synchronize()
+    chunk = 8                                   # bounds the plain [rows, B qmax] f32
+    want = torch.cat([sk.fused_l2max_scan_int8_batched_plain(
+        sents, scales, norms, q[i:i + chunk], q_lens[i:i + chunk], qmax)
+        for i in range(0, bsz, chunk)], dim=1)
+    # int8 and bf16 operands are exact in f32 on both sides; sums of 768
+    # products in another order, times a scale, against scores of O(1e3)
+    res = check_close("scan_int8", got[live], want[live], atol=1e-2, rtol=2e-4)
+    if not bool((got[~live] <= 0.5 * sk.NEG).all()):
+        raise AssertionError("scan_int8: a padded document scored")
+    qb = q.to(torch.bfloat16).reshape(bsz * qmax, d)
+    rows_b = sents.reshape(n * s, d)
+
+    def library():
+        out = []
+        for i in range(0, bsz, chunk):
+            cols = qb[i * qmax:(i + chunk) * qmax]
+            sims = torch.matmul(rows_b.to(torch.bfloat16), cols.t()).float()
+            sc = 2.0 * scales.reshape(-1, 1) * sims - norms.reshape(-1, 1)
+            out.append(sc.reshape(n, s, -1, qmax).amax(dim=(1, 3)))
+        return torch.cat(out, dim=1)
+
+    res.update(
+        case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}",
+        kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan_int8_batched(
+            sents, scales, norms, q, q_lens, qmax)),
+        plain_ms=cuda_ms(lambda: [sk.fused_l2max_scan_int8_batched_plain(
+            sents, scales, norms, q[i:i + chunk], q_lens[i:i + chunk], qmax)
+            for i in range(0, bsz, chunk)]),
+        library_ms=cuda_ms(library),
+        **bound(1.0 * n * s * d + 8.0 * n * s + 2.0 * bsz * qmax * d
+                + 4.0 * n * bsz, 2.0 * n * s * d * bsz * qmax, PEAK_BF16))
+    return res
+
+
 def phase_kernels(dev) -> dict:
     """Runs every case; the first case of each kernel is its main path's shape
     (serving for the first three, training for the rest) and feeds the
@@ -653,6 +803,18 @@ def phase_kernels(dev) -> dict:
     for name, rows in cases.items():
         emit("kernel_cases", kernel=name, cases=rows)
     emit("attention_bwd_sensitivity", **bwd_sensitivity(dev))
+    return cases
+
+
+def phase_pool_kernel(dev) -> list:
+    """K4 against its plain version; the first case is the encode's shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [case_pool(64, 256, 768, 20, bf16, dev),
+             case_pool(64, 256, 768, 20, f32, dev),
+             case_pool(3, 200, 768, 20, bf16, dev, ragged=True),
+             case_pool(3, 200, 768, 20, f32, dev, ragged=True),
+             case_pool(16, 512, 768, 24, bf16, dev)]
+    emit("kernel_cases", kernel="pool", cases=cases)
     return cases
 
 
@@ -742,13 +904,19 @@ def counters() -> dict:
     from aspire_tpu_torch.ops.attention_kernel import fused_attention
     from aspire_tpu_torch.ops.dropout_kernel import fused_dropout
     from aspire_tpu_torch.ops.ffn_kernel import fused_ffn
+    from aspire_tpu_torch.ops.pool_kernel import sentence_pool_fused
+    from aspire_tpu_torch.ops.scan_kernel import (fused_l2max_scan,
+                                                  fused_l2max_scan_int8_batched)
     from aspire_tpu_torch.ops.sinkhorn_kernel import sinkhorn_solve
     return {"sinkhorn": (sinkhorn_solve, "launches"),
             "attention": (fused_attention, "launches"),
             "ffn": (fused_ffn, "launches"),
             "attention_dropout": (fused_attention, "dropout_launches"),
             "attention_bwd": (fused_attention, "bwd_launches"),
-            "dropout": (fused_dropout, "launches")}
+            "dropout": (fused_dropout, "launches"),
+            "pool": (sentence_pool_fused, "launches"),
+            "scan_bf16": (fused_l2max_scan, "launches"),
+            "scan_int8": (fused_l2max_scan_int8_batched, "launches")}
 
 
 def read_counts() -> dict:
@@ -768,7 +936,8 @@ def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
     enc = ConSentEncoder(cfg, max_sents=20, dtype=dtype, device=dev).eval()
     enc.load_state_dict(state)
     plain = ConSentEncoder(cfg, max_sents=20, dtype=dtype, device=dev,
-                           attention_impl="naive", ffn_impl="naive").eval()
+                           attention_impl="naive", ffn_impl="naive",
+                           pool_impl="naive").eval()
     plain.load_state_dict(state)
     requests = [make_request(cfg, 100 + i, dev) for i in range(n_requests)]
     layers = cfg.num_hidden_layers
@@ -782,8 +951,8 @@ def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
             per_request.append({k: v - before[k]
                                 for k, v in read_counts().items()})
     launches = read_counts()
-    want = {"sinkhorn": 1, "attention": layers, "ffn": layers,
-            "attention_dropout": 0, "attention_bwd": 0, "dropout": 0}
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(sinkhorn=1, attention=layers, ffn=layers, pool=1)
     for got in per_request:
         if got != want:
             raise AssertionError(f"{label}: launches per request {got}, "
@@ -1073,6 +1242,391 @@ def phase_train(dev, layers: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- index
+class SmokeTokenizer:
+    """The four members text/tokenize.prepare_abstracts asks of a tokenizer,
+    over words that are decimal token ids ("[SEP]" is 102)."""
+
+    pad_token_id = 0
+
+    def tokenize(self, text: str) -> list:
+        return text.split()
+
+    def convert_tokens_to_ids(self, tokens: list) -> list:
+        return [102 if t == "[SEP]" else int(t) for t in tokens]
+
+    def build_inputs_with_special_tokens(self, token_ids_0: list) -> list:
+        return [101] + list(token_ids_0) + [102]
+
+
+def synth_corpus(n_docs: int, vocab: int, seed: int) -> list:
+    """Abstracts of clip(poisson(9), 3, 20) sentences of 8 to 12 words and a
+    title of 6: about 110 tokens on average, the longest cut at the encode's
+    254 content tokens."""
+    rng = np.random.default_rng(seed)
+
+    def words(n):
+        return " ".join(map(str, rng.integers(min(1000, vocab // 2), vocab, n)))
+
+    return [{"TITLE": words(6), "ABSTRACT": [
+        words(int(rng.integers(8, 13)))
+        for _ in range(int(np.clip(rng.poisson(9), 3, 20)))]}
+        for _ in range(n_docs)]
+
+
+def _pad_query(reps: np.ndarray, qmax: int, dev):
+    q = np.zeros((qmax, reps.shape[1]), np.float32)
+    n = min(len(reps), qmax)
+    q[:n] = reps[:n]
+    return torch.from_numpy(q).to(dev), n
+
+
+def index_encode(cfg, dev, n_docs: int) -> dict:
+    """Corpus -> encode (K2, K3, K4) -> bf16 and int8 dense indexes -> files ->
+    a fused query (K8 or K7, K1) with a document's own sentences."""
+    import tempfile
+    from aspire_tpu_torch.index.build import encode_corpus
+    from aspire_tpu_torch.index.dense import (
+        DenseBucketIndex, build_dense_index, build_dense_index_prequantized,
+        flatten_device_buckets)
+    from aspire_tpu_torch.index.serve import make_fused_query
+    from aspire_tpu_torch.models.convert import state_dict_from_flax_params
+    from aspire_tpu_torch.models.encoders import ConSentEncoder
+    enc = ConSentEncoder(cfg, max_sents=20, dtype=torch.bfloat16, device=dev)
+    enc.load_state_dict(state_dict_from_flax_params(
+        random_flax_tree(cfg, seed=0), cfg))
+    corpus = synth_corpus(n_docs, cfg.vocab_size, seed=500)
+    tok = SmokeTokenizer()
+    kw = dict(batch_size=64, seq_len=256, max_sents=20)
+    timings = []
+
+    def timed(**extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode_corpus(enc, corpus, tok, **kw, **extra)
+        torch.cuda.synchronize()
+        timings.append(time.perf_counter() - t0)
+        return out
+
+    before = read_counts()
+    reps, cls = timed()
+    quant, _ = timed(quantize=True)
+    batches = -(-n_docs // 64)
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    layers = cfg.num_hidden_layers
+    want = dict.fromkeys(got, 0)
+    want.update(attention=2 * batches * layers, ffn=2 * batches * layers,
+                pool=2 * batches)
+    if got != want:
+        raise AssertionError(f"index: the encode launched {got}, expected {want}")
+    lens = [len(r) for r in reps]
+    if len(reps) != n_docs or cls.shape != (n_docs, cfg.hidden_size) \
+            or lens != [len(d["ABSTRACT"]) for d in corpus] \
+            or not all(np.isfinite(r).all() for r in reps):
+        raise AssertionError("index: wrong or non-finite encoded reps")
+    pids = [f"p{i}" for i in range(n_docs)]
+    buckets = (12, 24)
+    t0 = time.perf_counter()
+    indexes = {"bfloat16": build_dense_index(reps, pids, buckets=buckets),
+               "int8": build_dense_index_prequantized(quant, pids, buckets=buckets)}
+    build_s = time.perf_counter() - t0
+    # quantised on the card == quantised on the host, bit for bit
+    host = build_dense_index(reps, pids, buckets=buckets, dtype="int8")
+    for bq, bh in zip(indexes["int8"].buckets, host.buckets):
+        off = (int((bq["sents"] != bh["sents"]).sum()),
+               int((bq["scales"] != bh["scales"]).sum()))
+        if any(off):
+            raise AssertionError(f"index: int8 made on the card differs from "
+                                 f"the host's in {off[0]} elements and "
+                                 f"{off[1]} scales of {bq['scales'].size}")
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, idx in indexes.items():
+            idx.save(f"{tmp}/{name}")
+            loaded = DenseBucketIndex.load(f"{tmp}/{name}")
+            flat = flatten_device_buckets(loaded.device_arrays(dev))
+            pos = loaded.device_pos_arrays(dev)
+            fused = make_fused_query(len(loaded.buckets), k=10, max_sents=20,
+                                     int8=loaded.is_int8, temp=5000.0)
+            worst = 0.0
+            for j in (0, 7, n_docs // 2, n_docs - 1):
+                q, q_len = _pad_query(reps[j], 20, dev)
+                v, d, s = fused(q, q_len, *flat, *pos)
+                v, d, s = v.tolist(), d.tolist(), s.tolist()
+                # the query is the f32 rep, the stored rows are rounded to
+                # bf16 (int8) and so is the query inside the product: the
+                # document's own distance is a rounding step of the storage,
+                # held to 2 % of the runner-up's distance
+                if d[0] != j or not abs(v[0]) <= 0.02 * abs(v[1]) \
+                        or max(range(10), key=s.__getitem__) != 0 \
+                        or not all(map(math.isfinite, v + s)):
+                    raise AssertionError(
+                        f"index: {name}: document {j} queried with its own "
+                        f"sentences gives ids {d}, distances {v}, OT {s}")
+                worst = max(worst, abs(v[0]) / abs(v[1]))
+            rows[name] = {"own_distance_over_runner_up_worst": worst,
+                          "last_query": {"ids": d, "first_stage": v, "ot": s}}
+    emit("index_encode", docs=n_docs, layers=layers, dtype="bfloat16",
+         batch=[64, 256], max_sents=20, buckets=list(buckets),
+         sentences=int(sum(lens)),
+         encode_s={"first_pass_f32_out": timings[0],
+                   "second_pass_int8_out": timings[1]},
+         docs_per_s={"first_pass_f32_out": n_docs / timings[0],
+                     "second_pass_int8_out": n_docs / timings[1]},
+         build_both_indexes_s=build_s, launches=got,
+         int8_on_card_equals_host=True, own_distance_limit=0.02, queries=rows)
+    return got
+
+
+def _by_id(ids, *values) -> dict:
+    return {i: vals for i, *vals in zip(ids, *values) if i >= 0}
+
+
+def compare_answers(label, kernel, plain, ot_atol=1e-2, ot_rtol=5e-3) -> dict:
+    """Kernel route against plain route, rows of (first stage, ids, OT): the
+    same ids wherever neighbouring first-stage scores are further apart than
+    the tolerance; first-stage scores within 2e-4 relative + 1e-3 (sums of 768
+    products in another order, then a square root); OT scores of the ids both
+    hold within 1e-2 + 5e-3 relative (the Sinkhorn case's limits on potentials,
+    carried through exp(. / 0.05))."""
+    worst = {"first_stage": 0.0, "ot": 0.0, "ids_differing": 0}
+    for row, ((v_k, d_k, s_k), (v_p, d_p, s_p)) in enumerate(
+            zip(zip(*kernel), zip(*plain))):
+        v_k, d_k, s_k, v_p, d_p, s_p = (x.tolist() for x in
+                                        (v_k, d_k, s_k, v_p, d_p, s_p))
+        for a, b in zip(v_k, v_p):
+            if not abs(a - b) <= 1e-3 + 2e-4 * abs(b):
+                raise AssertionError(f"{label}: query {row}: first-stage "
+                                     f"scores {v_k} against {v_p}")
+            worst["first_stage"] = max(worst["first_stage"], abs(a - b))
+        for pos, (a, b) in enumerate(zip(d_k, d_p)):
+            if a == b:
+                continue
+            near = [abs(v_p[pos] - v_p[o]) for o in (pos - 1, pos + 1)
+                    if 0 <= o < len(v_p)]
+            if min(near) > 2 * (1e-3 + 2e-4 * abs(v_p[pos])):
+                raise AssertionError(f"{label}: query {row}: ids {d_k} against "
+                                     f"{d_p} where the scores are apart")
+            worst["ids_differing"] += 1
+        k_of, p_of = _by_id(d_k, s_k), _by_id(d_p, s_p)
+        for i in set(k_of) & set(p_of):
+            a, b = k_of[i][0], p_of[i][0]
+            if not (math.isfinite(a) and abs(a - b) <= ot_atol + ot_rtol * abs(b)):
+                raise AssertionError(f"{label}: query {row}: OT score of "
+                                     f"document {i}: {a} against {b}")
+            worst["ot"] = max(worst["ot"], abs(a - b))
+    return worst
+
+
+def _host_ms(fn, calls: int = 5) -> tuple:
+    """First call and the following warm calls, host clock around a
+    synchronise -> (times, the last call's result)."""
+    out = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return {"first_ms": out[0], "warm_ms": statistics.median(out[1:]),
+            "warm_ms_spread": [min(out[1:]), max(out[1:])]}, result
+
+
+def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5) -> dict:
+    """The fused query's three stages run apart, a synchronise after each."""
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.index.dense import score_buckets_batched
+    from aspire_tpu_torch.index.serve import _gather_candidates, _tile_queries
+    from aspire_tpu_torch.ops.distances import wasserstein_dist
+    from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
+    marks = {"scan": [], "gather": [], "rerank": []}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        marks[name].append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    for _ in range(calls):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, d = score_buckets_batched(buckets, q, q_lens, k, scan=scan)
+            t = lap("scan", t)
+            emb, cl, _ = _gather_candidates(buckets, *pos, d.reshape(-1), 20)
+            t = lap("gather", t)
+            qt = _tile_queries(q, q_lens, k)
+            diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
+            wasserstein_dist(qt, MultiVec(emb, cl), temp=5000.0,
+                             return_pair_sims=True, solver=solver,
+                             diameter_value=diam)
+            lap("rerank", t)
+    return {f"{name}_ms": statistics.median(v) for name, v in marks.items()}
+
+
+def build_large_index(dev, n_docs: int, buckets=(12, 24),
+                      storages=("bfloat16", "int8")) -> dict:
+    """A dense-bucket index in each of `storages` of n_docs documents of
+    clip(poisson(9), 3, 20) sentences of 768-d reps, built by
+    build_dense_index from numpy reps (seed 0) and put on the card."""
+    from aspire_tpu_torch.index.dense import build_dense_index
+    rng = np.random.default_rng(0)
+    d = 768
+    t0 = time.perf_counter()
+    lens = np.clip(rng.poisson(9, n_docs), 3, 20)
+    doc_reps = [rng.standard_normal((n, d), dtype=np.float32) * 2 for n in lens]
+    host_s = {"reps": time.perf_counter() - t0}
+    pids = list(range(n_docs))
+    big = {"docs": n_docs, "dim": d, "bucket_sizes": list(buckets),
+           "sentences": int(lens.sum()), "buckets": {}, "pos": {}, "stored": {}}
+    for name in storages:
+        t0 = time.perf_counter()
+        idx = build_dense_index(doc_reps, pids, buckets=buckets, dtype=name)
+        host_s[f"build_{name}"] = time.perf_counter() - t0
+        big["buckets"][name] = idx.device_arrays(dev)
+        big["pos"][name] = idx.device_pos_arrays(dev)
+        big["stored"][name] = sum(a.nbytes for b in idx.buckets
+                                  for a in b.values())
+        del idx
+    big["host_seconds"] = host_s
+    return big
+
+
+def scan_kernel_cases(big: dict, dev) -> dict:
+    """K8 and K7 against their plain versions on the large index's buckets;
+    the first case of each is the query path's shape (K7: the batch of 32)."""
+    cases = {"scan_bf16": [case_scan_bf16(b, f"bucket {b['sents'].shape[1]}", dev)
+                           for b in big["buckets"]["bfloat16"]],
+             "scan_int8": [case_scan_int8(b, f"bucket {b['sents'].shape[1]}",
+                                          bsz, dev)
+                           for b in big["buckets"]["int8"] for bsz in (32, 1)]}
+    cases["scan_int8"].append(case_scan_int8(
+        big["buckets"]["int8"][0], "bucket 12", 5, dev, qmax=20))
+    for name, rows in cases.items():
+        emit("kernel_cases", kernel=name, cases=rows)
+    return cases
+
+
+def index_queries(big: dict, dev):
+    """Fused queries (single bf16 at k=50, single int8 at k=64, a batch of 32
+    int8 at k=64) and one pool ranking (8 queries x 512 ids, OT) through the
+    kernels.  Returns a function that, called after the launch counts are
+    read, runs the same through the plain route (scan='torch',
+    solver='torch'), compares, times the stages apart and prints the line."""
+    from aspire_tpu_torch.index.dense import flatten_device_buckets
+    from aspire_tpu_torch.index.serve import (make_fused_query,
+                                              make_fused_query_batched,
+                                              make_pool_rank_batched)
+    n_docs, d = big["docs"], big["dim"]
+    nb = len(big["buckets"]["int8"])        # a bucket size no document has is left out
+    qrng = np.random.default_rng(1)
+    q_lens_np = qrng.integers(3, 17, 32)
+    q_lens_np[0] = 10
+    q_np = qrng.standard_normal((32, 16, d)).astype(np.float32) * 2
+    q_np *= (np.arange(16)[None, :] < q_lens_np[:, None])[:, :, None]
+    q_all = torch.from_numpy(q_np).to(dev)
+    q_lens = torch.from_numpy(q_lens_np).to(dev)
+    rows, later = [], []
+
+    def per_call(before):
+        return {name: (v - before[name]) // 6 for name, v in read_counts().items()
+                if v != before[name]}
+
+    def drive(label, storage, bsz, k, want):
+        int8 = storage == "int8"
+        buckets, pos = big["buckets"][storage], big["pos"][storage]
+        flat = flatten_device_buckets(buckets)
+        q, ql = q_all[:bsz], q_lens[:bsz]
+        kw = dict(k=k, max_sents=20, int8=int8, temp=5000.0)
+        if bsz == 1:
+            fn_k = make_fused_query(nb, **kw)
+            fn_p = make_fused_query(nb, scan="torch", solver="torch", **kw)
+            call = lambda fn: tuple(x[None] for x in fn(q[0], ql[0], *flat, *pos))
+        else:
+            fn_k = make_fused_query_batched(nb, **kw)
+            # the plain product keeps [c, n, s, q] f32: eight queries at a time
+            fn_p = make_fused_query_batched(nb, scan="torch", solver="torch",
+                                            q_chunk=8, **kw)
+            call = lambda fn: fn(q, ql, *flat, *pos)
+        before = read_counts()
+        t_k, out_k = _host_ms(lambda: call(fn_k))
+        got = per_call(before)
+        if got != want:
+            raise AssertionError(f"{label}: a call launched {got}, expected {want}")
+        v, ids, sims = out_k
+        if tuple(ids.shape) != (bsz, k) or int((ids < 0).sum()) \
+                or not bool(torch.isfinite(sims).all()) \
+                or not bool((v[:, :-1] >= v[:, 1:]).all()):
+            raise AssertionError(f"{label}: malformed answer")
+        row = {"query": label, "storage": storage, "batch": bsz, "k": k, **t_k,
+               "ms_a_query": t_k["warm_ms"] / bsz, "launches_a_call": got,
+               "first_ids": ids[0, :5].tolist(),
+               "first_stage": v[0, :3].tolist(), "ot": sims[0, :3].tolist()}
+        rows.append(row)
+
+        def after():
+            t_p, out_p = _host_ms(lambda: call(fn_p), calls=2)
+            row.update(_stage_ms(buckets, pos, q, ql, k, "kernel", "kernel"))
+            row["plain_route"] = {**t_p, **_stage_ms(buckets, pos, q, ql, k,
+                                                     "torch", "torch", calls=2)}
+            row["kernel_against_plain"] = compare_answers(label, out_k, out_p)
+        later.append(after)
+
+    drive("single bf16", "bfloat16", 1, 50, {"scan_bf16": nb, "sinkhorn": 1})
+    drive("single int8", "int8", 1, 64, {"scan_int8": nb, "sinkhorn": 1})
+    drive("batch of 32 int8", "int8", 32, 64, {"scan_int8": nb, "sinkhorn": 1})
+
+    cand = torch.from_numpy(qrng.integers(0, n_docs, (8, 512)).astype(np.int32))
+    cand[:, 500:] = -1
+    cand = cand.to(dev)
+    flat = flatten_device_buckets(big["buckets"]["bfloat16"])
+    pool_args = (q_all[:8], q_lens[:8], cand, *flat, *big["pos"]["bfloat16"])
+    pool_kw = dict(pool_size=512, max_sents=20, agg="ot", temp=5000.0)
+    before = read_counts()
+    t_k, s_k = _host_ms(lambda: make_pool_rank_batched(nb, **pool_kw)(*pool_args))
+    got = per_call(before)
+    live = cand >= 0
+    if got != {"sinkhorn": 1} or not bool((s_k[~live] == -1e30).all()) \
+            or not bool(torch.isfinite(s_k).all()):
+        raise AssertionError(f"pool rank: a call launched {got}, or a pad slot "
+                             f"scored")
+    pool = {"queries": 8, "pool": 512, "agg": "ot", "storage": "bfloat16", **t_k,
+            "launches_a_call": got}
+
+    def finish():
+        for after in later:
+            after()
+        t_p, s_p = _host_ms(lambda: make_pool_rank_batched(
+            nb, solver="torch", **pool_kw)(*pool_args), calls=2)
+        pool["plain_route"] = t_p
+        pool["kernel_against_plain"] = check_close(
+            "pool rank", s_k[live], s_p[live], atol=1e-2, rtol=5e-3)
+        emit("index_query", docs=n_docs, dim=d, buckets=big["bucket_sizes"],
+             sentences=big["sentences"],
+             built_by="build_dense_index on the host, from numpy reps",
+             host_seconds=big["host_seconds"], stored_bytes=big["stored"],
+             device_memory_mb=torch.cuda.memory_allocated() / 2 ** 20,
+             queries=rows, pool_rank=pool)
+
+    return finish
+
+
+def phase_index(dev, layers: int, encode_docs: int, index_docs: int) -> tuple:
+    """The path from a corpus to an answered query.  The large index is built
+    and the scan kernels are held against their plain versions first; then the
+    counts are set to 0, the path is driven (encode -> indexes -> queries) and
+    the counts are read; the plain route's runs come after that."""
+    from aspire_tpu_torch.models.bert import BertConfig
+    torch.cuda.empty_cache()
+    big = build_large_index(dev, index_docs)
+    cases = scan_kernel_cases(big, dev)
+    reset_counts()
+    index_encode(BertConfig(num_hidden_layers=layers), dev, encode_docs)
+    finish = index_queries(big, dev)
+    launches = read_counts()
+    finish()
+    return cases, launches
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -1087,14 +1641,23 @@ KERNELS = [
      "aspire_tpu/ops/pallas_attention.py:229"),
     ("dropout", "aspire_tpu_torch/csrc/dropout.cu",
      "aspire_tpu/ops/pallas_dropout.py:110"),
+    ("pool", "aspire_tpu_torch/csrc/pool.cu",
+     "aspire_tpu/ops/pallas_pool.py:81"),
+    ("scan_bf16", "aspire_tpu_torch/csrc/scan.cu",
+     "aspire_tpu/ops/pallas_scan.py:77"),
+    ("scan_int8", "aspire_tpu_torch/csrc/scan.cu",
+     "aspire_tpu/ops/pallas_scan.py:180"),
 ]
 
 
 # the kernels each path must launch (its counts are set to 0 just before it
 # is driven and read just after)
-SERVE_KERNELS = ("sinkhorn", "attention", "ffn")
-TRAIN_KERNELS = ("attention", "ffn", "attention_dropout", "attention_bwd",
-                 "dropout")
+PATH_KERNELS = {
+    "serve": ("sinkhorn", "attention", "ffn", "pool"),
+    "train": ("attention", "ffn", "attention_dropout", "attention_bwd",
+              "dropout", "pool"),
+    "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
+}
 
 
 def run(args) -> dict:
@@ -1104,21 +1667,31 @@ def run(args) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    cases = phase_kernels(dev)
-    served = phase_serve(dev, args.layers)
-    trained = phase_train(dev, args.train_layers)
-    for path, counts, names in (("serving", served, SERVE_KERNELS),
-                                ("training", trained, TRAIN_KERNELS)):
-        idle = [name for name in names if counts[name] < 1]
+    cases, launches = {}, {}
+    if args.phases == "all":
+        cases = phase_kernels(dev)
+    cases["pool"] = phase_pool_kernel(dev)
+    if args.phases == "all":
+        launches["serve"] = phase_serve(dev, args.layers)
+        launches["train"] = phase_train(dev, args.train_layers)
+    scan_cases, launches["index"] = phase_index(
+        dev, args.layers, args.encode_docs, args.index_docs)
+    cases.update(scan_cases)
+    for path, counts in launches.items():
+        idle = [name for name in PATH_KERNELS[path] if counts[name] < 1]
         if idle:
             raise AssertionError(f"the {path} path launched no {idle}")
     rows = []
     for name, source, replaces in KERNELS:
+        if name not in cases:
+            continue                        # a run of the index phase alone
         first = cases[name][0]              # the main path's shape
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served[name] + trained[name],
-            "launches_serve": served[name], "launches_train": trained[name],
+            "replaces": replaces,
+            "launches": sum(counts[name] for counts in launches.values()),
+            **{f"launches_{path}": counts[name]
+               for path, counts in launches.items()},
             "shape": first["case"], "max_abs_err": first["max_abs_err"],
             "max_rel_err": first["max_rel_err"],
             "tolerance": {"atol": first["atol"], "rtol": first["rtol"]},
@@ -1143,6 +1716,13 @@ def main() -> int:
     parser.add_argument("--train-layers", type=int, default=12,
                         help="depth of the bf16 training model (widths stay "
                              "BERT-base)")
+    parser.add_argument("--encode-docs", type=int, default=512,
+                        help="abstracts the index phase encodes")
+    parser.add_argument("--index-docs", type=int, default=125_000,
+                        help="documents of the index the queries run on")
+    parser.add_argument("--phases", default="all", choices=("all", "index"),
+                        help="'index' drives the index path alone (the pool "
+                             "and scan kernels' cases, encode, queries)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

@@ -1,6 +1,7 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
-pulls in no jax, flax, optax, orbax or aspire_tpu module, and needs neither nvcc nor
-triton; `chip_smoke.py` imports none of them either."""
+pulls in no jax, flax, optax, orbax, ml_dtypes, transformers or aspire_tpu
+module, and needs neither nvcc nor triton; `chip_smoke.py` and the port's
+benchmark scripts import none of them either."""
 import ast
 import os
 import pathlib
@@ -10,7 +11,8 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "aspire_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "aspire_tpu", "ml_dtypes",
+          "transformers")
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -22,7 +24,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "aspire_tpu"))
+                                    "aspire_tpu", "ml_dtypes", "transformers"))
 assert not bad, bad
 assert "triton" not in sys.modules
 must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
@@ -35,7 +37,10 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.ops.dropout_kernel", "aspire_tpu_torch.models.layers",
         "aspire_tpu_torch.models.doc_models", "aspire_tpu_torch.models.sent_models",
         "aspire_tpu_torch.train.schedules", "aspire_tpu_torch.train.trainer",
-        "aspire_tpu_torch.train.predict_utils", "aspire_tpu_torch.utils.checkpoint"}
+        "aspire_tpu_torch.train.predict_utils", "aspire_tpu_torch.utils.checkpoint",
+        "aspire_tpu_torch.ops.pool_kernel", "aspire_tpu_torch.ops.scan_kernel",
+        "aspire_tpu_torch.text.tokenize", "aspire_tpu_torch.index.build",
+        "aspire_tpu_torch.index.dense", "aspire_tpu_torch.index.cls"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
@@ -62,7 +67,9 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
-SOURCES = sorted((REPO / "aspire_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted((REPO / "aspire_tpu_torch").rglob("*.py"))
+           + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "benchmarks").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -74,10 +81,42 @@ def test_source_imports_nothing_of_jax(path):
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "aspire_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "sinkhorn.cu", "attention.cu", "attention_bwd.cu", "dropout.cu", "ffn.cu"}
+        "sinkhorn.cu", "attention.cu", "attention_bwd.cu", "dropout.cu", "ffn.cu",
+        "pool.cu", "scan.cu"}
     text = (REPO / "pyproject.toml").read_text()
     assert "aspire_tpu_torch" in text and "csrc" in text
     from aspire_tpu_torch.ops import _build
     assert set(_build.sources()) == set(csrc.glob("*.cu"))
     assert "compute_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+    for name in ("aspire_pool_bf16", "aspire_pool_f32", "aspire_scan_bf16",
+                 "aspire_scan_int8"):
+        assert name in _build.SIGNATURES
+
+
+SCRIPT_PROBE = r"""
+import importlib.util, sys
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("probe_" + str(len(sys.modules)), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "aspire_tpu", "ml_dtypes", "transformers"))
+assert not bad, bad
+assert "triton" not in sys.modules
+print("IMPORTED", len(sys.argv) - 1)
+"""
+
+
+def test_scripts_import_without_jax(tmp_path):
+    """Importing chip_smoke.py and the index profile script (not running
+    them) pulls in none of the banned packages."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    scripts = [REPO / "chip_smoke.py", REPO / "benchmarks" / "torch_index_profile.py"]
+    proc = subprocess.run([sys.executable, "-c", SCRIPT_PROBE, *map(str, scripts)],
+                          env=env, cwd=tmp_path, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED 2" in proc.stdout
