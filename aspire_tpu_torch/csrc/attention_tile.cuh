@@ -1,6 +1,7 @@
 // What the attention forward (attention.cu) and backward (attention_bwd.cu)
-// share: tile sizes, the tile loader, and the first product of a warp's 16
-// query rows with a 64-row tile on the tensor cores.
+// share: tile sizes, the tile loaders (plain, and asynchronous into the padded
+// or the wgmma layout), and the mma.sync products of a warp's 16 rows with a
+// 64-row tile.
 #pragma once
 
 #include <math.h>
@@ -41,6 +42,46 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride
   }
 }
 
+// ---- asynchronous copies (cp.async, 16 bytes, L2 only) ----------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)   // zero-fill when invalid
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of this thread's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// load_tile for bf16 without waiting: the copies join the thread's open group
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long stride, int row0, int t) {
+  constexpr int ld = Cfg<__nv_bfloat16>::ld;
+  for (int idx = threadIdx.x; idx < kBk * (kHd / 8); idx += kThreads) {
+    const int r = idx / (kHd / 8), cv = (idx % (kHd / 8)) * 8;
+    const bool valid = row0 + r < t;
+    cp_async16(dst + r * ld + cv, valid ? src + (long long)(row0 + r) * stride + cv : src, valid);
+  }
+}
+
+// the same into the 128-byte-swizzled layout that wgmma descriptors read
+// (common.cuh): 64 rows of 128 bytes, dst 1024-byte aligned
+__device__ __forceinline__ void load_tile_sw128_async(__nv_bfloat16* dst,
+                                                      const __nv_bfloat16* src, long long stride,
+                                                      int row0, int t) {
+  for (int idx = threadIdx.x; idx < kBk * 8; idx += kThreads) {
+    const int r = idx >> 3, c = idx & 7;
+    const bool valid = row0 + r < t;
+    cp_async16(dst + r * kHd + ((c ^ (r & 7)) << 3),
+               valid ? src + (long long)(row0 + r) * stride + (c << 3) : src, valid);
+  }
+}
+
 // acc[16, 64] = a[16, 64] . b^T for a tile b[64][64] (row-major, pitch 72) in
 // shared memory; a as the four A fragments of the warp's 16 rows.
 __device__ __forceinline__ void mma_abT(float (&acc)[kBk / 8][4], const unsigned (&a)[kHd / 16][4],
@@ -75,13 +116,6 @@ __device__ __forceinline__ void mma_ab_chunk(float (&acc)[kHd / 8][4], const uns
     mma_bf16_16816(acc[2 * np], a, bfr[0], bfr[1]);
     mma_bf16_16816(acc[2 * np + 1], a, bfr[2], bfr[3]);
   }
-}
-
-// acc[16, 64] += a[16, 64] . b, a as four A fragments over the contraction
-__device__ __forceinline__ void mma_ab(float (&acc)[kHd / 8][4], const unsigned (&a)[kBk / 16][4],
-                                       const __nv_bfloat16* b, int lane) {
-#pragma unroll
-  for (int j = 0; j < kBk / 16; ++j) mma_ab_chunk(acc, a[j], b, j, lane);
 }
 
 // s = s * scale + bias of the column, in the accumulator layout

@@ -58,6 +58,74 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- warpgroup products (wgmma, sm_90a) -------------------------------------
+// A warpgroup (four consecutive warps) multiplies A[64, 16] by B[16, N] into an
+// f32 accumulator D[64, N] held in registers.  Warp w of the group holds rows
+// 16 w .. + 15 of A and of D in the mma.sync m16n8k16 layouts above: A as four
+// registers, D as four floats for each 8-column tile j (d[4 j + i] is c_i of
+// tile j).  B is read from shared memory through a descriptor: a tile whose
+// rows are 128 bytes, 1024-byte aligned, with the 16-byte chunk c of row r
+// stored at chunk c ^ (r % 8) (the 128-byte swizzle).  Such a tile of [n][64]
+// bf16 is B K-major (rows are n; start at chunk 2 kk for k-step kk) and, read
+// the other way, a [k][64] tile is B MN-major (kTransB = 1; start at row 16 kk).
+// Both have 8-row groups 1024 bytes apart.
+__device__ __forceinline__ unsigned long long sw128_desc(const void* smem_ptr) {
+  const unsigned long long addr = smem_addr(smem_ptr);
+  return ((addr & 0x3FFFFull) >> 4)        // start address
+         | (1ull << 16)                    // leading byte offset (unused by these layouts)
+         | ((1024ull >> 4) << 32)          // stride byte offset: 8-row groups
+         | (1ull << 62);                   // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// keeps the compiler from touching accumulator registers across an
+// asynchronous product (reads after a wait stay after it)
+template <int N>
+__device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[8] (D[64, 16]) = (accumulate ? d : 0) + a . B
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const unsigned (&a)[4],
+                                                unsigned long long desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
+}
+
+// d[32] (D[64, 64]) = (accumulate ? d : 0) + a . B
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (&a)[4],
+                                                unsigned long long desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
+}
+
 // two floats -> one register of two bf16 (lo in the low half), round to nearest even
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

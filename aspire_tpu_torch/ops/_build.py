@@ -38,10 +38,10 @@ SIGNATURES = {
     # statistics for the backward (or null), stream
     "aspire_attention_bf16": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
     "aspire_attention_f32": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
-    # q, k, v, bias, g, out, dq, dk, dv, stats, b, nh, t, 24 strides (q, k, v,
-    # g, out, dq, dk, dv), sm_scale, dropout mode.., 1 - p in the compute dtype
-    # and in f32, bits, stream
-    "aspire_attention_bwd_bf16": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
+    # q, k, v, bias, g, out, dq, dk, dv, stats, (bf16: ds scratch,) b, nh, t,
+    # 24 strides (q, k, v, g, out, dq, dk, dv), sm_scale, dropout mode.., 1 - p
+    # in the compute dtype and in f32, bits, stream
+    "aspire_attention_bwd_bf16": [_P] * 11 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
                                  + [_F, _F, _P, _P],
     "aspire_attention_bwd_f32": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
                                 + [_F, _F, _P, _P],

@@ -11,7 +11,9 @@ bounds it: the kernel reads q, k, v once per query tile and writes the context
 once, and the [t, t] scores and probabilities never leave the chip.  The
 backward keeps q, k, v, bias, the seed, the forward's output and each row's
 softmax max and sum, recomputes probabilities and mask, and is bounded by its
-products.
+products; in bf16 it hands ds from its keys kernel to its dq kernel through a
+transient [b * nh, tp, tp] scratch (tp = t rounded up to 64) that lives only
+during the backward.
 
 Rounding follows the TPU kernel: scores, max, exp, sum and the division in
 f32, the normalised probabilities cast to the compute dtype, then (with
@@ -119,8 +121,11 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
 
 def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
                    site, bits):
-    """One backward: the rows kernel (delta, dq) and the keys kernel (dk, dv),
-    two launches.  out and stats are the forward's."""
+    """One backward.  bf16: three launches (delta, keys kernel for dk and dv,
+    dq kernel), with ds^T handed between the last two through a bf16 scratch
+    allocated here and freed on return.  f32: two launches (rows kernel for
+    delta and dq, keys kernel for dk and dv).  out and stats are the
+    forward's."""
     b, nh, t, _ = q.shape
     try:
         _strides(g)
@@ -133,25 +138,32 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
     mode, seed, c0, thresh, keep_div, keep_div32, bits_ptr = _drop_args(
         q, dropout_p, seed, site, bits)
     lib = _build.load()
-    name = ("aspire_attention_bwd_bf16" if q.dtype == torch.bfloat16
-            else "aspire_attention_bwd_f32")
+    bf16 = q.dtype == torch.bfloat16
+    name = "aspire_attention_bwd_bf16" if bf16 else "aspire_attention_bwd_f32"
+    scratch = []                        # held until the launches are queued
+    if bf16:
+        tp = -(-t // 64) * 64
+        scratch = [torch.empty((b * nh, tp, tp), dtype=torch.bfloat16,
+                               device=q.device)]
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, nh, t,
+            dv.data_ptr(), stats.data_ptr(),
+            *(x.data_ptr() for x in scratch), b, nh, t,
             (ctypes.c_longlong * 24)(*strides),
             float(sm_scale), mode, seed, c0, thresh, keep_div, keep_div32,
             bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    fused_attention.bwd_launches += 2       # the C function launches both
+    fused_attention.bwd_launches += 3 if bf16 else 2   # what the C function launches
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
     """Forward: the kernel without or with dropout.  Backward: the backward
     kernels, from q, k, v, bias, the seed, the forward's output and two
-    floats a row (the softmax max and sum); nothing [t, t]-shaped is kept."""
+    floats a row (the softmax max and sum); nothing [t, t]-shaped is kept
+    between the two (the bf16 backward's ds scratch is its own, transient)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seed, site, bits):
@@ -233,7 +245,8 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
 
 
 # launches of the deterministic forward, of the forward with dropout, and of
-# the backward's kernels (two a backward: the rows kernel and the keys kernel)
+# the backward's kernels (three a bf16 backward: delta, keys, dq; two an f32
+# one: rows, keys)
 fused_attention.launches = 0
 fused_attention.dropout_launches = 0
 fused_attention.bwd_launches = 0

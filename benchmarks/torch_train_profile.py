@@ -42,7 +42,7 @@ import chip_smoke  # noqa: E402  (the model, weight and batch generators)
 
 CLASSES = (
     ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_f32_kernel")),
-    ("attention_bwd (K5b)", ("bwd_rows_", "bwd_keys_")),
+    ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_")),
     ("dropout (K6)", ("dropout_kernel",)),
     ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
