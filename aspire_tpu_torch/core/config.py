@@ -11,8 +11,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import pathlib
 from typing import Any
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -43,7 +46,8 @@ class ModelHParams:
     consider_abs: bool = True
     # Attention backend for the BERT encoders (models/bert.py _select_impl):
     # 'auto' (the CUDA kernels on CUDA tensors, naive on the CPU), 'fused',
-    # 'fused_det', 'naive' (materialised scores and masks).
+    # 'fused_det', 'naive' (materialised scores and masks).  The JAX package's
+    # 'flash' (a library kernel) becomes 'auto' when a config loads.
     attention_impl: str = "auto"
     # Hidden/embedding dropout backend (models/bert.py _hidden_dropout):
     # 'auto' (the CUDA kernel on CUDA tensors), 'fused', 'naive' (a
@@ -111,6 +115,10 @@ class RunConfig:
         model_kwargs = {k: v for k, v in raw.items() if k in _MODEL_KEYS}
         train_kwargs = {k: v for k, v in raw.items() if k in _TRAIN_KEYS}
         extra = {k: v for k, v in raw.items() if k not in _MODEL_KEYS | _TRAIN_KEYS}
+        if model_kwargs.get("attention_impl") == "flash":
+            # the JAX package's library backend; the port's own kernels take its place
+            log.info("attention_impl 'flash' has no counterpart here: loaded as 'auto'")
+            model_kwargs["attention_impl"] = "auto"
         return cls(model=ModelHParams(**model_kwargs), train=TrainHParams(**train_kwargs), extra=extra)
 
     @classmethod

@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) bwd_keys_bf16_kernel(BwdArgs a) {
     }
     cp_async_commit();
     cp_async_wait<1>();           // tile it has landed (this thread's copies) ...
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // ... seen by wgmma ...
+    fence_proxy_async();          // ... seen by wgmma ...
     __syncthreads();              // ... for everyone's copies
     const bf16* qb = qs + buf * kTileSw;
     const bf16* gb = gs + buf * kTileSw;

@@ -42,22 +42,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride
   }
 }
 
-// ---- asynchronous copies (cp.async, 16 bytes, L2 only) ----------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)   // zero-fill when invalid
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most kPending of this thread's committed groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // load_tile for bf16 without waiting: the copies join the thread's open group
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long stride, int row0, int t) {

@@ -3,8 +3,8 @@
 // over the document's S sentence rows and over the columns of one query.
 //
 // Takes the place of two TPU kernels of aspire_tpu/ops/pallas_scan.py:
-//   _scan_kernel       rows bf16, one query:   rs = 2, rb = -|x|^2 (+inf norms
-//                      give -inf and lose the max);
+//   _scan_kernel       rows bf16 or f32, one query:   rs = 2, rb = -|x|^2
+//                      (+inf norms give -inf and lose the max);
 //   _scan_int8_kernel  rows int8 upcast to bf16 (exact), a batch of queries:
 //                      rs = 2 * scale, rb = -|x|^2 with +inf norms folded to
 //                      -1e30 first, so that 0 * sims - inf never meets +inf.
@@ -29,6 +29,12 @@
 // the rows in the L2 cache.  Per row and query the maximum over the query's
 // columns is taken in registers and across the four lanes of a quad, then
 // merged per document in shared memory.
+//
+// f32 rows (scan_f32_kernel, a check path: the index's scan stores bf16 or
+// int8) take the true-f32 product by FMAs, never TF32, with the query kept
+// in f32.  The same block layout (64 whole documents, one column group);
+// the rows go by in chunks of 256 against 16 query columns at a time, both
+// staged through shared memory 32 k at a time, a 4 x 4 tile a thread.
 #include <math.h>
 
 #include "common.cuh"
@@ -187,6 +193,108 @@ scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
     out[(size_t)(doc0 + i / qg) * out_cols + group * qg + i % qg] = docmax[i];
 }
 
+constexpr int kF32Rows = 256;         // rows of a chunk of the f32 scan
+constexpr int kF32Cols = 16;          // query columns of a chunk
+constexpr int kF32K = 32;             // k staged a step
+constexpr int kF32Loads = kF32Rows * kF32K / 4 / kThreads;   // float4 row loads a thread a step
+constexpr int kF32QLoads = kF32Cols * kF32K / kThreads;      // query loads a thread a step
+
+// The f32 scan: the same [n_docs, out_cols] result as scan_kernel, with q in
+// f32 ([groups * cols_group, D]) and the product in f32 FMAs.  Thread
+// (ty, tx) of 256 owns rows 4 ty .. 4 ty + 3 of a chunk and its columns
+// 4 tx .. 4 tx + 3, so that one shared-memory read feeds four FMAs.  The rows
+// arrive by 16-byte loads into registers one k step ahead of the product.
+__global__ void __launch_bounds__(kThreads)
+scan_f32_kernel(const float* __restrict__ sents, const float* __restrict__ norms,
+                const float* __restrict__ q, const float* __restrict__ qadd,
+                float* __restrict__ out, int n_docs, int S, int D, int cols_group, int tq,
+                int groups, int out_cols) {
+  __shared__ float xs[kF32Rows][kF32K + 1];             // odd pitch: no bank conflicts
+  __shared__ __align__(16) float qs[kF32K][kF32Cols];
+  extern __shared__ float dyn[];
+  float* qadd_s = dyn;                      // [cols_group]
+  const int qg = cols_group / (8 * tq);     // queries a group
+  float* docmax = qadd_s + cols_group;      // [kDocs][qg]
+  const int group = blockIdx.x % groups;
+  const long long doc0 = (long long)(blockIdx.x / groups) * kDocs;
+  const int tid = threadIdx.x, ty = tid >> 2, tx = tid & 3;
+  for (int i = tid; i < cols_group; i += kThreads) qadd_s[i] = qadd[group * cols_group + i];
+  for (int i = tid; i < kDocs * qg; i += kThreads) docmax[i] = -INFINITY;
+  __syncthreads();
+
+  const int docs_here = (int)min((long long)kDocs, n_docs - doc0);
+  const int rows_here = docs_here * S;
+  const float* rows = sents + (size_t)doc0 * S * D;
+  const float* qgrp = q + (size_t)group * cols_group * D;
+  for (int r0 = 0; r0 < rows_here; r0 += kF32Rows) {
+    for (int c0 = 0; c0 < cols_group; c0 += kF32Cols) {
+      float4 xr[kF32Loads];
+      float qr[kF32QLoads];
+      // rows past the block's last are read as its last and left out below
+      auto fetch = [&](int k0) {
+#pragma unroll
+        for (int j = 0; j < kF32Loads; ++j) {
+          const int i = j * kThreads + tid, r = i >> 3, c4 = i & 7;
+          xr[j] = *reinterpret_cast<const float4*>(
+              rows + (size_t)min(r0 + r, rows_here - 1) * D + k0 + 4 * c4);
+        }
+#pragma unroll
+        for (int j = 0; j < kF32QLoads; ++j) {
+          const int i = j * kThreads + tid;
+          qr[j] = qgrp[(size_t)(c0 + (i & 15)) * D + k0 + (i >> 4)];
+        }
+      };
+      float acc[4][4] = {};
+      fetch(0);
+      for (int k0 = 0; k0 < D; k0 += kF32K) {
+#pragma unroll
+        for (int j = 0; j < kF32Loads; ++j) {
+          const int i = j * kThreads + tid, r = i >> 3, c4 = i & 7;
+          xs[r][4 * c4] = xr[j].x;
+          xs[r][4 * c4 + 1] = xr[j].y;
+          xs[r][4 * c4 + 2] = xr[j].z;
+          xs[r][4 * c4 + 3] = xr[j].w;
+        }
+#pragma unroll
+        for (int j = 0; j < kF32QLoads; ++j) {
+          const int i = j * kThreads + tid;
+          qs[i >> 4][i & 15] = qr[j];
+        }
+        __syncthreads();
+        if (k0 + kF32K < D) fetch(k0 + kF32K);
+#pragma unroll 8
+        for (int k = 0; k < kF32K; ++k) {
+          const float4 b = *reinterpret_cast<const float4*>(&qs[k][4 * tx]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float a = xs[4 * ty + r][k];
+            acc[r][0] = fmaf(a, b.x, acc[r][0]);
+            acc[r][1] = fmaf(a, b.y, acc[r][1]);
+            acc[r][2] = fmaf(a, b.z, acc[r][2]);
+            acc[r][3] = fmaf(a, b.w, acc[r][3]);
+          }
+        }
+        __syncthreads();
+      }
+      // a thread's four columns lie in one query (a query takes 16 or more)
+      const int col = c0 + 4 * tx;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rl = r0 + 4 * ty + r;
+        if (rl >= rows_here) continue;
+        const float nrm = norms[doc0 * S + rl];
+        float v = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v = fmaxf(v, 2.f * acc[r][c] - nrm + qadd_s[col + c]);
+        atomic_max_float(&docmax[(rl / S) * qg + col / (8 * tq)], v);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < docs_here * qg; i += kThreads)
+    out[(size_t)(doc0 + i / qg) * out_cols + group * qg + i % qg] = docmax[i];
+}
+
 template <typename T, int NT>
 int launch_nt(const void* sents, const float* scales, const float* norms, const void* q,
               const float* qadd, float* out, int n_docs, int S, int D, int tq, int groups,
@@ -223,6 +331,21 @@ int launch(const void* sents, const float* scales, const float* norms, const voi
   }
 }
 
+int launch_f32(const float* sents, const float* norms, const float* q, const float* qadd,
+               float* out, int n_docs, int S, int D, int nt, int tq, int groups, int out_cols,
+               void* stream) {
+  if (n_docs < 1 || S < 1 || D < 32 || D % kF32K != 0 || tq < 2 || tq % 2 != 0 ||
+      nt % tq != 0 || nt > 16 || groups < 1 || out_cols < groups * (nt / tq))
+    return (int)cudaErrorInvalidValue;
+  const int cols_group = 8 * nt;
+  const size_t smem = (size_t)(cols_group + kDocs * (nt / tq)) * sizeof(float);
+  const long long blocks = (long long)groups * ((n_docs + kDocs - 1) / kDocs);
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  scan_f32_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      sents, norms, q, qadd, out, n_docs, S, D, cols_group, tq, groups, out_cols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // nt: 8-column tiles a group (2, 4, 8 or 16); tq: tiles a query; groups: column
@@ -240,4 +363,12 @@ extern "C" int aspire_scan_int8(const void* sents, const void* scales, const voi
   return launch<signed char>(sents, (const float*)scales, (const float*)norms, q,
                              (const float*)qadd, (float*)out, n_docs, S, D, nt, tq, groups,
                              out_cols, stream);
+}
+
+extern "C" int aspire_scan_f32(const void* sents, const void* norms, const void* q,
+                               const void* qadd, void* out, int n_docs, int S, int D, int nt,
+                               int tq, int groups, int out_cols, void* stream) {
+  return launch_f32((const float*)sents, (const float*)norms, (const float*)q,
+                    (const float*)qadd, (float*)out, n_docs, S, D, nt, tq, groups, out_cols,
+                    stream);
 }

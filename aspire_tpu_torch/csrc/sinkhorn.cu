@@ -1,21 +1,37 @@
 // Batched balanced log-domain Sinkhorn with a per-pair eps schedule.
 //
 // Takes the place of the TPU kernel aspire_tpu/ops/pallas_sinkhorn.py
-// (_sinkhorn_kernel).  One warp solves one pair: the cost matrix (at most
-// 32 x 32) sits in shared memory, lane i owns row i for the f update and
-// column i for the g update, and the whole annealing loop runs on chip.  Each
-// pair loops for its own schedule length, so no batch-wide trip count is
-// needed.  The loop is a chain of dependent exp/log rounds; accurate expf/logf
-// are used (no fast-math) because ~70 rounds compound.
+// (_sinkhorn_kernel).  One warp solves one pair: the cost matrix sits in
+// shared memory with an odd row pitch (rows and columns both conflict-free),
+// lane l owns rows l, l + 32, ... for the f update and columns l, l + 32, ...
+// for the g update, and the whole annealing loop runs on chip.  Each pair loops
+// for its own schedule length, so no batch-wide trip count is needed.  The
+// loop is a chain of dependent exp/log rounds; accurate expf/logf are used (no
+// fast-math) because ~70 rounds compound.
+//
+// A lane keeps its atoms' potentials and log-weights in registers, kPer of
+// each (a template: 1, 2, 4, ... 32, so up to 1024 atoms a side).  A pair of
+// at most 32 x 32 runs with kPer = 1, the constant pitch 33 and static shared
+// memory: with dynamic shared memory the 20 x 20 pairs of a serving request
+// ran 4-12% slower on the H100.  (Potentials kept in shared memory instead of
+// registers, which would take any count, made them 43% slower: the reads join
+// each round's dependent chain.)  Pairs a block: four, or as many as fit 227 KB.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxAtoms = 32;
-constexpr int kLd = kMaxAtoms + 1;     // odd row pitch: rows and columns both conflict-free
-constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxPairsPerBlock = 4;
+constexpr int kMaxSmem = 232448;       // shared memory one block can have
+
+// the cost's odd row pitch: 33 (a constant) while a lane owns one atom, m | 1 above
+template <int kPer>
+__host__ __device__ inline int pitch_of(int m) { return kPer == 1 ? 33 : (m | 1); }
+
+// floats a pair keeps in shared memory: cost [n][pitch], then ha [n], hb [m]
+template <int kPer>
+__host__ __device__ inline int pair_floats(int n, int m) { return n * pitch_of<kPer>(m) + n + m; }
 
 // -eps * logsumexp_k(h[k] - c[k * stride] / eps), max-shifted.
 __device__ __forceinline__ float softmin(const float* c, int stride, const float* h,
@@ -29,26 +45,37 @@ __device__ __forceinline__ float softmin(const float* c, int stride, const float
   return -eps * (logf(sum) + mx);
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int kPer>
+__global__ void __launch_bounds__(kMaxPairsPerBlock * 32)
 sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
                 const float* __restrict__ log_b, const float* __restrict__ diam,
                 float* __restrict__ f_out, float* __restrict__ g_out, int bsz, int n,
                 int m, float blur, float log_scaling, int max_iters) {
-  __shared__ float s_cost[kWarpsPerBlock][kMaxAtoms * kLd];
-  __shared__ float s_hb[kWarpsPerBlock][kMaxAtoms];   // log_b + g / eps, by column
-  __shared__ float s_ha[kWarpsPerBlock][kMaxAtoms];   // log_a + f / eps, by row
+  extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * kWarpsPerBlock + warp;
+  const int pair = blockIdx.x * (blockDim.x >> 5) + warp;
   if (pair >= bsz) return;             // warps are independent: no block barrier below
-  float* c = s_cost[warp];
-  float* hb = s_hb[warp];
-  float* ha = s_ha[warp];
+  const int ld = pitch_of<kPer>(m);
+  float* c;
+  if constexpr (kPer == 1) {           // at most 32 x 32: a fixed share of static shared memory
+    __shared__ float pairs[kMaxPairsPerBlock][32 * 33 + 64];
+    c = pairs[warp];
+  } else {
+    c = smem + (size_t)warp * pair_floats<kPer>(n, m);
+  }
+  float* ha = c + n * ld;              // log_a + f / eps, by row
+  float* hb = ha + n;                  // log_b + g / eps, by column
 
   const float* cg = cost + (size_t)pair * n * m;
-  for (int idx = lane; idx < n * m; idx += 32) c[(idx / m) * kLd + (idx % m)] = cg[idx];
-  const bool row = lane < n, col = lane < m;
-  const float la = row ? log_a[(size_t)pair * n + lane] : 0.f;
-  const float lb = col ? log_b[(size_t)pair * m + lane] : 0.f;
+  for (int idx = lane; idx < n * m; idx += 32) c[(idx / m) * ld + (idx % m)] = cg[idx];
+  // atom r of this lane: row / column lane + 32 r
+  float la[kPer], lb[kPer], f[kPer], g[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = lane + 32 * r;
+    la[r] = i < n ? log_a[(size_t)pair * n + i] : 0.f;
+    lb[r] = i < m ? log_b[(size_t)pair * m + i] : 0.f;
+  }
 
   // schedule [d, d, d*s, d*s^2, ..., blur]: length ceil(log(blur/d)/log s) + 2
   const float d = diam[pair];
@@ -60,35 +87,77 @@ sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
     const float k = (float)max(i - 1, 0);
     return ((float)i >= lane_iters - 1.f) ? blur : d_floor * expf(k * log_scaling);
   };
+  // ha / hb from f / g at 1 / eps (or a divisor), then the two softmins
+  auto write_h = [&](float inv, float div, bool by_div) {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + 32 * r;
+      if (i < m) hb[i] = lb[r] + (by_div ? g[r] / div : g[r] * inv);
+      if (i < n) ha[i] = la[r] + (by_div ? f[r] / div : f[r] * inv);
+    }
+  };
 
   float eps = eps_at(0), inv = 1.f / eps;
-  if (col) hb[lane] = lb;
-  if (row) ha[lane] = la;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = lane + 32 * r;
+    if (i < m) hb[i] = lb[r];
+    if (i < n) ha[i] = la[r];
+  }
   __syncwarp();
-  float f = row ? softmin(c + lane * kLd, 1, hb, m, eps, inv) : 0.f;
-  float g = col ? softmin(c + lane, kLd, ha, n, eps, inv) : 0.f;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = lane + 32 * r;
+    f[r] = i < n ? softmin(c + i * ld, 1, hb, m, eps, inv) : 0.f;
+    g[r] = i < m ? softmin(c + i, ld, ha, n, eps, inv) : 0.f;
+  }
 
-  for (int i = 0; i < iters; ++i) {
-    eps = eps_at(i);
+  for (int it = 0; it < iters; ++it) {
+    eps = eps_at(it);
     inv = 1.f / eps;
     __syncwarp();                      // every lane is done reading hb / ha
-    if (col) hb[lane] = lb + g * inv;  // Jacobi: both updates read the old f and g
-    if (row) ha[lane] = la + f * inv;
+    write_h(inv, 0.f, false);          // Jacobi: both updates read the old f and g
     __syncwarp();
-    const float ft = row ? softmin(c + lane * kLd, 1, hb, m, eps, inv) : 0.f;
-    const float gt = col ? softmin(c + lane, kLd, ha, n, eps, inv) : 0.f;
-    f = 0.5f * (f + ft);
-    g = 0.5f * (g + gt);
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + 32 * r;
+      const float ft = i < n ? softmin(c + i * ld, 1, hb, m, eps, inv) : 0.f;
+      const float gt = i < m ? softmin(c + i, ld, ha, n, eps, inv) : 0.f;
+      f[r] = 0.5f * (f[r] + ft);
+      g[r] = 0.5f * (g[r] + gt);
+    }
   }
 
   // final extrapolation at eps = blur, again from the loop's f and g
   inv = 1.f / blur;
   __syncwarp();
-  if (col) hb[lane] = lb + g / blur;
-  if (row) ha[lane] = la + f / blur;
+  write_h(inv, blur, true);
   __syncwarp();
-  if (row) f_out[(size_t)pair * n + lane] = softmin(c + lane * kLd, 1, hb, m, blur, inv);
-  if (col) g_out[(size_t)pair * m + lane] = softmin(c + lane, kLd, ha, n, blur, inv);
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int i = lane + 32 * r;
+    if (i < n) f_out[(size_t)pair * n + i] = softmin(c + i * ld, 1, hb, m, blur, inv);
+    if (i < m) g_out[(size_t)pair * m + i] = softmin(c + i, ld, ha, n, blur, inv);
+  }
+}
+
+template <int kPer>
+int launch(const float* cost, const float* log_a, const float* log_b, const float* diam,
+           float* f, float* g, int bsz, int n, int m, float blur, float log_scaling,
+           int max_iters, cudaStream_t stream) {
+  const long long per_pair = (long long)pair_floats<kPer>(n, m) * (long long)sizeof(float);
+  if (per_pair > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int fit = (int)(kMaxSmem / per_pair);
+  const int pairs = fit < kMaxPairsPerBlock ? fit : kMaxPairsPerBlock;
+  const int smem = kPer == 1 ? 0 : (int)(pairs * per_pair);
+  // above 48 KB of dynamic shared memory a kernel has to opt in
+  cudaError_t err = cudaFuncSetAttribute(sinkhorn_kernel<kPer>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (bsz + pairs - 1) / pairs;
+  sinkhorn_kernel<kPer><<<blocks, pairs * 32, smem, stream>>>(
+      cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -97,11 +166,20 @@ extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const 
                                    const float* diam, float* f, float* g, int bsz, int n,
                                    int m, float blur, float log_scaling, int max_iters,
                                    void* stream) {
-  if (n > kMaxAtoms || m > kMaxAtoms || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (bsz + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sinkhorn_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters);
-  return (int)cudaGetLastError();
+  if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  const int side = n > m ? n : m;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define ASPIRE_SINKHORN_PER(P)                                                               \
+  if (side <= 32 * (P))                                                                      \
+    return launch<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters, s);
+  ASPIRE_SINKHORN_PER(1)
+  ASPIRE_SINKHORN_PER(2)
+  ASPIRE_SINKHORN_PER(4)
+  ASPIRE_SINKHORN_PER(8)
+  ASPIRE_SINKHORN_PER(16)
+  ASPIRE_SINKHORN_PER(32)
+#undef ASPIRE_SINKHORN_PER
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* aspire_error_string(int err) {

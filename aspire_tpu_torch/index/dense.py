@@ -17,16 +17,17 @@ aspire_tpu/index/dense.py).
 
 Where the scan runs (`scan=` of score_buckets / score_buckets_batched):
 
-  * "kernel" (the default) on CUDA tensors: a bf16 bucket under one query goes
-    through ops/scan_kernel.fused_l2max_scan, one launch a bucket, with
-    ``qadd = -|q_j|^2`` so that the kernel's max is the scorer's; an int8
-    bucket goes through fused_l2max_scan_int8_batched, one launch a bucket
-    (B = 1 for a single query).  A *batch* of two or more queries over a
-    bf16 bucket has no kernel (the TPU package has none either) and runs the
-    chunked `torch.einsum` below; a batch of one is a single query and takes
-    the bf16 kernel, so the fused query at B = 1 does.  float32 storage (cosine indexes, whose scan is
-    the final ranking) always runs the true-float32 product; `exact` changes
-    nothing here, because no product of this module rounds its operands.
+  * "kernel" (the default) on CUDA tensors: a bf16 or float32 bucket under
+    one query goes through ops/scan_kernel.fused_l2max_scan, one launch a
+    bucket, with ``qadd = -|q_j|^2`` so that the kernel's max is the
+    scorer's (float32 rows: the kernel's true-float32 product, never TF32);
+    an int8 bucket goes through fused_l2max_scan_int8_batched, one launch a
+    bucket (B = 1 for a single query).  A *batch* of two or more queries over
+    a bf16 or float32 bucket has no kernel (the TPU package has none either)
+    and runs the chunked `torch.einsum` below; a batch of one is a single
+    query and takes the scan kernel, so the fused query at B = 1 does.
+    `exact` changes nothing here, because no product of this module rounds
+    its operands.
   * "torch": the plain product everywhere.  CPU tensors take it under either
     name, through the wrappers' plain versions.
 
@@ -417,7 +418,7 @@ def _mask_and_topk(score, doc_idx, k: int):
 def _kernel_route(bucket, scan: str) -> bool:
     sents = bucket["sents"]
     return scan == "kernel" and sents.is_cuda \
-        and sents.dtype in (torch.bfloat16, torch.int8)
+        and sents.dtype in (torch.bfloat16, torch.float32, torch.int8)
 
 
 def _bucket_topk(q, q_norms, q_len, bucket, k: int, exact: bool = False,
@@ -469,8 +470,8 @@ def score_buckets(buckets: list[dict], q, q_len, k: int,
 
     q: f32[qmax, d]; -> (sq-l2max scores [k], global doc idx [k]).
     exact: true-float32 scan for indexes whose scan is the final ranking.
-    scan: "kernel" (CUDA tensors: bf16 buckets through the bf16 scan kernel,
-    int8 buckets through the int8 one at B = 1; float32 buckets and CPU
+    scan: "kernel" (CUDA tensors: bf16 and float32 buckets through the scan
+    kernel of their dtype, int8 buckets through the int8 one at B = 1; CPU
     tensors through the plain product) or "torch" (the plain product)."""
     _check_scan(scan)
     with torch.no_grad():
@@ -523,7 +524,7 @@ def _bucket_topk_batched(q, q_norms, q_lens, bucket, k: int,
             sents, bucket["scales"], norms, q, q_lens, qmax).t()    # [B, n]
         return _mask_and_topk(score, doc_idx, k)
     if bq == 1 and _kernel_route(bucket, scan):
-        # a batch of one is a single query: the bf16 scan kernel
+        # a batch of one is a single query: the bf16 / f32 scan kernel
         score = fused_l2max_scan(sents, q[0], norms, q_lens[0],
                                  qadd=-q_norms[0])[None]
         return _mask_and_topk(score, doc_idx, k)

@@ -33,7 +33,7 @@ from ..core.types import require_device
 from ..ops.attention_kernel import (attention_keep_mask, fused_attention,
                                     fused_attention_plain)
 from ..ops.dropout_kernel import dropout_plain, fused_dropout, keep_mask
-from ..ops.ffn_kernel import fused_ffn
+from ..ops.ffn_kernel import fused_ffn_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +90,7 @@ def _select_impl(attention_impl: str, deterministic: bool, dropout_p: float,
 
 def _select_ffn(ffn_impl: str, on_cuda: bool = True) -> str:
     """FFN backend policy: 'auto' routes CUDA passes through
-    ops/ffn_kernel.fused_ffn (intermediate kept on chip); 'fused' forces the
+    ops/ffn_kernel.fused_ffn_linear (the kernel without grad); 'fused' forces the
     same wrapper on the CPU too (its plain version); 'naive' forces the
     linear-gelu-linear composition everywhere."""
     if ffn_impl not in ("auto", "fused", "naive"):
@@ -143,30 +143,27 @@ class _CastCache:
     def __init__(self):
         self._store = {}
 
-    def get(self, key: str, param: torch.Tensor, dtype: torch.dtype,
-            transpose: bool = False) -> torch.Tensor:
-        if param.dtype == dtype and not transpose:
+    def get(self, key: str, param: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if param.dtype == dtype:
             return param
         tag = (param.data_ptr(), param._version, param.device, dtype)
         hit = self._store.get(key)
         if hit is not None and hit[0] == tag:
             return hit[1]
         with torch.no_grad():
-            src = param.detach().t() if transpose else param.detach()
-            value = src.to(dtype).contiguous()
+            value = param.detach().to(dtype).contiguous()
         self._store[key] = (tag, value)
         return value
 
 
 def _param(cache: _CastCache, key: str, param: torch.Tensor,
-           dtype: torch.dtype, transpose: bool = False) -> torch.Tensor:
+           dtype: torch.dtype) -> torch.Tensor:
     """The parameter in the compute dtype: a cached detached copy without
     grad, a cast inside the graph with it (float32 parameters then receive
     float32 gradients, as Flax's param_dtype=float32, dtype=bf16 does)."""
     if torch.is_grad_enabled() and param.requires_grad:
-        value = param.to(dtype)
-        return value.t() if transpose else value
-    return cache.get(key, param, dtype, transpose)
+        return param.to(dtype)
+    return cache.get(key, param, dtype)
 
 
 def _layer_norm(x, ln: nn.LayerNorm, dtype):
@@ -300,15 +297,12 @@ class BertLayer(_Base):
 
     def _ffn_fused(self, x):
         i, o = self.intermediate_dense, self.output_dense
-        # fused_ffn takes [in, out] weights in the compute dtype: cached
-        # contiguous copies without grad, transposed views of in-graph casts
-        # with it
-        get = lambda key, param, tr=False: _param(self._cache, key, param,
-                                                  self.dtype, tr)
-        return fused_ffn(
-            x,
-            get("ffn.w1", i.weight, True), get("ffn.b1", i.bias),
-            get("ffn.w2", o.weight, True), get("ffn.b2", o.bias))
+        # the kernel reads nn.Linear's [out, in] weights in the compute dtype:
+        # cached contiguous copies without grad, in-graph casts with it
+        get = lambda key, param: _param(self._cache, key, param, self.dtype)
+        return fused_ffn_linear(
+            x, get("ffn.w1", i.weight), get("ffn.b1", i.bias),
+            get("ffn.w2", o.weight), get("ffn.b2", o.bias))
 
     def _dropout(self, x, seed, site: int):
         return _hidden_dropout(x, self.config.hidden_dropout_prob,

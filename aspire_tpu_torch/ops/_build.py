@@ -48,9 +48,10 @@ SIGNATURES = {
     # x, out, bits, rows, h, mode, seed, counter word 0, threshold, scale, stream
     "aspire_dropout_bf16": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
     "aspire_dropout_f32": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
-    # x, w1, b1, w2, b2, out, rows, hidden, inter, stream
-    "aspire_ffn_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "aspire_ffn_f32": [_P] * 6 + [_I] * 3 + [_P],
+    # x, w1 [inter, hidden], b1, w2 [hidden, inter], b2, activation scratch,
+    # out, rows, hidden, inter, stream
+    "aspire_ffn_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    "aspire_ffn_f32": [_P] * 7 + [_I] * 3 + [_P],
     # hidden, sent_ids, out, b, t, h, max_sents, stream
     "aspire_pool_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "aspire_pool_f32": [_P] * 3 + [_I] * 4 + [_P],
@@ -58,6 +59,7 @@ SIGNATURES = {
     # group, tiles a query, groups, out's row length, stream
     "aspire_scan_bf16": [_P] * 5 + [_I] * 7 + [_P],
     "aspire_scan_int8": [_P] * 6 + [_I] * 7 + [_P],
+    "aspire_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -21,6 +21,10 @@ dropout) divided by 1 - p in the compute dtype and the dropped ones zeroed,
 then probs.v accumulated in f32.  The mask is keep = bits >= round(p * 2**32)
 with bits from the ``rng_bits`` operand or from Philox words keyed on the
 element's position (``ops/philox.py``).
+
+Heads narrower than 64 (``BertConfig.tiny()`` has 8) are zero-padded to 64
+columns on the way in and the output sliced back (`with_padded_heads`); heads
+wider than 64 are refused.
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, philox
 
-HEAD_DIM = 64   # the kernels are built for 64-wide heads
+HEAD_DIM = 64   # the kernels are built for 64-wide heads; narrower ones are padded
 
 
 def fused_attention_plain(q, k, v, bias, sm_scale: float,
@@ -62,6 +67,21 @@ def attention_keep_mask(shape, dropout_p: float, *, seed=None, site: int = 0,
     if rng_bits is not None:
         return philox.bits_to_int64(rng_bits).reshape(b, nh, t, t) >= thresh
     return philox.attention_bits(seed, site, b, nh, t, device=device) >= thresh
+
+
+def with_padded_heads(fn, q, k, v, *args, **kwargs):
+    """fn(q, k, v, *args) at head width HEAD_DIM for q, k, v of a narrower
+    width: the three are zero-padded to HEAD_DIM columns and the output is
+    sliced back.  Exact, forward and backward: zero columns add nothing to
+    q.k^T (the caller's sm_scale passes through), give zero context columns,
+    and the cotangent's padded columns are zero, so delta = rowsum(g * ctx)
+    and the gradients of the real columns do not change; the dropout mask is
+    keyed on (row, key) and does not see the width."""
+    hd = q.shape[-1]
+    if hd == HEAD_DIM:
+        return fn(q, k, v, *args, **kwargs)
+    padded = [F.pad(x, (0, HEAD_DIM - hd)) for x in (q, k, v)]
+    return fn(*padded, *args, **kwargs)[..., :hd]
 
 
 def _strides(x):
@@ -188,13 +208,15 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
     """softmax(q.k^T * sm_scale + bias) [dropout] . v with nothing
     intermediate in device memory, differentiable in q, k, v.
 
-    q, k, v: [b, nh, t, hd] bf16 or f32, any batch/head/token strides (views
-    of a [b, t, nh, hd] projection are taken as they are); bias: [b, t] f32
+    q, k, v: [b, nh, t, hd] bf16 or f32, hd <= 64, any batch/head/token
+    strides (views of a [b, t, nh, hd] projection are taken as they are;
+    narrower heads are padded, see `with_padded_heads`); bias: [b, t] f32
     additive key mask (0 at real tokens, -1e9 at pads; it gets no gradient).
     seed: the call's 64-bit seed as a Python int; site: the layer index;
     rng_bits: optional 32-bit integer [b, nh, t, t] bits drawn by the caller
     (the route by which parity with the JAX package is tested).  Returns
-    [b, nh, t, hd] in q's dtype and, for a dense q, q's memory layout.
+    [b, nh, t, hd] in q's dtype and, for a dense 64-wide q, q's memory
+    layout.
     CUDA tensors launch the kernels; CPU tensors run the plain version under
     ordinary autograd with the same bits.
     """
@@ -219,8 +241,8 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
                                        site=site, rng_bits=rng_bits,
                                        device=q.device)
         return fused_attention_plain(q, k, v, bias, sm_scale, dropout_p, keep)
-    if hd != HEAD_DIM:
-        raise ValueError(f"the attention kernels are built for head width "
+    if hd > HEAD_DIM:
+        raise ValueError(f"the attention kernels take head widths up to "
                          f"{HEAD_DIM}, got {hd}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -234,14 +256,19 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
             raise ValueError("rng_bits must be a 32-bit integer tensor on "
                              "q's device")
         bits = rng_bits.contiguous()
+    return with_padded_heads(_attention_cuda, q, k, v, bias, float(sm_scale),
+                             float(dropout_p), seed, int(site), bits)
+
+
+def _attention_cuda(q, k, v, *args):
+    """The kernels on [b, nh, t, HEAD_DIM] CUDA tensors: through the autograd
+    Function when a gradient is wanted, else the forward alone."""
     for x in (q, k, v):
         _strides(x)
-    args = (q, k, v, bias, float(sm_scale), float(dropout_p), seed, int(site),
-            bits)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _Attention.apply(*args)
-    return _forward_cuda(*args)
+        return _Attention.apply(q, k, v, *args)
+    return _forward_cuda(q, k, v, *args)
 
 
 # launches of the deterministic forward, of the forward with dropout, and of

@@ -1,17 +1,21 @@
-"""CUDA fused FFN forward: wrapper, launch count, plain version, and the
-split between no-grad and grad passes.
+"""CUDA FFN forward: wrapper, launch count, plain version, and the split
+between no-grad and grad passes.
 
 Replaces the TPU kernel ``aspire_tpu/ops/pallas_ffn.py:_fwd_kernel`` (the
-primal of ``fused_ffn``): ``gelu_erf(x.W1 + b1).W2 + b2`` with the
-[rows, inter] intermediate never written to device memory.  The CUDA source
-is ``csrc/ffn.cu``.  The two products do far more operations per byte than
-the card's memory can feed, so the tensor cores bound it.  A block owns 32
-rows and all output columns (the f32 accumulator lives in registers) and
-walks the intermediate axis in chunks of 64: first product, bias, exact
-gelu in f32, cast to the compute dtype, second product.  The weights are
-re-read by every row block, are served from the L2 cache, and reach shared
-memory through a ring of asynchronous copies kept in flight by two warps that
-do nothing else.
+primal of ``fused_ffn``): ``gelu_erf(x.W1 + b1).W2 + b2``.  The CUDA source is
+``csrc/ffn.cu``: two launches of one tiled ``wgmma`` product, the first with
+a bias + exact gelu epilogue that writes the activation in x's dtype to a
+scratch [rows, inter] tensor allocated here, the second with a bias epilogue.
+The two products do far more operations per byte than the card's memory can
+feed, so the tensor cores bound it; the scratch (one write and one read of
+the activation, rounded where the fused kernel rounds it) is a small share
+of the time.  The kernel takes hidden and intermediate widths that are
+multiples of 64; other widths are zero-padded here, which is exact (zero x
+columns meet zero W1 rows, gelu(0) = 0, zero W2 rows add nothing).
+
+The kernel reads the weights K-major, in ``nn.Linear``'s [out, in] layout:
+`fused_ffn_linear` takes them so (the model's cached copies), `fused_ffn`
+keeps the JAX function's [in, out] signature and transposes.
 
 Under grad the kernel is not used, as in the JAX package
 (``pallas_ffn.py`` ``fwd``/``bwd``): the forward is the plain composition,
@@ -28,8 +32,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-HIDDEN = 768      # the kernel keeps a [32, HIDDEN] accumulator in registers
-INTER_CHUNK = 64
+WIDTH_STEP = 64   # the kernel takes widths that are multiples of this
 
 
 def fused_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -75,57 +78,92 @@ class _FfnTrain(torch.autograd.Function):
         return dx, dw1, db1, dw2, db2
 
 
+def _check(x, w1, b1, w2, b2) -> None:
+    """Raises unless x [..., h], w1 [h, f], b1 [f], w2 [f, h], b2 [h]."""
+    h, f = w1.shape
+    if x.shape[-1] != h or w2.shape != (f, h) or b1.shape != (f,) \
+            or b2.shape != (h,):
+        raise ValueError(f"shapes do not form an FFN: x {tuple(x.shape)}, "
+                         f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
+                         f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}")
+
+
 def fused_ffn(x, w1, b1, w2, b2) -> torch.Tensor:
-    """gelu-FFN: with grad disabled the kernel (intermediate kept on chip),
-    with grad enabled the plain forward and the five-product backward.
+    """gelu-FFN: with grad disabled the kernel, with grad enabled the plain
+    forward and the five-product backward.
 
     x: [..., h] bf16 or f32, flattened to [rows, h]; w1: [h, f], b1: [f],
     w2: [f, h], b2: [h] in the same dtype (the caller casts parameters).
     Differentiable in all five.  Without grad, CUDA tensors launch the
     kernel and CPU tensors run its plain version.
     """
+    return fused_ffn_linear(x, w1.t(), b1, w2.t(), b2)
+
+
+def fused_ffn_linear(x, w1, b1, w2, b2) -> torch.Tensor:
+    """`fused_ffn` with the weights in nn.Linear's [out, in] layout: w1
+    [f, h], w2 [h, f] -- what the kernel reads, so contiguous weights of this
+    layout reach it without a copy."""
+    _check(x, w1.t(), b1, w2.t(), b2)
     h = x.shape[-1]
-    f = w1.shape[1]
-    if w1.shape != (h, f) or w2.shape != (f, h) or b1.shape != (f,) \
-            or b2.shape != (h,):
-        raise ValueError(f"shapes do not form an FFN: x {tuple(x.shape)}, "
-                         f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
-                         f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         if any(t.dtype != x.dtype for t in (w1, b1, w2, b2)):
             raise TypeError("x and the parameters must share one dtype")
-        out = _FfnTrain.apply(x.reshape(-1, h), w1, b1, w2, b2)
+        out = _FfnTrain.apply(x.reshape(-1, h), w1.t(), b1, w2.t(), b2)
         return out.reshape(x.shape)
     if not x.is_cuda:
-        return fused_ffn_plain(x, w1, b1, w2, b2)
-    if h != HIDDEN or f % INTER_CHUNK:
-        raise ValueError(f"the FFN kernel is built for hidden width {HIDDEN} "
-                         f"and an intermediate width divisible by "
-                         f"{INTER_CHUNK}, got {h} and {f}")
+        return fused_ffn_plain(x, w1.t(), b1, w2.t(), b2)
     if x.dtype not in (torch.bfloat16, torch.float32) or any(
             t.dtype != x.dtype for t in (w1, b1, w2, b2)):
         raise TypeError("x and the parameters must all be bfloat16 or all "
                         "float32")
     if any(t.device != x.device for t in (w1, b1, w2, b2)):
         raise ValueError("all inputs must lie on the same device")
-    shape = x.shape
-    x2 = x.reshape(-1, h).contiguous()
-    w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
-    rows = x2.shape[0]
-    out = torch.empty_like(x2)
+    return _ffn_cuda(x.reshape(-1, h), w1, b1, w2, b2).reshape(x.shape)
+
+
+def padded_widths(h: int, f: int) -> tuple:
+    """The widths the kernel runs at: each rounded up to a multiple of 64."""
+    up = lambda n: -(-n // WIDTH_STEP) * WIDTH_STEP
+    return up(h), up(f)
+
+
+def pad_ffn(x, w1, b1, w2, b2):
+    """Zero-pads x [rows, h], w1 [f, h], b1, w2 [h, f], b2 to the kernel's
+    widths (`padded_widths`); the first h columns of the padded FFN's output
+    are the FFN's output, exactly."""
+    h, f = x.shape[-1], w1.shape[0]
+    hp, fp = padded_widths(h, f)
+    if (hp, fp) == (h, f):
+        return x, w1, b1, w2, b2
+    dh, df = hp - h, fp - f
+    return (F.pad(x, (0, dh)), F.pad(w1, (0, dh, 0, df)), F.pad(b1, (0, df)),
+            F.pad(w2, (0, df, 0, dh)), F.pad(b2, (0, dh)))
+
+
+def _ffn_cuda(x2, w1, b1, w2, b2) -> torch.Tensor:
+    """The two launches on CUDA tensors: x2 [rows, h], w1 [f, h], w2 [h, f]."""
+    rows, h = x2.shape
     if rows == 0:
-        return out.reshape(shape)
+        return torch.empty_like(x2)
+    # dense rows from 16-byte boundaries, as TMA and 16-byte loads read them
+    x2, w1, b1, w2, b2 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (u.contiguous() for u in pad_ffn(x2, w1, b1, w2, b2)))
+    hp, fp = x2.shape[1], w1.shape[0]
+    act = torch.empty((rows, fp), dtype=x2.dtype, device=x2.device)
+    out = torch.empty((rows, hp), dtype=x2.dtype, device=x2.device)
     lib = _build.load()
-    name = "aspire_ffn_bf16" if x.dtype == torch.bfloat16 else "aspire_ffn_f32"
-    with torch.cuda.device(x.device):
+    name = "aspire_ffn_bf16" if x2.dtype == torch.bfloat16 else "aspire_ffn_f32"
+    with torch.cuda.device(x2.device):
         err = getattr(lib, name)(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), rows, h, f,
+            b2.data_ptr(), act.data_ptr(), out.data_ptr(), rows, hp, fp,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    fused_ffn.launches += 1
-    return out.reshape(shape)
+    fused_ffn.launches += 2            # what the C function launches
+    return out if hp == h else out[:, :h]
 
 
+# kernel launches: two a CUDA call (activation, output)
 fused_ffn.launches = 0

@@ -13,7 +13,9 @@ Replace the two TPU kernels of ``aspire_tpu/ops/pallas_scan.py``:
 Both run the one CUDA kernel of ``csrc/scan.cu`` (its head says how it is laid
 out): the [rows, columns] similarities stay in registers and only per-document
 maxima reach device memory.  A single query is bound by the one read of the
-bucket; a batch of 32 by the tensor cores.
+bucket; a batch of 32 by the tensor cores.  `fused_l2max_scan` on float32
+rows (the TPU kernel takes them too) runs the file's f32 kernel: the
+true-f32 product by FMAs with the query in f32, a check path.
 
 `fused_l2max_scan` takes one argument the TPU kernel lacks, `qadd`: a term
 added per query sentence *inside* the max.  The TPU kernel leaves "-|q|^2" to
@@ -95,8 +97,9 @@ def _tiling(bsz: int, qmax: int):
 
 
 def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
-    """sents [n, s, d] (bf16 or int8), norms (and scales) f32[n, s], q
-    f32[B, qmax, d], qadd f32[B, qmax] -> f32[n, B]."""
+    """sents [n, s, d] (bf16, int8 or f32), norms (and scales) f32[n, s], q
+    f32[B, qmax, d], qadd f32[B, qmax] -> f32[n, B].  The query goes to the
+    kernel in bf16, or in f32 for f32 rows."""
     n, s, d = sents.shape
     bsz, qmax, _ = q.shape
     if d % 32 or d > MAX_DIM:
@@ -113,8 +116,8 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
     # pad columns hold zero rows and -1e30, so they never win a max
     tiles, tiles_q, groups, padded = _tiling(bsz, qmax)
     qcols = 8 * tiles_q
-    qp = torch.zeros((padded, qcols, d), dtype=torch.bfloat16,
-                     device=sents.device)
+    q_dtype = torch.float32 if sents.dtype == torch.float32 else torch.bfloat16
+    qp = torch.zeros((padded, qcols, d), dtype=q_dtype, device=sents.device)
     qp[:bsz, :qmax] = q
     qa = torch.full((padded, qcols), NEG, dtype=torch.float32,
                     device=sents.device)
@@ -142,26 +145,27 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
 def fused_l2max_scan(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
     """Per-document max-similarity scores of one query over one dense bucket.
 
-    sents: [N, S, D] bf16 (f32 on the CPU as well); q: [Qpad, D] query
-    sentence matrix, the first `q_n` rows valid; norms: f32[N, S] squared
+    sents: [N, S, D] bf16 or f32; q: [Qpad, D] query sentence matrix, cast
+    to the rows' dtype, the first `q_n` rows valid; norms: f32[N, S] squared
     sentence norms (+inf at pads); qadd: optional f32[Qpad] added per query
     sentence inside the max.  Returns f32[N]: max over (sentence, valid query
     sentence) of 2 q.x - |x|^2 (+ qadd); a document of pads only gives -inf
     (or -1e30 where padded query sentences exist).  CUDA tensors launch the
-    kernel, which takes bf16 rows only; CPU tensors run the plain version.
+    kernel (bf16 rows: tensor cores; f32 rows: true-f32 FMAs); CPU tensors
+    run the plain version.
     """
     if not sents.is_cuda:
         return fused_l2max_scan_plain(sents, q, norms, q_n, qadd)
-    if sents.dtype != torch.bfloat16:
-        raise TypeError(f"the bf16 scan kernel takes bfloat16 rows, got "
-                        f"{sents.dtype}; float32 buckets are scored by the "
-                        f"plain float32 product (index/dense.score_buckets)")
+    names = {torch.bfloat16: "aspire_scan_bf16", torch.float32: "aspire_scan_f32"}
+    if sents.dtype not in names:
+        raise TypeError(f"the scan kernel takes bfloat16 or float32 rows, got "
+                        f"{sents.dtype}")
     qpad = q.shape[0]
     valid = torch.arange(qpad, device=q.device) < q_n
     add = torch.zeros(qpad, dtype=torch.float32, device=q.device) \
         if qadd is None else qadd.float()
     add = torch.where(valid, add, torch.full_like(add, NEG))
-    out = _launch("aspire_scan_bf16", sents, None, norms, q.float()[None],
+    out = _launch(names[sents.dtype], sents, None, norms, q.float()[None],
                   add[None])
     fused_l2max_scan.launches += 1
     return out[:, 0]

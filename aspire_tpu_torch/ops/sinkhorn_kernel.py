@@ -4,11 +4,13 @@ Replaces the TPU kernel ``aspire_tpu/ops/pallas_sinkhorn.py:_sinkhorn_kernel``
 (entry point ``sinkhorn_potentials_pallas``): forward-only batched balanced
 log-domain Sinkhorn with a per-pair eps schedule.  The CUDA source is
 ``csrc/sinkhorn.cu``: one warp per pair, the cost matrix in shared memory,
-the whole annealing loop on chip -- one read of the cost, one write of the
-potentials.  The work is a chain of dependent exp/log rounds on a few hundred
-values per pair, so the card's special-function rate bounds it, not its
-memory: the design keeps every intermediate out of device memory and lets
-each pair stop after its own schedule length, which also removes the
+each lane's atoms in registers, the whole annealing loop on chip -- one read
+of the cost, one write of the potentials.  It takes up to 1024 atoms a side
+whose pair fits one block's shared memory (`kernel_takes`: 239 x 239 does,
+240 x 240 does not).  The work is a chain of dependent exp/log rounds on a
+few hundred values per pair, so the card's special-function rate bounds it,
+not its memory: the design keeps every intermediate out of device memory and
+lets each pair stop after its own schedule length, which also removes the
 host-side read of the batch maximum that the TPU version needs.
 """
 from __future__ import annotations
@@ -21,7 +23,21 @@ from . import _build
 from .cdist import pairwise_l2
 from .sinkhorn import log_weights, resolve_diameter
 
-MAX_ATOMS = 32   # one lane per atom of either cloud
+MAX_SMEM = 232_448   # shared memory of one block on the H100, bytes
+MAX_SIDE = 1024      # atoms a side: 32 lanes x at most 32 atoms in registers
+
+
+def pair_bytes(n: int, m: int) -> int:
+    """Shared memory the kernel keeps for one n x m pair: the cost with an
+    odd row pitch (33 up to 32 atoms a side, else m | 1), and one float an
+    atom of either side."""
+    pitch = 33 if max(n, m) <= 32 else m | 1
+    return 4 * (n * pitch + n + m)
+
+
+def kernel_takes(n: int, m: int) -> bool:
+    """Whether the CUDA kernel takes an n x m pair."""
+    return max(n, m) <= MAX_SIDE and pair_bytes(n, m) <= MAX_SMEM
 
 
 def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
@@ -74,9 +90,11 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
         return sinkhorn_solve_plain(cost, log_a, log_b, diam, blur, scaling,
                                     max_iters)
     bsz, n, m = cost.shape
-    if n > MAX_ATOMS or m > MAX_ATOMS:
-        raise ValueError(f"the Sinkhorn kernel takes at most {MAX_ATOMS} atoms "
-                         f"a side, got {n} x {m}")
+    if not kernel_takes(n, m):
+        raise ValueError(f"the Sinkhorn kernel takes up to {MAX_SIDE} atoms a "
+                         f"side whose pair fits one block's shared memory "
+                         f"({MAX_SMEM} bytes); {n} x {m} needs "
+                         f"{pair_bytes(n, m)}")
     if log_a.shape != (bsz, n) or log_b.shape != (bsz, m) or diam.shape != (bsz,):
         raise ValueError("log_a, log_b, diam must be [B, n], [B, m], [B]")
     args = [t.detach().float().contiguous() for t in (cost, log_a, log_b, diam)]

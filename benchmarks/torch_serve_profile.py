@@ -7,8 +7,9 @@ Builds the same full-width bf16 ConSent encoder and the same 16 x 256-token
 requests as `chip_smoke.py`, answers a few warm-up requests, then answers
 `--requests` more under `torch.profiler` and prints, one JSON object a line:
 the span from the first device kernel's start to the last one's end, the
-device's busy time and idle share in that span, and the device kernels by
-total time.  `--plain` profiles the plain path (naive
+device's busy time and idle share in that span, the device time by class
+(each of the path's kernels, K1-K4, the cuBLAS products, the rest) and the
+device kernels by total time.  `--plain` profiles the plain path (naive
 attention and FFN, PyTorch solver) instead of the kernel path.  Last, the
 card's name and power limit.
 """
@@ -29,6 +30,22 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the request and weight generators)
+
+
+CLASSES = (
+    ("sinkhorn (K1)", ("sinkhorn_kernel",)),
+    ("attention (K2)", ("attention_bf16_kernel", "attention_f32_kernel")),
+    ("ffn (K3)", ("ffn_bf16_kernel", "ffn_f32_kernel")),
+    ("pool (K4)", ("pool_kernel",)),
+    ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+)
+
+
+def classify(name: str) -> str:
+    for label, needles in CLASSES:
+        if any(n in name for n in needles):
+            return label
+    return "other device kernels"
 
 
 def main() -> int:
@@ -86,11 +103,20 @@ def main() -> int:
         "device_span_ms": span_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / span_ms,
         "host_wall_ms_with_profiler": wall_ms}))
+    by_class: dict = {}
+    for name, (ms, count) in by_name.items():
+        ms0, count0 = by_class.get(classify(name), (0.0, 0))
+        by_class[classify(name)] = (ms0 + ms, count0 + count)
+    for label, (ms, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(json.dumps({"class": label, "device_ms_a_request": ms / args.requests,
+                          "share_of_busy": ms / busy_ms,
+                          "launches_a_request": count / args.requests}))
     rows = sorted(((ms, count, name) for name, (ms, count) in by_name.items()),
                   reverse=True)
     for ms, count, name in rows[:args.top]:
         print(json.dumps({"device_ms": ms, "share_of_busy": ms / busy_ms,
-                          "calls": count, "kernel": name[:90]}))
+                          "calls": count, "class": classify(name),
+                          "kernel": name[:90]}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())

@@ -14,9 +14,12 @@ Phases, one JSON object a line:
            torch / CUDA / nvcc / triton versions;
   build    nvcc builds aspire_tpu_torch/csrc/*.cu into one shared library;
   kernels  each CUDA kernel against its plain PyTorch version on the card, at
-           the shapes the serving and training paths give it and a few more,
-           with times; the dropout kernels with the bits given and with the
-           bits made in the kernel (masks equal to ops/philox.py's);
+           the shapes the serving and training paths give it and a few more
+           (Sinkhorn pairs past 32 atoms, heads of 32 and 8 columns padded to
+           64, FFN widths other than 768 padded to multiples of 64), with
+           times; the dropout kernels with the bits given and with the bits
+           made in the kernel (masks equal to ops/philox.py's); then
+           BertConfig.tiny() encoding on the card under 'auto' against 'naive';
   serve    full-width BERT-base ConSent encode (bf16, 12 layers, weights from
            a numpy seed) of 16 abstracts x 256 tokens, then an OT rerank of
            document 0 against all 16; three requests; the same requests
@@ -26,7 +29,8 @@ Phases, one JSON object a line:
            dense-bucket index of 125,000 documents (clip(poisson(9), 3, 20)
            sentences of 768-d reps, buckets (12, 24), numpy seed 0) are built
            by build_dense_index on the host and put on the card; the scan
-           kernels are held against their plain versions on its buckets.
+           kernels are held against their plain versions on its buckets (and
+           K8 on bucket 12 in f32).
            Then, with the launch counts at 0: 512 synthetic abstracts through
            encode_corpus (12-layer bf16 ConSentEncoder, batches of 64 x 256
            tokens, 20 sentences; once with f32 reps out, once quantised to
@@ -36,6 +40,8 @@ Phases, one JSON object a line:
            a batch of 32 on int8 (k=64) and a pool ranking of 8 queries x 512
            ids.  After the counts are read, the same through the plain route
            (scan='torch', solver='torch'), compared, and the stages timed;
+           then a float32 index of 20,000 documents queried through the scan
+           kernel's f32 instantiation and through the plain product;
   train    full-width BERT-base ts+otAspire model (sbalisentbienc, bf16 over
            f32 parameters, weights from a numpy seed): the first step's loss
            and gradient norms through the kernels against the plain path fed
@@ -188,24 +194,25 @@ def phase_build() -> None:
 
 
 # -------------------------------------------------------------------- kernels
-def sinkhorn_inputs(bsz: int, seed: int, diameter: str, dev):
+def sinkhorn_inputs(bsz: int, seed: int, diameter: str, dev, n: int = 20, m: int = 20):
     """The scoring shape of the pair bench: 20 x 20 sentences, 768-d, lens
-    4..20, temp 5000 -> (cost, log_a, log_b, diam, a, b)."""
+    4..20, temp 5000 (or n x m sentences, lens from a fifth of the side up)
+    -> (cost, log_a, log_b, diam, a, b)."""
     from aspire_tpu_torch.core.types import MultiVec
     from aspire_tpu_torch.ops.cdist import pairwise_l2
     from aspire_tpu_torch.ops.distances import ot_marginals
     from aspire_tpu_torch.ops.sinkhorn import log_weights, resolve_diameter
     rng = np.random.default_rng(seed)
-    smax, d = 20, 768
+    d = 768
 
-    def side():
-        lens = rng.integers(4, smax + 1, bsz)
+    def side(smax):
+        lens = rng.integers(max(1, smax // 5), smax + 1, bsz)
         emb = rng.standard_normal((bsz, smax, d)).astype(np.float32) * 2.0
         emb *= (np.arange(smax)[None, :] < lens[:, None])[:, :, None]
         return MultiVec(torch.from_numpy(emb).to(dev),
                         torch.from_numpy(lens).to(dev))
 
-    q, c = side(), side()
+    q, c = side(n), side(m)
     cost = pairwise_l2(q.embed, c.embed)
     a, b, _ = ot_marginals(q, c, temp=5000.0, cost=cost)
     diam = resolve_diameter(q.embed, c.embed, a, b, diameter, None).contiguous()
@@ -224,10 +231,11 @@ def sinkhorn_bound(cost, diam, blur=0.05, scaling=0.9, max_iters=128) -> dict:
     return out
 
 
-def case_sinkhorn(bsz: int, diameter: str, dev) -> dict:
+def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dict:
     from aspire_tpu_torch.ops import sinkhorn_kernel as sk
     from aspire_tpu_torch.ops.distances import wasserstein_dist
-    q, c, cost, la, lb, diam, a, b = sinkhorn_inputs(bsz, 7 + bsz, diameter, dev)
+    q, c, cost, la, lb, diam, a, b = sinkhorn_inputs(bsz, 7 + bsz + n + m, diameter,
+                                                     dev, n, m)
     f, g = sk.sinkhorn_solve(cost, la, lb, diam)
     torch.cuda.synchronize()
     fp, gp = sk.sinkhorn_solve_plain(cost, la, lb, diam)
@@ -246,7 +254,7 @@ def case_sinkhorn(bsz: int, diameter: str, dev) -> dict:
                plan_max_abs_err=plan["max_abs_err"])
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
-    res.update(case=f"B={bsz} n=m=20 f32 diameter={diameter}",
+    res.update(case=f"B={bsz} n={n} m={m} f32 diameter={diameter}",
                kernel_ms=t_k, plain_ms=t_p, library_ms=None,
                pairs_per_s=bsz / t_k["median"] * 1e3,
                **sinkhorn_bound(cost, diam))
@@ -595,27 +603,33 @@ def ffn_inputs(rows, dtype, seed, dev, h=768, f=3072):
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, dtype)
 
-    return (arr(rows, h), arr(h, f, scale=0.02), arr(f, scale=0.02),
-            arr(f, h, scale=0.02), arr(h, scale=0.02))
+    # weights of the size BERT's initialiser gives (std 0.02) at 768 wide;
+    # at other widths scaled so that pre-activations stay O(1)
+    ws = 0.02 * math.sqrt(768.0 / h)
+    return (arr(rows, h), arr(h, f, scale=ws), arr(f, scale=0.02),
+            arr(f, h, scale=0.02 * math.sqrt(3072.0 / f)), arr(h, scale=0.02))
 
 
-def case_ffn(rows, dtype, dev) -> dict:
+def case_ffn(rows, dtype, dev, h=768, f=3072) -> dict:
+    """K3 through the model's entry ([out, in] weights, as nn.Linear keeps
+    them) and through the public [in, out] one, against the plain version."""
     from aspire_tpu_torch.ops import ffn_kernel as fk
-    x, w1, b1, w2, b2 = ffn_inputs(rows, dtype, 13 + rows, dev)
-    out = fk.fused_ffn(x, w1, b1, w2, b2)
+    x, w1, b1, w2, b2 = ffn_inputs(rows, dtype, 13 + rows + h, dev, h, f)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()      # [out, in]
+    out = fk.fused_ffn_linear(x, w1t, b1, w2t, b2)
     torch.cuda.synchronize()
     want = fk.fused_ffn_plain(x, w1, b1, w2, b2)
     # bf16: one rounding of the activation and one of the output a side; a
     # flipped activation ulp moves an O(0.3) output by far less than 2e-2.
-    # f32: sums of 768 and 3072 terms in another order.
+    # f32: sums of h and f terms in another order.
     tol = dict(atol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-4)
     res = check_close("ffn", out, want, **tol)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()      # [out, in]
-    h, f = w1.shape
+    if not torch.equal(out, fk.fused_ffn(x, w1, b1, w2, b2)):
+        raise AssertionError("ffn: the [in, out] entry differs from the [out, in] one")
     size = x.element_size()
     res.update(
         case=f"rows={rows} {h}->{f}->{h} {str(dtype).split('.')[-1]}",
-        kernel_ms=cuda_ms(lambda: fk.fused_ffn(x, w1, b1, w2, b2)),
+        kernel_ms=cuda_ms(lambda: fk.fused_ffn_linear(x, w1t, b1, w2t, b2)),
         plain_ms=cuda_ms(lambda: fk.fused_ffn_plain(x, w1, b1, w2, b2)),
         library_ms=cuda_ms(lambda: F.linear(
             F.gelu(F.linear(x, w1t, b1), approximate="none"), w2t, b2)),
@@ -677,16 +691,17 @@ def _scan_queries(bsz, qmax, seed, dev):
 
 
 def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
-    """K8 on one bf16 bucket, as the TPU kernel computes it (no qadd) and as
-    the index needs it (qadd = -|q_j|^2 inside the max)."""
+    """K8 on one bf16 (or f32) bucket, as the TPU kernel computes it (no
+    qadd) and as the index needs it (qadd = -|q_j|^2 inside the max)."""
     from aspire_tpu_torch.ops import scan_kernel as sk
     sents, norms = bucket["sents"], bucket["norms"]
     n, s, d = sents.shape
     q = _scan_queries(1, qmax, 53 + s, dev)[0][0]
     qadd = -(q * q).sum(dim=1)
     live = bucket["doc_idx"] >= 0
-    # bf16 operands are exact in f32 on both sides; sums of 768 products of
-    # O(4) values in another order, against scores of O(1e3)
+    # bf16 operands are exact in f32 on both sides (f32 rows: true f32 on
+    # both); sums of 768 products of O(4) values in another order, against
+    # scores of O(1e3)
     tol = dict(atol=1e-2, rtol=1e-4)
     got = sk.fused_l2max_scan(sents, q, norms, q_n)
     torch.cuda.synchronize()
@@ -698,20 +713,22 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
     res_q = check_close("scan_bf16 qadd", got_q,
                         sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd),
                         mask=live, **tol)
-    qb = q.to(torch.bfloat16)
+    qb = q.to(sents.dtype)
+    dtype = str(sents.dtype).split(".")[-1]
 
     def library():
         sims = torch.einsum("nsd,qd->nsq", sents, qb[:q_n]).float()
         return (2.0 * sims - norms[:, :, None]).amax(dim=(1, 2))
 
     res.update(
-        case=f"{label}: [{n},{s},{d}] bf16, {q_n} of {qmax} query sentences",
+        case=f"{label}: [{n},{s},{d}] {dtype}, {q_n} of {qmax} query sentences",
         qadd_max_abs_err=res_q["max_abs_err"],
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan(sents, q, norms, q_n, qadd)),
         plain_ms=cuda_ms(lambda: sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd)),
         library_ms=cuda_ms(library),
-        **bound(2.0 * n * s * d + 4.0 * n * s + 2.0 * qmax * d + 4.0 * n,
-                2.0 * n * s * d * qmax, PEAK_BF16))
+        **bound(sents.element_size() * (n * s * d + qmax * d) + 4.0 * n * s + 4.0 * n,
+                2.0 * n * s * d * qmax,
+                PEAK_BF16 if sents.dtype == torch.bfloat16 else PEAK_FP32))
     return res
 
 
@@ -768,17 +785,22 @@ def phase_kernels(dev) -> dict:
         "sinkhorn": [case_sinkhorn(16, "global", dev),
                      case_sinkhorn(50, "global", dev),
                      case_sinkhorn(1024, "global", dev),
-                     case_sinkhorn(1024, "pair", dev)],
+                     case_sinkhorn(1024, "pair", dev),
+                     case_sinkhorn(16, "pair", dev, 48, 40),
+                     case_sinkhorn(16, "pair", dev, 100, 100)],
         "attention": [case_attention(16, 12, 256, 64, bf16, dev),
                       case_attention(3, 12, 512, 64, bf16, dev),
                       case_attention(4, 12, 512, 64, bf16, dev),
                       case_attention(16, 12, 256, 64, f32, dev),
                       case_attention(4, 12, 512, 64, f32, dev),
-                      case_attention(2, 12, 200, 64, bf16, dev)],
-        "ffn": [case_ffn(4096, bf16, dev), case_ffn(1536, bf16, dev),
-                case_ffn(4059, bf16, dev),
-                case_ffn(1024, bf16, dev),
-                case_ffn(4096, f32, dev), case_ffn(1001, f32, dev)],
+                      case_attention(2, 12, 200, 64, bf16, dev),
+                      case_attention(4, 4, 128, 32, bf16, dev),
+                      case_attention(2, 4, 64, 8, bf16, dev)],
+        "ffn": [case_ffn(4096, bf16, dev), case_ffn(16384, bf16, dev),
+                case_ffn(1536, bf16, dev), case_ffn(4059, bf16, dev),
+                case_ffn(1000, bf16, dev, 1024, 4096),
+                case_ffn(37, bf16, dev, 32, 64),
+                case_ffn(4096, f32, dev), case_ffn(1001, f32, dev, 64, 256)],
         # the training shape first: 30 sequences of 512 tokens an encode
         "attention_dropout": [
             case_attention_dropout(30, 12, 512, 64, bf16, dev),
@@ -786,7 +808,9 @@ def phase_kernels(dev) -> dict:
             case_attention_dropout(4, 12, 512, 64, bf16, dev),
             case_attention_dropout(2, 12, 200, 64, bf16, dev),
             case_attention_dropout(4, 12, 512, 64, f32, dev),
-            case_attention_dropout(2, 12, 200, 64, f32, dev)],
+            case_attention_dropout(2, 12, 200, 64, f32, dev),
+            case_attention_dropout(4, 4, 128, 32, bf16, dev),
+            case_attention_dropout(2, 4, 64, 8, bf16, dev)],
         "attention_bwd": [
             case_attention_bwd(30, 12, 512, 64, bf16, dev),
             case_attention_bwd(30, 12, 512, 64, bf16, dev, p=0.0),
@@ -796,7 +820,11 @@ def phase_kernels(dev) -> dict:
             case_attention_bwd(2, 12, 200, 64, bf16, dev, p=0.0),
             case_attention_bwd(4, 12, 512, 64, f32, dev),
             case_attention_bwd(2, 12, 200, 64, f32, dev),
-            case_attention_bwd(2, 12, 200, 64, f32, dev, p=0.0)],
+            case_attention_bwd(2, 12, 200, 64, f32, dev, p=0.0),
+            case_attention_bwd(4, 4, 128, 32, bf16, dev),
+            case_attention_bwd(4, 4, 128, 32, bf16, dev, p=0.0),
+            case_attention_bwd(2, 4, 64, 8, bf16, dev),
+            case_attention_bwd(2, 4, 64, 8, bf16, dev, p=0.0)],
         "dropout": [case_dropout(15360, 768, bf16, dev),
                     case_dropout(15360, 768, f32, dev),
                     case_dropout(1001, 768, bf16, dev)],
@@ -804,7 +832,49 @@ def phase_kernels(dev) -> dict:
     for name, rows in cases.items():
         emit("kernel_cases", kernel=name, cases=rows)
     emit("attention_bwd_sensitivity", **bwd_sensitivity(dev))
+    tiny_encode(dev)
     return cases
+
+
+def tiny_encode(dev) -> dict:
+    """BertConfig.tiny() (hidden 32, 4 heads of 8, intermediate 64) encodes on
+    the card under 'auto' -- attention with its heads padded to 64 columns,
+    the FFN with both widths padded to 64 -- against 'naive', bf16 and f32,
+    weights from a numpy seed.  Tolerances: bf16 1e-2 (each path rounds to 8
+    bits at its own places, the naive FFN rounds its pre-activation; the
+    H100 read 1.3e-3), f32 1e-3."""
+    from aspire_tpu_torch.models.bert import BertConfig
+    from aspire_tpu_torch.models.convert import state_dict_from_flax_params
+    from aspire_tpu_torch.models.encoders import ConSentEncoder
+    cfg = BertConfig.tiny()
+    state = state_dict_from_flax_params(random_flax_tree(cfg, seed=1), cfg)
+    token_ids, attn_mask, sent_ids, _ = make_request(cfg, 5, dev, docs=4, tokens=64,
+                                                     max_sents=4)
+    rows = []
+    for dtype, atol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-3)):
+        outs = {}
+        for impl in ("auto", "naive"):
+            enc = ConSentEncoder(cfg, max_sents=4, dtype=dtype, device=dev,
+                                 attention_impl=impl, ffn_impl=impl,
+                                 pool_impl=impl).eval()
+            enc.load_state_dict(state)
+            before = read_counts()
+            with torch.inference_mode():
+                outs[impl] = enc(token_ids, attn_mask, sent_ids)[1]
+            torch.cuda.synchronize()
+            outs[impl + "_launches"] = {k: v - before[k] for k, v in read_counts().items()
+                                        if v != before[k]}
+        got = outs["auto_launches"]
+        if got.get("attention") != cfg.num_hidden_layers \
+                or got.get("ffn") != 2 * cfg.num_hidden_layers or outs["naive_launches"]:
+            raise AssertionError(f"tiny encode: launches {got}, naive "
+                                 f"{outs['naive_launches']}")
+        res = check_close(f"tiny encode {dtype}", outs["auto"], outs["naive"], atol)
+        rows.append({"dtype": str(dtype).split(".")[-1], "launches": got, **res})
+    emit("tiny_encode", hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         intermediate=cfg.intermediate_size, layers=cfg.num_hidden_layers,
+         docs=4, tokens=64, rows=rows)
+    return rows
 
 
 def phase_pool_kernel(dev) -> list:
@@ -953,7 +1023,7 @@ def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
                                 for k, v in read_counts().items()})
     launches = read_counts()
     want = dict.fromkeys(read_counts(), 0)
-    want.update(sinkhorn=1, attention=layers, ffn=layers, pool=1)
+    want.update(sinkhorn=1, attention=layers, ffn=2 * layers, pool=1)
     for got in per_request:
         if got != want:
             raise AssertionError(f"{label}: launches per request {got}, "
@@ -1158,7 +1228,7 @@ def phase_train(dev, layers: int) -> dict:
                 raise AssertionError(f"train: step {i} launched {got}, "
                                      f"expected {want}")
         # the dev check came after step 4: three deterministic encodes
-        dev_want = {"attention": 3 * layers, "ffn": 3 * layers}
+        dev_want = {"attention": 3 * layers, "ffn": 2 * 3 * layers}
         if {k: per_step[3][k] for k in dev_want} != dev_want \
                 or any(got["attention"] or got["ffn"] for got in per_step[:3]):
             raise AssertionError(f"train: dev check launched {per_step}")
@@ -1316,7 +1386,7 @@ def index_encode(cfg, dev, n_docs: int) -> dict:
     got = {k: v - before[k] for k, v in read_counts().items()}
     layers = cfg.num_hidden_layers
     want = dict.fromkeys(got, 0)
-    want.update(attention=2 * batches * layers, ffn=2 * batches * layers,
+    want.update(attention=2 * batches * layers, ffn=2 * 2 * batches * layers,
                 pool=2 * batches)
     if got != want:
         raise AssertionError(f"index: the encode launched {got}, expected {want}")
@@ -1502,6 +1572,11 @@ def scan_kernel_cases(big: dict, dev) -> dict:
                            for b in big["buckets"]["int8"] for bsz in (32, 1)]}
     cases["scan_int8"].append(case_scan_int8(
         big["buckets"]["int8"][0], "bucket 12", 5, dev, qmax=20))
+    # K8 on f32 rows: the bf16 bucket 12 in f32 (exact), true-f32 products
+    b12 = big["buckets"]["bfloat16"][0]
+    cases["scan_bf16"].append(case_scan_bf16(
+        dict(b12, sents=b12["sents"].float()), "bucket 12 in f32", dev))
+    torch.cuda.empty_cache()
     for name, rows in cases.items():
         emit("kernel_cases", kernel=name, cases=rows)
     return cases
@@ -1611,11 +1686,55 @@ def index_queries(big: dict, dev):
     return finish
 
 
+def index_f32_query(dev, n_docs: int = 20_000) -> dict:
+    """A float32 dense-bucket index (clip(poisson(9), 3, 20) sentences of
+    768-d reps, seed 3, buckets (12, 24)) queried with document 7's own
+    sentences through the scan kernel (its f32 instantiation) and through the
+    plain product: document 7 first, the same ids wherever neighbouring
+    scores are apart, scores within 1e-3 + 2e-4 relative."""
+    from aspire_tpu_torch.index.dense import (build_dense_index,
+                                              flatten_device_buckets,
+                                              make_dense_search)
+    from aspire_tpu_torch.ops.scan_kernel import fused_l2max_scan
+    rng = np.random.default_rng(3)
+    lens = np.clip(rng.poisson(9, n_docs), 3, 20)
+    reps = [rng.standard_normal((n, 768), dtype=np.float32) * 2 for n in lens]
+    idx = build_dense_index(reps, list(range(n_docs)), buckets=(12, 24),
+                            dtype="float32")
+    flat = flatten_device_buckets(idx.device_arrays(dev))
+    nb = len(idx.buckets)
+    q, q_len = _pad_query(reps[7], 16, dev)
+    before = fused_l2max_scan.launches
+    v_k, d_k = make_dense_search(nb, k=20, scan="kernel")(q, q_len, *flat)
+    launched = fused_l2max_scan.launches - before
+    v_t, d_t = make_dense_search(nb, k=20, scan="torch")(q, q_len, *flat)
+    v_k, d_k, v_t, d_t = (x.tolist() for x in (v_k, d_k, v_t, d_t))
+    if launched != nb or d_k[0] != 7 or d_t[0] != 7:
+        raise AssertionError(f"f32 query: {launched} scan launches for {nb} "
+                             f"buckets, first ids {d_k[0]} / {d_t[0]}")
+    differ = 0
+    for pos, (a, b) in enumerate(zip(d_k, d_t)):
+        if not abs(v_k[pos] - v_t[pos]) <= 1e-3 + 2e-4 * abs(v_t[pos]):
+            raise AssertionError(f"f32 query: scores {v_k} against {v_t}")
+        if a != b:
+            near = [abs(v_t[pos] - v_t[o]) for o in (pos - 1, pos + 1)
+                    if 0 <= o < len(v_t)]
+            if min(near) > 2 * (1e-3 + 2e-4 * abs(v_t[pos])):
+                raise AssertionError(f"f32 query: ids {d_k} against {d_t}")
+            differ += 1
+    out = {"docs": n_docs, "buckets": nb, "k": 20, "scan_launches": launched,
+           "first_ids": d_k[:5], "ids_differing": differ,
+           "max_score_diff": max(abs(a - b) for a, b in zip(v_k, v_t))}
+    emit("index_f32_query", **out)
+    return out
+
+
 def phase_index(dev, layers: int, encode_docs: int, index_docs: int) -> tuple:
     """The path from a corpus to an answered query.  The large index is built
     and the scan kernels are held against their plain versions first; then the
     counts are set to 0, the path is driven (encode -> indexes -> queries) and
-    the counts are read; the plain route's runs come after that."""
+    the counts are read; the plain route's runs and the float32 index's check
+    query come after that."""
     from aspire_tpu_torch.models.bert import BertConfig
     torch.cuda.empty_cache()
     big = build_large_index(dev, index_docs)
@@ -1625,6 +1744,7 @@ def phase_index(dev, layers: int, encode_docs: int, index_docs: int) -> tuple:
     finish = index_queries(big, dev)
     launches = read_counts()
     finish()
+    index_f32_query(dev)
     return cases, launches
 
 

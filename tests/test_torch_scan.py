@@ -90,6 +90,44 @@ def test_bf16_scan_with_qadd_is_the_index_scorer(rng):
     assert np.abs(bare - q_norms[:q_n].min() - want).max() > 1.0
 
 
+@pytest.mark.parametrize("n,s,d,q_n,qpad", [(128, 12, 128, 10, 16),
+                                            (128, 5, 64, 3, 8),
+                                            (128, 7, 128, 18, 24)])
+def test_f32_scan_with_and_without_qadd_matches_pallas_kernel(rng, n, s, d, q_n, qpad):
+    """f32 rows, as the CUDA f32 scan takes them (true-f32 product; the last
+    case's query spans two of its 16-column chunks).  Without
+    qadd: the TPU kernel on the same f32 rows.  With qadd (a term per query
+    sentence inside the max): the max over j of the TPU kernel run on query
+    sentence j alone plus qadd_j.  f32 sums of up to 128 products in another
+    order: rtol/atol 1e-4."""
+    sents, norms = _bucket(rng, n, s, d)
+    q = np.zeros((qpad, d), np.float32)
+    q[:q_n] = rng.normal(size=(q_n, d)).astype(np.float32) \
+        * rng.uniform(0.3, 3.0, (q_n, 1)).astype(np.float32)
+    qadd = (-(q * q).sum(axis=1) + rng.normal(size=qpad)).astype(np.float32)
+
+    def pallas(qq, q_n_):
+        return np.asarray(jscan.fused_l2max_scan(
+            jnp.asarray(sents), jnp.asarray(qq), jnp.asarray(norms), q_n=q_n_,
+            block_docs=128, interpret=True))
+
+    args = (torch.from_numpy(sents), torch.from_numpy(q), torch.from_numpy(norms))
+    got = sk.fused_l2max_scan(*args, q_n).numpy()
+    np.testing.assert_allclose(np.maximum(got, -1e30),
+                               np.maximum(pallas(q, q_n), -1e30),
+                               rtol=1e-4, atol=1e-4)
+    got_q = sk.fused_l2max_scan(*args, q_n, qadd=torch.from_numpy(qadd)).numpy()
+    one = np.zeros((8, d), np.float32)
+    per_col = []
+    for j in range(q_n):
+        one[0] = q[j]
+        per_col.append(pallas(one, 1) + qadd[j])
+    want_q = np.max(per_col, axis=0)
+    np.testing.assert_allclose(np.maximum(got_q, -1e30),
+                               np.maximum(want_q, -1e30), rtol=1e-4, atol=1e-4)
+    assert np.isneginf(got_q[n // 2]) or got_q[n // 2] <= -1e30   # a doc of pads
+
+
 def _int8_bucket(rng, d, n_docs, s):
     reps = [rng.normal(size=(int(rng.integers(1, s + 1)), d)).astype(np.float32)
             for _ in range(n_docs)]

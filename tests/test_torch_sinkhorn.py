@@ -10,7 +10,8 @@ from aspire_tpu.ops import sinkhorn as js
 from aspire_tpu.ops.pallas_sinkhorn import sinkhorn_potentials_pallas
 from aspire_tpu_torch.ops import sinkhorn as ts
 from aspire_tpu_torch.ops.sinkhorn_kernel import (
-    sinkhorn_potentials_kernel, sinkhorn_solve, sinkhorn_solve_plain)
+    kernel_takes, pair_bytes, sinkhorn_potentials_kernel, sinkhorn_solve,
+    sinkhorn_solve_plain)
 
 # The same f32 algorithm on both sides; ~70 annealing rounds compound the
 # differences of the two logsumexp routines and summation orders.
@@ -161,3 +162,25 @@ def test_kernel_wrapper_on_cpu_runs_plain_and_counts_no_launch(rng):
     assert sinkhorn_solve.launches == before
     np.testing.assert_array_equal(f.numpy(), fp.numpy())
     np.testing.assert_array_equal(g.numpy(), gp.numpy())
+
+
+@pytest.mark.parametrize("n,m", [(48, 40), (100, 70)])
+def test_kernel_plain_version_past_32_atoms_matches_pallas_interpret(rng, n, m):
+    """Clouds past the 32 atoms one lane used to own: ragged n != m, floored
+    pads (zero mass at the last atoms of each side)."""
+    a, x, b, y = _clouds(rng, bsz=3, n=n, m=m, d=8)
+    f, g = sinkhorn_potentials_kernel(*_t(a, x, b, y))
+    fj, gj = sinkhorn_potentials_pallas(*_j(a, x, b, y), interpret=True)
+    assert f.shape == (3, n) and g.shape == (3, m)
+    _check_mass(f, fj, a, KTOL)
+    _check_mass(g, gj, b, KTOL)
+
+
+def test_what_the_cuda_wrapper_takes():
+    """Up to 1024 atoms a side (registers), a pair within one block's shared
+    memory (the cost with an odd pitch and two rows of potentials)."""
+    assert pair_bytes(20, 20) == 4 * (20 * 33 + 40)
+    assert pair_bytes(48, 40) == 4 * (48 * 41 + 88)
+    assert kernel_takes(32, 32) and kernel_takes(48, 40) and kernel_takes(100, 100)
+    assert kernel_takes(239, 239) and not kernel_takes(240, 240)
+    assert kernel_takes(1, 1024) and not kernel_takes(1, 1025)
