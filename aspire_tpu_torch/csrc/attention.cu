@@ -2,158 +2,298 @@
 // dropout on the probabilities.
 //
 // Takes the place of the TPU kernel aspire_tpu/ops/pallas_attention.py
-// (_fwd_kernel, built at dropout_p = 0 and at dropout_p > 0).  One block owns
-// 64 query rows of one (batch, head); each of its 4 warps owns 16 of them.
-// Keys and values stream through shared memory in tiles of 64.  The scores of a
-// tile live only on chip.  Rounding points follow the TPU kernel: scores, max,
-// exp, sum and the division in f32; the normalised probabilities are cast to
-// the compute type; probs.v accumulates in f32 and is cast on store.  To divide
-// before the cast without keeping a whole [64, t] score block, the keys are
-// walked twice: pass 1 finds each row's max and sum, pass 2 recomputes the
-// scores, normalises, casts and accumulates the context.
+// (_fwd_kernel, built at dropout_p = 0 and at dropout_p > 0).  Rounding points
+// follow the TPU kernel: scores, max, exp and sum in f32; the probabilities
+// normalised in f32 and then cast to the compute type; with dropout, divided
+// by (1 - p) in the compute type and the dropped ones zeroed; probs.v
+// accumulated in f32 and cast on store.  To normalise before the cast without
+// keeping a whole [rows, t] score block, the keys are walked twice: pass 1
+// finds each row's max m and sum l, pass 2 recomputes the scores, normalises,
+// casts and accumulates the context.  (An online softmax in one pass would
+// cast unnormalised probabilities: another rounding, not this kernel.)
+//
+// What bounds it on an H100: at [30, 12, 512, 64] the three products (q.k^T
+// twice, pd.v once) are 36 GFLOP, 0.037 ms on the bf16 tensor cores, and the
+// bytes 0.028 ms; each of the 94 M scores then costs two exponentials, the
+// normalisation and a cast, and with dropout a quarter of a Philox4x32-10
+// call, the compare and the scale.  Measured (PERF.md), the walk itself --
+// loads, products and barriers with the elementwise work taken out -- takes
+// two thirds of the time without dropout: with 16 warps an SM (128 registers
+// a thread) the latency of each step's products and loads is not hidden.  The
+// design:
+//
+//   - a block owns 128 query rows of one (batch, head) as two warpgroups of
+//     64; both products run on wgmma: S = q.k^T (m64n64k16, q and the key
+//     tile read from shared memory, both K-major), and ctx += pd.v
+//     (m64n64k16, pd as register A fragments packed straight from the score
+//     accumulators, the value tile read as B MN-major);
+//   - q (once) and the key tiles (pass 1), then key and value tiles (pass 2),
+//     come by cp.async into the 128-byte swizzle that the wgmma descriptors
+//     read, through a ring of kStages stages loaded kStages - 2 steps ahead
+//     of use, with one block barrier a step; the keys' biases ride in the
+//     same ring (-inf past t);
+//   - each probability is expf(s - m) * (1 / l), the reciprocal taken once a
+//     row, and with dropout pd = bf16(bf16(p) * (1 / bf16(1 - p))), the
+//     reciprocal taken once a call (drop_prob_bf16).  That is the arithmetic
+//     the backward's keys kernel (attention_bwd.cu) uses to recompute pd from
+//     the m and l this kernel leaves in `stats`, so the two compute the same
+//     pd from the same scores; and bf16(bf16(p) * (1 / bf16(1 - p))) is the
+//     bf16 quotient bf16(p) / bf16(1 - p) exactly (attention_bwd.cu says
+//     why);
+//   - the exponentials of pass 1's sums take one special-function
+//     instruction each (exp_sfu) in place of expf's eight; the cast inside
+//     drop_prob_bf16 is done by integer instructions (round_bf16), since the
+//     conversion unit is the one the exponentials need; the Philox rounds
+//     that depend only on the row are taken once a thread (philox_row).
 //
 // Dropout is a compile-time mode (kDrop: 0 none, 1 Philox bits made in the
-// kernel, 2 bits read from an operand).  The cast probability is divided by
-// (1 - p) in the compute type and cast again, dropped ones are zeroed, and the
-// result feeds the second product.  The bits are a function of the element's
-// position (common.cuh), so the backward, which tiles differently, recomputes
-// the same mask.  In the bf16 kernel a thread holds two neighbouring columns of
-// a row in the mma accumulator layout while one Philox call covers four: the
-// counter takes column / 4 all the same, and the two threads of a pair each
-// make one call (rows g and g + 8) and swap halves (acc_bits).  Mode 0 compiles
-// to the kernel without any of this.
+// kernel, 2 bits read from an operand).  The bits are a function of the
+// element's position (common.cuh), so the backward, which tiles differently,
+// recomputes the same mask.  A thread holds two neighbouring columns of a row
+// in the accumulator layout while one Philox call covers four: the counter
+// takes column / 4 all the same, and the two threads of a pair each make one
+// call (rows g and g + 8) and swap halves (acc_bits).  Mode 0 compiles to the
+// kernel without any of this.
 //
-// bf16 runs both products on the tensor cores (mma.sync m16n8k16 fed by
-// ldmatrix, f32 accumulate) with scores and probabilities in registers; f32
-// runs them as plain FMAs so that the result is true f32.
+// Tried on the H100 and slower (PERF.md): one warpgroup of 64 rows a
+// block, three blocks an SM, with the next step's scores in flight during
+// this step's elementwise work (12 warps an SM, 168 registers); the same with
+// two warpgroups at one or two blocks an SM; the pd.v wait deferred to the
+// next step; the scores in two halves of 32 keys; the next step's scores
+// started with this step's pd.v; pd packed by integer instructions too.
+//
+// f32 (a check path: serving and training run bf16) keeps one block of 64
+// rows, four warps, synchronous tile loads and plain FMAs, so that the result
+// is true f32.
 #include "attention_tile.cuh"
 
 namespace {
 
 using namespace aspire;
+using bf16 = __nv_bfloat16;
+
+struct Strides { long long b, h, t; };
 
 // ---------------------------------------------------------------- bf16 kernel
-// Both products run on the tensor cores (mma.sync m16n8k16, f32 accumulate).
-// A warp's scores for 16 rows x 64 keys come out of the first product in the
-// accumulator layout, in which the softmax runs (a row is spread over the four
-// threads of a quad); cast to bf16 pairs they are exactly the A fragments of
-// the second product, so neither scores nor probabilities touch shared memory.
+constexpr int kWg = 2;                    // warpgroups a block, 64 query rows each
+constexpr int kBqWg = 64 * kWg;           // query rows a block
+constexpr int kThreadsWg = 128 * kWg;
+constexpr int kStages = 4;                // ring of key (and value) tiles
+constexpr int kAhead = kStages - 2;       // steps loaded ahead of use
+constexpr int kTileSw = kBk * kHd;        // elements of a swizzled [64][64] tile
+// q [128][64], then a key and a value tile a stage (all in the 128-byte
+// swizzle), then the keys' biases a stage; 1 KB to align the base
+constexpr size_t kSmemBf16 = 1024 + (size_t)(kBqWg * kHd + 2 * kStages * kTileSw) * sizeof(bf16) +
+                             (size_t)kStages * kBk * sizeof(float);
+
+struct FwdArgs {
+  const bf16 *q, *k, *v;
+  const float* bias;
+  bf16* out;
+  float* stats;        // null, or [>= 2, b * heads, t]: each row's max and sum
+  int t;
+  Strides qs, ks, vs, os;
+  float sm_scale;
+  float inv_keep;      // 1 / (1 - p rounded to bf16)
+  Drop drop;
+};
+
+// s = s * scale + bias of the column, in the accumulator layout (s[4 j + i]:
+// rows g (i < 2) and g + 8, columns 8 j + 2 t + (i & 1))
+__device__ __forceinline__ void scale_bias(float (&s)[32], const float* bias_s, float sm_scale,
+                                           int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * tq);
+    s[4 * j] = s[4 * j] * sm_scale + b.x;
+    s[4 * j + 1] = s[4 * j + 1] * sm_scale + b.y;
+    s[4 * j + 2] = s[4 * j + 2] * sm_scale + b.x;
+    s[4 * j + 3] = s[4 * j + 3] * sm_scale + b.y;
+  }
+}
+
+// e^x for x <= 0 by one special-function instruction, 2^(x log2 e): a few f32
+// ulps from expf, subnormal results flushed to zero.  For the row sums only:
+// the probabilities that meet the backward's go through expf.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// online max and sum of the rows g (index 0) and g + 8 (index 1) over one tile
+__device__ __forceinline__ void row_stats(const float (&s)[32], float (&m_run)[2],
+                                          float (&l_run)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[h], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sum += exp_sfu(s[4 * j + 2 * h] - m_new) + exp_sfu(s[4 * j + 2 * h + 1] - m_new);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_run[h] = l_run[h] * exp_sfu(m_run[h] - m_new) + sum;
+    m_run[h] = m_new;
+  }
+}
+
 template <int kDrop>
-__global__ void __launch_bounds__(kThreads)
-attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, int t,
-                      long long qsb, long long qsh, long long qst,
-                      long long ksb, long long ksh, long long kst,
-                      long long vsb, long long vsh, long long vst,
-                      long long osb, long long osh, long long ost, float sm_scale, Drop drop,
-                      float* __restrict__ stats) {
-  using bf16 = __nv_bfloat16;
-  constexpr int ld = Cfg<bf16>::ld;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kBq * ld;
-  bf16* vs = ks + kBk * ld;
-  float* bias_s = reinterpret_cast<float*>(vs + kBk * ld);   // [64]
+__global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const FwdArgs a) {
+  extern __shared__ unsigned char smem_fwd[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_fwd + ((1024 - smem_addr(smem_fwd) % 1024) % 1024));
+  bf16* ring = qs + kBqWg * kHd;          // stage st: keys at ring + 2 st kTileSw, values after them
+  float* bias_ring = reinterpret_cast<float*>(ring + 2 * kStages * kTileSw);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z;
-  const bf16* qg = q + b * qsb + head * qsh;
-  const bf16* kg = k + b * ksb + head * ksh;
-  const bf16* vg = v + b * vsb + head * vsh;
-  const float* bg = bias + (long long)b * t;
-  bf16* qw = qs + warp * kRows * ld;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3, t = a.t;
+  const int q0 = blockIdx.x * kBqWg, head = blockIdx.y, b = blockIdx.z;
+  const int plane = b * gridDim.y + head;
+  const int row_g = q0 + wg * 64 + warp * 16 + g;   // the thread's rows row_g and row_g + 8
+  const bf16* kg = a.k + b * a.ks.b + head * a.ks.h;
+  const bf16* vg = a.v + b * a.vs.b + head * a.vs.h;
+  const float* bg = a.bias + (long long)b * t;
+  const bf16* qw = qs + wg * 64 * kHd;              // the warpgroup's rows of q
+  const int n = (t + kBk - 1) / kBk;                // key tiles: steps 0 .. n - 1 walk them
+                                                    // for the row stats, n .. 2n - 1 again
 
-  load_tile<bf16>(qs, qg, qst, q0, t);
-  __syncthreads();
-  unsigned qa[kHd / 16][4];
+  // step s: the keys of its tile (and in pass 2 the values) and their biases
+  // into stage s % kStages, which step s - kStages read
+  auto load_step = [&](int s) {
+    const int st = s % kStages, k0 = (s < n ? s : s - n) * kBk;
+    bf16* kd = ring + 2 * st * kTileSw;
+    load_tile_sw128_async<kBk, kThreadsWg>(kd, kg, a.ks.t, k0, t);
+    if (s >= n) load_tile_sw128_async<kBk, kThreadsWg>(kd + kTileSw, vg, a.vs.t, k0, t);
+    if (threadIdx.x < kBk) {
+      float* bd = bias_ring + st * kBk + threadIdx.x;
+      if (k0 + (int)threadIdx.x < t) cp_async4(bd, bg + k0 + threadIdx.x);
+      else *bd = -INFINITY;               // keys past t: zero weight, no part in the max
+    }
+  };
+  // waits for step s's stage, keeps step s + kAhead's in flight; one barrier a
+  // step: the stage loaded here was last read in step s - 2, which every
+  // thread finished (products waited for) before the previous step's barrier
+  auto arrive = [&](int s) {
+    if (s + kAhead < 2 * n) load_step(s + kAhead);
+    cp_async_commit();
+    cp_async_wait<kAhead>();
+    fence_proxy_async();                  // the copies, seen by wgmma ...
+    __syncthreads();                      // ... for everyone's copies
+    return s % kStages;
+  };
+  // S = q.k^T of the warpgroup's 64 rows and the stage's 64 keys, scaled and biased
+  auto scores = [&](float (&s)[32], int st) {
+    const bf16* kt = ring + 2 * st * kTileSw;
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk) ldmatrix_x4(qa[kk], frag_addr(qw + kk * 16, ld, lane, true));
+    for (int kk = 0; kk < kHd / 16; ++kk)
+      wgmma_m64n64k16_ss(s, sw128_desc(qw + kk * 16), sw128_desc(kt + kk * 16), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    scale_bias(s, bias_ring + st * kBk, a.sm_scale, tq);
+  };
 
-  float oacc[kHd / 8][4];
+  load_tile_sw128_async<kBqWg, kThreadsWg>(qs, a.q + b * a.qs.b + head * a.qs.h, a.qs.t, q0, t);
 #pragma unroll
-  for (int nt = 0; nt < kHd / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) oacc[nt][i] = 0.f;
-  // running max and sum of rows g (index 0) and g + 8 (index 1)
+  for (int s = 0; s < kAhead; ++s) {      // q joins step 0's group
+    if (s < 2 * n) load_step(s);
+    cp_async_commit();
+  }
+
+  // pass 1: each row's max and sum
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < t; k0 += kBk) {
-      __syncthreads();                 // the previous tile is no longer read
-      load_tile<bf16>(ks, kg, kst, k0, t);
-      if (pass == 1) load_tile<bf16>(vs, vg, vst, k0, t);
-      if (threadIdx.x < kBk)           // keys past t get -inf: zero weight, no part in the max
-        bias_s[threadIdx.x] = (k0 + threadIdx.x < t) ? bg[k0 + threadIdx.x] : -INFINITY;
-      __syncthreads();
-
-      float s[kBk / 8][4];
-      mma_abT(s, qa, ks, lane);
-      scale_bias(s, bias_s, sm_scale, tq);
-
-      if (pass == 0) {
-        row_stats(s, m_run, l_run);
-      } else {
+  for (int j = 0; j < n; ++j) {
+    float s[32];
+    scores(s, arrive(j));
+    row_stats(s, m_run, l_run);
+  }
+  if (a.stats != nullptr && tq == 0) {    // a training forward leaves them for the backward
+    const long long planes_t = (long long)gridDim.z * gridDim.y * t;
 #pragma unroll
-        for (int j = 0; j < kBk / 16; ++j) {
-          // normalised in f32, then cast: the A fragment of keys 16j .. 16j + 15
-          unsigned pa[4];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int nt = 2 * j + u;
-            float p[4];
-            p[0] = expf(s[nt][0] - m_run[0]) / l_run[0];
-            p[1] = expf(s[nt][1] - m_run[0]) / l_run[0];
-            p[2] = expf(s[nt][2] - m_run[1]) / l_run[1];
-            p[3] = expf(s[nt][3] - m_run[1]) / l_run[1];
-            if constexpr (kDrop != 0) {
-              unsigned bits[4];
-              acc_bits<kDrop>(drop, b * gridDim.y + head, t, q0 + warp * kRows + g, k0 + nt * 8,
-                              lane, bits);
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                p[i] = drop_prob_bf16(p[i], bits[i] >= drop.thresh, drop.keep_div);
-            }
-            pa[2 * u] = pack_bf16(p[0], p[1]);
-            pa[2 * u + 1] = pack_bf16(p[2], p[3]);
-          }
-          mma_ab_chunk(oacc, pa, vs, j, lane);
-        }
-      }
-    }
-    if (pass == 0 && stats != nullptr && tq == 0) {
-      // a training forward leaves each row's max and sum for the backward
-      const long long planes_t = (long long)gridDim.z * gridDim.y * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = q0 + warp * kRows + g + 8 * h;
-        if (row < t) {
-          float* st = stats + (long long)(b * gridDim.y + head) * t + row;
-          st[0] = m_run[h];
-          st[planes_t] = l_run[h];
-        }
+    for (int h = 0; h < 2; ++h) {
+      if (row_g + 8 * h < t) {
+        float* st = a.stats + (long long)plane * t + row_g + 8 * h;
+        st[0] = m_run[h];
+        st[planes_t] = l_run[h];
       }
     }
   }
+  const float inv_l[2] = {1.f / l_run[0], 1.f / l_run[1]};
 
-  // the warp's rows of the q tile are dead (they live in qa): stage the output there
-  __syncwarp();
+  // pass 2: probabilities, mask, context
+  const PhiloxRow prow = philox_row(a.drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
+  float o[32];
 #pragma unroll
-  for (int nt = 0; nt < kHd / 8; ++nt) {
-    const int col = nt * 8 + 2 * tq;
-    *reinterpret_cast<unsigned*>(qw + g * ld + col) = pack_bf16(oacc[nt][0], oacc[nt][1]);
-    *reinterpret_cast<unsigned*>(qw + (g + 8) * ld + col) = pack_bf16(oacc[nt][2], oacc[nt][3]);
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const int st = arrive(n + j), k0 = j * kBk;
+    float s[32];
+    scores(s, st);
+    unsigned pa[4][4];   // the A fragments of keys 16 kk .. + 15: normalised in f32, then cast
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {          // 8-column accumulator tile c
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = expf(s[4 * c + i] - m_run[i >> 1]) * inv_l[i >> 1];
+      if constexpr (kDrop != 0) {
+        unsigned bits[4];
+        acc_bits<kDrop>(a.drop, prow, plane, t, row_g, k0 + 8 * c, lane, bits);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = drop_prob_bf16(p[i], bits[i] >= a.drop.thresh, a.inv_keep);
+      }
+      // A layout: a0 (row g, keys 2t..), a1 (row g + 8), a2 / a3 the same 8 keys on
+      pa[c >> 1][2 * (c & 1)] = pack_bf16(p[0], p[1]);
+      pa[c >> 1][2 * (c & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+    const bf16* vt = ring + (2 * st + 1) * kTileSw;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)
+      wgmma_m64n64k16<1>(o, pa[kk], sw128_desc(vt + kk * 16 * kHd), 1);
+    wgmma_commit();
+    wgmma_wait<0>();                      // the stage is read before step j + 2 reloads it
+    wgmma_hold(o);
+  }
+
+  // the warpgroup's rows of q are read by no product any more: the warp
+  // stages its 16 rows of the context there (swizzled, so that neither the
+  // 4-byte writes nor the 16-byte reads meet a bank twice), then stores them
+  // with 16-byte stores
+  bf16* ow = qs + (wg * 64 + warp * 16) * kHd;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int off = ((c ^ g) << 3) + 2 * tq;
+    *reinterpret_cast<unsigned*>(ow + g * kHd + off) = pack_bf16(o[4 * c], o[4 * c + 1]);
+    *reinterpret_cast<unsigned*>(ow + (g + 8) * kHd + off) = pack_bf16(o[4 * c + 2], o[4 * c + 3]);
   }
   __syncwarp();
-  bf16* og = out + b * osb + head * osh;
-  for (int idx = lane; idx < kRows * (kHd / 8); idx += 32) {
-    const int r = idx / (kHd / 8), cv = (idx % (kHd / 8)) * 8;
-    const int qrow = q0 + warp * kRows + r;
-    if (qrow < t)
-      *reinterpret_cast<uint4*>(og + (long long)qrow * ost + cv) =
-          *reinterpret_cast<const uint4*>(qw + r * ld + cv);
+  bf16* og = a.out + b * a.os.b + head * a.os.h;
+  const int row0 = q0 + wg * 64 + warp * 16;
+#pragma unroll
+  for (int idx = lane; idx < 16 * 8; idx += 32) {
+    const int r = idx >> 3, c = idx & 7;
+    if (row0 + r < t)
+      *reinterpret_cast<uint4*>(og + (long long)(row0 + r) * a.os.t + (c << 3)) =
+          *reinterpret_cast<const uint4*>(ow + r * kHd + ((c ^ (r & 7)) << 3));
   }
+}
+
+template <int kDrop>
+int launch_bf16(const FwdArgs& a, int b, int nh, void* stream) {
+  // above 48 KB of dynamic shared memory a kernel has to opt in
+  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBf16);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.t + kBqWg - 1) / kBqWg, nh, b);
+  attention_bf16_kernel<kDrop><<<grid, kThreadsWg, kSmemBf16, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 kernel
@@ -162,7 +302,6 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // products; two lanes share a row of the softmax.
 constexpr size_t kSmemF32 =
     (size_t)(3 * kBq * 65 + kWarps * kRows * 65 + kWarps * kRows * kLdS + kBk) * sizeof(float);
-constexpr size_t kSmemBf16 = (size_t)(3 * kBq * 72) * sizeof(__nv_bfloat16) + kBk * sizeof(float);
 
 template <int kDrop>
 __global__ void __launch_bounds__(kThreads)
@@ -272,48 +411,64 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, typename KernelFn>
-int launch(KernelFn kernel, size_t smem, const void* q, const void* k, const void* v,
-           const void* bias, void* out, int b, int nh, int t, const long long* s,
-           float sm_scale, const Drop& drop, void* stats, void* stream) {
-  if (b < 1 || nh < 1 || t < 1 || nh > 65535 || b > 65535) return (int)cudaErrorInvalidValue;
-  // above 48 KB of dynamic shared memory a kernel has to opt in
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int kDrop>
+int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out, int b,
+               int nh, int t, const long long* s, float sm_scale, const Drop& drop, void* stats,
+               void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemF32);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + kBq - 1) / kBq, nh, b);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, t, s[0], s[1], s[2],
-      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], sm_scale, drop, (float*)stats);
+  attention_f32_kernel<kDrop><<<grid, kThreads, kSmemF32, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t, s[0],
+      s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], sm_scale, drop,
+      (float*)stats);
   return (int)cudaGetLastError();
 }
+
+bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65535 || b > 65535; }
 
 }  // namespace
 
 // mode: 0 no dropout, 1 Philox bits from (seed, c0), 2 bits from the operand;
-// stats: null, or a [2 or more, b * nh, t] f32 array that receives each row's
-// max (plane 0) and sum (plane 1) for the backward
-#define ASPIRE_ATTENTION(NAME, T, KERNEL, SMEM)                                                \
-  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias,           \
-                      void* out, int b, int nh, int t, long long qsb, long long qsh,           \
-                      long long qst, long long ksb, long long ksh, long long kst,              \
-                      long long vsb, long long vsh, long long vst, long long osb,              \
-                      long long osh, long long ost, float sm_scale, int mode,                  \
-                      unsigned long long seed, unsigned c0, unsigned thresh, float keep_div,   \
-                      const void* bits, void* stats, void* stream) {                           \
-    const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};      \
-    const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};           \
-    if (mode == 0)                                                                             \
-      return launch<T>(KERNEL<0>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
-                       stats, stream);                                                         \
-    if (mode == 1)                                                                             \
-      return launch<T>(KERNEL<1>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
-                       stats, stream);                                                         \
-    if (mode == 2 && bits != nullptr)                                                          \
-      return launch<T>(KERNEL<2>, SMEM, q, k, v, bias, out, b, nh, t, s, sm_scale, drop,       \
-                       stats, stream);                                                         \
-    return (int)cudaErrorInvalidValue;                                                         \
-  }
+// keep_div: 1 - p rounded to the compute type; stats: null, or a [2 or more,
+// b * nh, t] f32 array that receives each row's max (plane 0) and sum (plane
+// 1) for the backward
+extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v, const void* bias,
+                                     void* out, int b, int nh, int t, long long qsb, long long qsh,
+                                     long long qst, long long ksb, long long ksh, long long kst,
+                                     long long vsb, long long vsh, long long vst, long long osb,
+                                     long long osh, long long ost, float sm_scale, int mode,
+                                     unsigned long long seed, unsigned c0, unsigned thresh,
+                                     float keep_div, const void* bits, void* stats, void* stream) {
+  if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
+  FwdArgs a;
+  a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
+  a.bias = (const float*)bias; a.out = (bf16*)out; a.stats = (float*)stats; a.t = t;
+  a.qs = {qsb, qsh, qst}; a.ks = {ksb, ksh, kst}; a.vs = {vsb, vsh, vst}; a.os = {osb, osh, ost};
+  a.sm_scale = sm_scale;
+  a.inv_keep = 1.f / keep_div;            // as the backward takes it (attention_bwd.cu)
+  a.drop = Drop{seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
+  if (mode == 0) return launch_bf16<0>(a, b, nh, stream);
+  if (mode == 1) return launch_bf16<1>(a, b, nh, stream);
+  if (mode == 2 && bits != nullptr) return launch_bf16<2>(a, b, nh, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
-ASPIRE_ATTENTION(aspire_attention_bf16, __nv_bfloat16, attention_bf16_kernel, kSmemBf16)
-ASPIRE_ATTENTION(aspire_attention_f32, float, attention_f32_kernel, kSmemF32)
+extern "C" int aspire_attention_f32(const void* q, const void* k, const void* v, const void* bias,
+                                    void* out, int b, int nh, int t, long long qsb, long long qsh,
+                                    long long qst, long long ksb, long long ksh, long long kst,
+                                    long long vsb, long long vsh, long long vst, long long osb,
+                                    long long osh, long long ost, float sm_scale, int mode,
+                                    unsigned long long seed, unsigned c0, unsigned thresh,
+                                    float keep_div, const void* bits, void* stats, void* stream) {
+  if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
+  const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
+  const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
+  if (mode == 0) return launch_f32<0>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 1) return launch_f32<1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 2 && bits != nullptr)
+    return launch_f32<2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  return (int)cudaErrorInvalidValue;
+}

@@ -9,18 +9,6 @@
 
 namespace aspire {
 
-// 16-byte vector load from global memory into `n = 16 / sizeof(T)` elements of
-// shared memory (zero-filled when `valid` is false).
-template <typename T>
-__device__ __forceinline__ void copy16(T* dst, const T* src, bool valid) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (valid) v = *reinterpret_cast<const uint4*>(src);
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // ---- tensor-core building blocks (bf16 in, f32 accumulate) ------------------
 // mma.sync m16n8k16: a warp multiplies A[16, 16] (row-major fragments) by
 // B[16, 8] and adds into C[16, 8].  With g = lane / 4 and t = lane % 4 a thread
@@ -35,7 +23,8 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// ---- asynchronous copies (cp.async, 16 bytes, L2 only) ----------------------
+// ---- asynchronous copies (cp.async) -----------------------------------------
+// 16 bytes through L2 only
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
@@ -44,6 +33,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4 bytes through L1 (cp.async takes 4 and 8 only with .ca)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 // wait until at most kPending of this thread's committed groups are in flight
 template <int kPending>
@@ -147,6 +141,24 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
 }
 
+// d[32] (D[64, 64]) = (accumulate ? d : 0) + A . B, A [64, 16] read from
+// shared memory through a descriptor as B is, both K-major
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long long desc_a,
+                                                   unsigned long long desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // two floats -> one register of two bf16 (lo in the low half), round to nearest even
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -203,20 +215,61 @@ __device__ __forceinline__ uint4 drop_words(const Drop& d, unsigned plane, unsig
   return philox4x32_10(d.c0, plane, row, col4, (unsigned)d.seed, (unsigned)(d.seed >> 32));
 }
 
+// The rounds of a row's calls that do not depend on the column: with the
+// counter (c0, plane, row, column / 4), round 1 (but for one xor with column /
+// 4), the M0 product of round 2 and the M1 product of round 3 are the row's, so
+// a kernel that makes many calls for one row takes them once (philox_row) and
+// row_words(d, philox_row(d, plane, row), col4) == drop_words(d, plane, row, col4).
+struct PhiloxRow {
+  unsigned x1;         // round 1's third word before the xor with column / 4
+  unsigned c1;         // round 1's second word
+  unsigned c2, c3;     // round 2's third and fourth words
+  unsigned hi3, lo3;   // round 3's M1 product of c2
+};
+
+__device__ __forceinline__ PhiloxRow philox_row(const Drop& d, unsigned plane, unsigned row) {
+  const unsigned k0 = (unsigned)d.seed, k1 = (unsigned)(d.seed >> 32);
+  const unsigned hi0 = __umulhi(0xD2511F53u, d.c0), lo0 = 0xD2511F53u * d.c0;
+  const unsigned c0 = __umulhi(0xCD9E8D57u, row) ^ plane ^ k0;
+  const unsigned c2 = __umulhi(0xD2511F53u, c0) ^ lo0 ^ (k1 + 0xBB67AE85u);
+  return {hi0 ^ k1, 0xCD9E8D57u * row, c2, 0xD2511F53u * c0, __umulhi(0xCD9E8D57u, c2),
+          0xCD9E8D57u * c2};
+}
+
+__device__ __forceinline__ uint4 row_words(const Drop& d, const PhiloxRow& r, unsigned col4) {
+  unsigned k0 = (unsigned)d.seed + 2 * 0x9E3779B9u, k1 = (unsigned)(d.seed >> 32) + 2 * 0xBB67AE85u;
+  // the rest of round 2
+  const unsigned x = r.x1 ^ col4;
+  unsigned c0 = __umulhi(0xCD9E8D57u, x) ^ r.c1 ^ (k0 - 0x9E3779B9u), c1 = 0xCD9E8D57u * x;
+  // round 3, its M1 product the row's
+  const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+  c0 = r.hi3 ^ c1 ^ k0;
+  c1 = r.lo3;
+  unsigned c2 = hi0 ^ r.c3 ^ k1, c3 = lo0;
+#pragma unroll
+  for (int i = 3; i < 10; ++i) {
+    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
+    const unsigned h0 = __umulhi(0xD2511F53u, c0), l0 = 0xD2511F53u * c0;
+    const unsigned h1 = __umulhi(0xCD9E8D57u, c2), l1 = 0xCD9E8D57u * c2;
+    const unsigned n0 = h1 ^ c1 ^ k0, n2 = h0 ^ c3 ^ k1;
+    c0 = n0; c1 = l1; c2 = n2; c3 = l0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
 // Bits of a thread's four elements of one 8-column mma accumulator tile (rows
 // g and g + 8, columns col0 + 2t, + 1; col0 a multiple of 8).  kMode 1: one
 // Philox call a thread -- the even thread of a pair makes row g's call, the odd
-// one row g + 8's, and they swap the two words the other needs.  The whole warp
-// must call this together.  kMode 2: read from the bits operand, a [planes, t, t]
-// array; positions past t count as kept.
+// one row g + 8's (r = philox_row of that row), and they swap the two words the
+// other needs.  The whole warp must call this together.  kMode 2: read from the
+// bits operand, a [planes, t, t] array; positions past t count as kept.
 template <int kMode>
-__device__ __forceinline__ void acc_bits(const Drop& d, int plane, int t, int row_g, int col0,
-                                         int lane, unsigned (&bits)[4]) {
+__device__ __forceinline__ void acc_bits(const Drop& d, const PhiloxRow& r, int plane, int t,
+                                         int row_g, int col0, int lane, unsigned (&bits)[4]) {
   const int tq = lane & 3;
   if constexpr (kMode == 1) {
     const int odd = tq & 1;
-    const uint4 w = drop_words(d, (unsigned)plane, (unsigned)(row_g + 8 * odd),
-                               (unsigned)((col0 + 2 * (tq - odd)) >> 2));
+    const uint4 w = row_words(d, r, (unsigned)((col0 + 2 * (tq - odd)) >> 2));
     const unsigned r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
     const unsigned r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
     bits[0] = odd ? r0 : w.x;
@@ -249,11 +302,22 @@ __device__ __forceinline__ uint4 row_bits(const Drop& d, int plane, int t, int r
   }
 }
 
-// dropped probability in bf16: the normalised f32 value is cast, divided by
-// (1 - p) in the compute type and cast again; dropped elements are zero
-__device__ __forceinline__ float drop_prob_bf16(float p, bool keep, float keep_div) {
-  const float cast = __bfloat162float(__float2bfloat16_rn(p));
-  return keep ? cast / keep_div : 0.f;
+// x rounded to the nearest bf16, ties to even, for finite x: what
+// __float2bfloat16_rn gives, by integer instructions (the conversion
+// instruction's unit is the one expf's exp2 needs)
+__device__ __forceinline__ float round_bf16(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// dropped probability in bf16, before the cast of its product's A operand: the
+// normalised f32 value cast to bf16 and multiplied by inv_keep = 1 / bf16(1 - p)
+// (taken once a call), which after that cast is bf16(p) / bf16(1 - p) exactly
+// (attention_bwd.cu); dropped elements are zero.  The backward's keys kernel
+// recomputes pd with the same arithmetic.
+__device__ __forceinline__ float drop_prob_bf16(float p, bool keep, float inv_keep) {
+  const float kept = round_bf16(p) * inv_keep;   // taken either way: a select, not a branch
+  return keep ? kept : 0.f;
 }
 
 }  // namespace aspire

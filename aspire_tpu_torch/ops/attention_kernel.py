@@ -5,22 +5,29 @@ Replaces the TPU kernels of ``aspire_tpu/ops/pallas_attention.py``
 (entry point ``fused_dropout_attention``): ``_fwd_kernel`` built at
 ``dropout_p=0`` (what ``_select_impl`` calls 'fused_det') and at
 ``dropout_p>0`` ('fused'), and ``_bwd_kernel``.  The CUDA sources are
-``csrc/attention.cu`` and ``csrc/attention_bwd.cu``.  At BERT shapes the
-forward's work per byte is low (64-wide heads, t <= 512), so device memory
-bounds it: the kernel reads q, k, v once per query tile and writes the context
-once, and the [t, t] scores and probabilities never leave the chip.  The
-backward keeps q, k, v, bias, the seed, the forward's output and each row's
-softmax max and sum, recomputes probabilities and mask, and is bounded by its
-products; in bf16 it hands ds from its keys kernel to its dq kernel through a
-transient [b * nh, tp, tp] scratch (tp = t rounded up to 64) that lives only
-during the backward.
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu``.  The [t, t] scores and
+probabilities never leave the chip.  The bf16 forward walks the keys twice
+(each row's softmax max and sum, then the probabilities and the context), 128
+query rows a block, its two products on wgmma fed by a cp.async ring of key and
+value tiles; at BERT shapes (64-wide heads, t <= 512) the elementwise work of
+the 2 t^2 scores a head (two exponentials each, with dropout a quarter of a
+Philox4x32-10 call) and the latency of each step's loads and products bound it,
+not the bytes.  Called on inputs that need a gradient, it leaves each row's max
+and sum in a [3, b * nh, t] f32 tensor.  The backward keeps q, k, v, bias, the
+seed, the forward's output and those two floats a row, recomputes
+probabilities and mask, and is bounded by its products; in bf16 it hands ds
+from its keys kernel to its dq kernel through a transient [b * nh, tp, tp]
+scratch (tp = t rounded up to 64) that lives only during the backward.
 
-Rounding follows the TPU kernel: scores, max, exp, sum and the division in
-f32, the normalised probabilities cast to the compute dtype, then (with
-dropout) divided by 1 - p in the compute dtype and the dropped ones zeroed,
-then probs.v accumulated in f32.  The mask is keep = bits >= round(p * 2**32)
-with bits from the ``rng_bits`` operand or from Philox words keyed on the
-element's position (``ops/philox.py``).
+Rounding follows the TPU kernel: scores, max, exp and sum in f32, the
+normalised probabilities cast to the compute dtype, then (with dropout)
+divided by 1 - p in the compute dtype and the dropped ones zeroed, then
+probs.v accumulated in f32.  The bf16 kernels normalise as exp(s - m) * (1 / l)
+and divide as bf16(p) * (1 / bf16(1 - p)), each reciprocal taken once (a row,
+a call): the backward recomputes the forward's pd with the same arithmetic,
+and the second product is the bf16 quotient exactly.  The mask is keep = bits
+>= round(p * 2**32) with bits from the ``rng_bits`` operand or from Philox
+words keyed on the element's position (``ops/philox.py``).
 
 Heads narrower than 64 (``BertConfig.tiny()`` has 8) are zero-padded to 64
 columns on the way in and the output sliced back (`with_padded_heads`); heads

@@ -2,6 +2,7 @@
 """Times a kernel of two checkouts of this repo in turns on one card.
 
     python3 benchmarks/torch_kernel_ab.py --other PATH         # attention forward, p = 0
+    python3 benchmarks/torch_kernel_ab.py --other PATH --dropout   # forward, p = 0.1 (K5a)
     python3 benchmarks/torch_kernel_ab.py --other PATH --bwd   # backward (K5b)
     python3 benchmarks/torch_kernel_ab.py --other PATH --ffn   # FFN forward (K3)
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
@@ -11,7 +12,11 @@ archive` into a directory that .gitignore lists).  Each checkout builds its own
 kernels and is measured in its own process, in the order other, this, this,
 other; every reading is the median of 30 CUDA-event readings of 10 calls with
 the device given a head start, so the host's share of a call is not in it.
-The forward reading is `fused_attention` at dropout_p = 0 (K2); the backward
+The forward reading is `fused_attention` at dropout_p = 0 (K2); the dropout
+reading (`--dropout`) is `fused_attention` at dropout_p = 0.1 with the Philox
+mask, called on inputs that require a gradient so that the forward leaves its
+row statistics as in a training step (K5a); both with the device milliseconds a
+call by kernel under torch.profiler beside them.  The backward
 reading (`--bwd`) is `torch.autograd.grad` of `fused_attention` at dropout_p =
 0.1 (Philox mask) and at 0, which launches the backward kernels alone, with
 the device milliseconds a call by kernel under torch.profiler beside it.  The
@@ -35,6 +40,7 @@ import subprocess
 import sys
 
 SHAPES = ((16, 12, 256, 64), (4, 12, 512, 64), (30, 12, 512, 64))
+DROPOUT_SHAPES = ((30, 12, 512, 64), (16, 12, 256, 64))
 FFN_CASES = ((4096, "bfloat16"), (16384, "bfloat16"), (4096, "float32"))
 SINKHORN_BATCHES = (16, 1024)
 BWD_CASES = (((30, 12, 512, 64), 0.1), ((30, 12, 512, 64), 0.0),
@@ -107,18 +113,31 @@ def measure_sinkhorn() -> None:
                           "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
 
 
-def measure(bwd: bool) -> None:
+def measure(bwd: bool, dropout: bool) -> None:
     import torch
     from aspire_tpu_torch.ops.attention_kernel import fused_attention
     dev = torch.device("cuda", 0)
+    if dropout:
+        for b, nh, t, hd in DROPOUT_SHAPES:
+            q, k, v, _ = _inputs(b, nh, t, hd, dev)
+            bias = torch.zeros((b, t), device=dev)
+            leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+            fn = lambda: fused_attention(*leaves, bias, 1.0 / math.sqrt(hd), 0.1,
+                                         seed=7, site=1)
+            print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16",
+                              "kernel": "forward", "dropout_p": 0.1, **_median_ms(fn),
+                              "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+        return
     if not bwd:
         for b, nh, t, hd in SHAPES:
             q, k, v, _ = _inputs(b, nh, t, hd, dev)
             bias = torch.zeros((b, t), device=dev)
+            fn = lambda: fused_attention(q, k, v, bias, 1.0 / math.sqrt(hd))
             with torch.inference_mode():
-                ms = _median_ms(lambda: fused_attention(q, k, v, bias, 1.0 / math.sqrt(hd)))
-            print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16", **ms}),
-                  flush=True)
+                ms = _median_ms(fn)
+                by_kernel = _by_kernel(fn)
+            print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16", **ms,
+                              "device_ms_by_kernel": by_kernel}), flush=True)
         return
     for (b, nh, t, hd), p in BWD_CASES:
         q, k, v, g = _inputs(b, nh, t, hd, dev)
@@ -156,6 +175,8 @@ def main() -> int:
     parser.add_argument("--other", help="another checkout of the repo")
     parser.add_argument("--bwd", action="store_true",
                         help="time the backward (K5b) instead of the forward")
+    parser.add_argument("--dropout", action="store_true",
+                        help="time the forward with dropout (K5a) instead")
     parser.add_argument("--ffn", action="store_true",
                         help="time the FFN forward (K3) instead")
     parser.add_argument("--sinkhorn", action="store_true",
@@ -169,11 +190,11 @@ def main() -> int:
         elif args.sinkhorn:
             measure_sinkhorn()
         else:
-            measure(args.bwd)
+            measure(args.bwd, args.dropout)
         return 0
     this = pathlib.Path(__file__).resolve().parent.parent
     other = pathlib.Path(args.other).resolve()
-    argv = ["ab", "--measure"] + [f"--{flag}" for flag in ("bwd", "ffn", "sinkhorn")
+    argv = ["ab", "--measure"] + [f"--{flag}" for flag in ("bwd", "dropout", "ffn", "sinkhorn")
                                   if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):

@@ -176,6 +176,38 @@ def phase_device() -> None:
 
 
 # ---------------------------------------------------------------------- build
+def kernel_entry(mangled: str) -> str:
+    """'name<args>' of a kernel's mangled name in a namespace, as in
+    '_ZN<len>ns<len>name' + 'I' template arguments 'E' + parameters."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if not mangled.startswith("I", i):
+        return name
+    args, i = [], i + 1
+    builtin = {"f": "float", "a": "int8", "h": "uint8", "i": "int", "b": "bool"}
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled.startswith("Li", i):
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            args.append(mangled[j:j + int(mangled[i:j])])
+            i = j + int(mangled[i:j])
+        else:
+            args.append(builtin.get(mangled[i], mangled[i]))
+            i += 1
+    return f"{name}<{','.join(args)}>"
+
+
 def phase_build() -> None:
     from aspire_tpu_torch.ops import _build
     _build.load()
@@ -184,7 +216,7 @@ def phase_build() -> None:
             r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
             r"(\d+) bytes spill loads.*?Used (\d+) registers", _build.build_log,
             re.S):
-        kernels.append({"entry": m.group(1)[:48], "registers": int(m.group(4)),
+        kernels.append({"entry": kernel_entry(m.group(1)), "registers": int(m.group(4)),
                         "spill_stores": int(m.group(2)),
                         "spill_loads": int(m.group(3))})
     emit("build", seconds=_build.build_seconds,

@@ -52,6 +52,17 @@ def _pad_rows(x, tp, value=0.0):
     return torch.nn.functional.pad(x, (0, 0, 0, tp - x.shape[-2]), value=value)
 
 
+def keys_tile_probs(s_t, m, inv_l, keep_t, inv_keep, dtype):
+    """probs and pd of a transposed tile [keys, rows] of scaled, biased
+    scores, as the keys kernel recomputes them from the forward's row max m
+    and 1 / l: probs = exp(s - m) * (1 / l) in f32, pd = bf16(probs) *
+    1/bf16(1 - p) where kept (f32, cast to the compute dtype by its product)."""
+    probs = torch.exp(s_t - m[..., None, :]) * inv_l[..., None, :]
+    if keep_t is None:
+        return probs, probs
+    return probs, torch.where(keep_t, probs.to(dtype).to(torch.float32) * inv_keep, 0.0)
+
+
 def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
     """dq, dk, dv and the ds^T scratch, in the order of the CUDA kernels."""
     dtype, f = q.dtype, torch.float32
@@ -68,7 +79,7 @@ def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
     m, delta = _pad_rows(m[..., None], tp)[..., 0], _pad_rows(delta[..., None], tp)[..., 0]
     inv_l = _pad_rows((1.0 / l)[..., None], tp, 1.0)[..., 0]
     bias_p = torch.nn.functional.pad(bias, (0, tp - t), value=-math.inf)
-    keep_p = None
+    keep_p, inv_keep = None, None
     if p > 0:
         keep_p = torch.nn.functional.pad(keep, (0, tp - t, 0, tp - t), value=True)
         inv_keep = 1.0 / float(torch.tensor(1.0 - p, dtype=dtype))
@@ -79,13 +90,11 @@ def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
     for k0 in range(0, tp, TILE):
         ks, vs = kp[..., k0:k0 + TILE, :], vp[..., k0:k0 + TILE, :]
         s_t = ks @ qp.transpose(-1, -2) * scale + bias_p[:, None, k0:k0 + TILE, None]
-        probs = torch.exp(s_t - m[..., None, :]) * inv_l[..., None, :]
+        keep_t = None if p == 0 else keep_p[..., k0:k0 + TILE].transpose(-1, -2)
+        probs, pd = keys_tile_probs(s_t, m, inv_l, keep_t, inv_keep, dtype)
         dprobs = vs @ gp.transpose(-1, -2)
-        pd = probs
         if p > 0:
-            keep_t = keep_p[..., k0:k0 + TILE].transpose(-1, -2)
             dprobs = torch.where(keep_t, dprobs * inv_keep32, 0.0)
-            pd = torch.where(keep_t, probs.to(dtype).to(f) * inv_keep, 0.0)
         ds = ((probs * (dprobs - delta[..., None, :])) * scale).to(dtype)
         dv[..., k0:k0 + TILE, :] = (pd.to(dtype).to(f) @ gp).to(dtype)
         dk[..., k0:k0 + TILE, :] = (ds.to(f) @ qp).to(dtype)
