@@ -4,6 +4,8 @@
 // cudaError_t of the launch.
 #pragma once
 
+#include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled_v12000
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -141,6 +143,32 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
 }
 
+// d[64] (D[64, 128]) = (accumulate ? d : 0) + a . B
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned (&a)[4],
+                                                 unsigned long long desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
+}
+
 // d[32] (D[64, 64]) = (accumulate ? d : 0) + A . B, A [64, 16] read from
 // shared memory through a descriptor as B is, both K-major
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long long desc_a,
@@ -159,10 +187,106 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// ---- mbarriers and TMA loads (sm_90) ----------------------------------------
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// arrives and adds `bytes` to the transactions the barrier's phase waits for
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// the box at (column c0, row c1) of a 2-D tensor map into shared memory, in the
+// map's swizzle; rows and columns past the end arrive as zeros and count in
+// the barrier's bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         unsigned long long* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// ---- host side of TMA --------------------------------------------------------
+// streaming multiprocessors of the current device: persistent grids
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 1;
+  }
+  return count;
+}
+
+// cuTensorMapEncodeTiled lives in libcuda; the runtime's entry-point query
+// reaches it, so that the library links no libcuda
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// the tensor map of a row-major [rows, cols] matrix of `elem_bytes`-byte
+// elements read in boxes of [box_rows][box_cols] (zeros past the last row and
+// column); the 128-byte swizzle wants box_cols * elem_bytes == 128
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+                     long long rows, long long cols, int box_rows, int box_cols,
+                     CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // two floats -> one register of two bf16 (lo in the low half), round to nearest even
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Four int8 of a word -> two registers of two bf16 (exact), by integer and
+// FP32-pipe instructions instead of the conversion unit: byte i xor 0x80 is
+// x_i + 128 in [0, 255]; put in the low mantissa of 2^23 it is the f32
+// 2^23 + 128 + x_i, and subtracting 2^23 + 128 leaves x_i exactly.  An integer
+// of at most 8 significant bits is its own bf16, so the f32's upper half is the
+// bf16; one prmt takes the upper halves of two.  lo gets bytes 0, 1 (byte 0 in
+// the low half), hi bytes 2, 3.
+__device__ __forceinline__ void int8x4_to_bf16x2(unsigned word, unsigned& lo, unsigned& hi) {
+  const unsigned u = word ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + i)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
 }
 
 // Block (row-of-16 x col-of-16) of a bf16 matrix in shared memory, as ldmatrix

@@ -41,8 +41,6 @@
 //
 // f32 (a check path: serving and training run bf16) takes the same two
 // launches with a plain FMA tile product, 64 x 64 a block, true f32.
-#include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
-#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled_v12000
 #include <math.h>
 
 #include "common.cuh"
@@ -142,40 +140,6 @@ __device__ __forceinline__ void wgmma_ss<192>(float (&d)[96], unsigned long long
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// ---- mbarriers and TMA loads ------------------------------------------------
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-// arrives and adds `bytes` to the transactions the barrier's phase waits for
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// the [box rows][64] tile at (column c0, row c1) of a 2-D tensor map into shared
-// memory, in the map's 128-byte swizzle; rows past the end arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         unsigned long long* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // C[M, N] = epilogue(A[M, K] . B[N, K]^T + bias), A and B read by TMA through
 // their tensor maps (boxes of [kBm][64] and [kBn][64]).  Persistent: block b
 // computes tiles b, b + gridDim.x, ... (column tiles fastest), and the producer
@@ -270,48 +234,6 @@ ffn_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// streaming multiprocessors of the current device: the persistent grid
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 1;
-  }
-  return count;
-}
-
-// cuTensorMapEncodeTiled lives in libcuda; the runtime's entry-point query
-// reaches it, so that this library links no libcuda
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// the tensor map of a row-major [rows, cols] bf16 matrix read in boxes of
-// [box_rows][64] in the 128-byte swizzle (zeros past the last row)
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kBk, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // f32: C[M, N] = A[M, K] . B[N, K]^T by FMAs, a 64 x 64 tile a block, 4 x 4 a thread
 constexpr int kFt = 64, kFk = 16, kThreads = 256;
 
@@ -370,7 +292,10 @@ struct Gemm<bf16> {
   static cudaError_t run(const bf16* a, const bf16* b, const bf16* bias, bf16* c, int m, int n,
                          int k, cudaStream_t stream) {
     CUtensorMap map_a, map_b;
-    if (!make_map(&map_a, a, m, k, Cfg::kBm) || !make_map(&map_b, b, n, k, Cfg::kBn))
+    if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, m, k, Cfg::kBm, kBk,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, n, k, Cfg::kBn, kBk,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
       return cudaErrorInvalidValue;
     // above 48 KB of dynamic shared memory a kernel has to opt in
     cudaError_t err = cudaFuncSetAttribute(ffn_bf16_kernel<kEpi, Cfg>,

@@ -8,6 +8,10 @@
 //   _scan_int8_kernel  rows int8 upcast to bf16 (exact), a batch of queries:
 //                      rs = 2 * scale, rb = -|x|^2 with +inf norms folded to
 //                      -1e30 first, so that 0 * sims - inf never meets +inf.
+//                      Batches that fill groups of 128 query columns run
+//                      csrc/scan_int8.cu instead (ops/scan_kernel.py chooses
+//                      by shape); this kernel takes the narrower ones, the
+//                      single query among them.
 // Both products are bf16 x bf16 with f32 accumulation (mma.sync m16n8k16); the
 // query is rounded to bf16 by the caller and never quantised.  qadd carries
 // the per-column term: -|q_j|^2 (or 0) at valid query sentences, -1e30 at
@@ -20,7 +24,8 @@
 // to 128 query columns, which it keeps in shared memory for its whole life.
 // Its eight warps take the block's rows 32 at a time.  A warp reads its rows'
 // fragments straight from device memory -- 16 contiguous bytes a lane for
-// bf16, 8 for int8, converted in registers -- by pairing k indices so that
+// bf16, 8 for int8, converted in registers by integer and FP32-pipe
+// instructions (`int8x4_to_bf16x2`, common.cuh) -- by pairing k indices so that
 // what one lane loads in one instruction is what it owns in two mma steps (the
 // query fragments are read from shared memory under the same pairing, so the
 // product is unchanged).  Every query column of the group is accumulated in
@@ -60,13 +65,6 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-// two neighbouring int8 of a word -> one register of two bf16 (exact)
-__device__ __forceinline__ unsigned int8x2_to_bf16x2(unsigned word, int shift) {
-  const float lo = (float)(signed char)(word >> shift);
-  const float hi = (float)(signed char)(word >> (shift + 8));
-  return pack_bf16(lo, hi);
-}
-
 // A fragments of rows `lo` (g) and `hi` (g + 8) for the two mma steps of one
 // 32-wide k chunk: a lane's eight elements k = 8t .. 8t+7 stand for the
 // logical columns (2t, 2t+1), (2t+8, 2t+9) of step 0 and of step 1.
@@ -82,10 +80,10 @@ __device__ __forceinline__ void load_a(const signed char* lo, const signed char*
                                        unsigned (&a)[2][4]) {
   const uint2 l = *reinterpret_cast<const uint2*>(lo);
   const uint2 h = *reinterpret_cast<const uint2*>(hi);
-  a[0][0] = int8x2_to_bf16x2(l.x, 0);  a[0][1] = int8x2_to_bf16x2(h.x, 0);
-  a[0][2] = int8x2_to_bf16x2(l.x, 16); a[0][3] = int8x2_to_bf16x2(h.x, 16);
-  a[1][0] = int8x2_to_bf16x2(l.y, 0);  a[1][1] = int8x2_to_bf16x2(h.y, 0);
-  a[1][2] = int8x2_to_bf16x2(l.y, 16); a[1][3] = int8x2_to_bf16x2(h.y, 16);
+  int8x4_to_bf16x2(l.x, a[0][0], a[0][2]);
+  int8x4_to_bf16x2(h.x, a[0][1], a[0][3]);
+  int8x4_to_bf16x2(l.y, a[1][0], a[1][2]);
+  int8x4_to_bf16x2(h.y, a[1][1], a[1][3]);
 }
 
 // sents: [n_docs, S, D] of T; scales (int8 only), norms: [n_docs, S];

@@ -52,13 +52,17 @@ SIGNATURES = {
     # out, rows, hidden, inter, stream
     "aspire_ffn_bf16": [_P] * 7 + [_I] * 3 + [_P],
     "aspire_ffn_f32": [_P] * 7 + [_I] * 3 + [_P],
-    # hidden, sent_ids, out, b, t, h, max_sents, stream
-    "aspire_pool_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    "aspire_pool_f32": [_P] * 3 + [_I] * 4 + [_P],
+    # hidden, sent_ids, out, b, t, h, max_sents, columns a lane, sentences a
+    # block, stream
+    "aspire_pool_bf16": [_P] * 3 + [_I] * 6 + [_P],
+    "aspire_pool_f32": [_P] * 3 + [_I] * 6 + [_P],
     # sents, (scales,) norms, q, qadd, out, n_docs, S, D, 8-column tiles a
     # group, tiles a query, groups, out's row length, stream
     "aspire_scan_bf16": [_P] * 5 + [_I] * 7 + [_P],
     "aspire_scan_int8": [_P] * 6 + [_I] * 7 + [_P],
+    # sents, scales, norms, q (k permuted), qadd, out, n_docs, S, D, tiles a
+    # query, groups of 128 columns, out's row length, stream
+    "aspire_scan_int8_wide": [_P] * 6 + [_I] * 6 + [_P],
     "aspire_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
 }
 

@@ -10,12 +10,18 @@ Replace the two TPU kernels of ``aspire_tpu/ops/pallas_scan.py``:
     query rounded to bf16 and never quantised, f32 accumulation; per document
     and query the largest ``2 scale (q.x_i8) - |x|^2 - |q_j|^2``.
 
-Both run the one CUDA kernel of ``csrc/scan.cu`` (its head says how it is laid
-out): the [rows, columns] similarities stay in registers and only per-document
-maxima reach device memory.  A single query is bound by the one read of the
-bucket; a batch of 32 by the tensor cores.  `fused_l2max_scan` on float32
-rows (the TPU kernel takes them too) runs the file's f32 kernel: the
-true-f32 product by FMAs with the query in f32, a check path.
+Both run ``csrc/scan.cu``'s kernel (its head says how it is laid out): the
+[rows, columns] similarities stay in registers and only per-document maxima
+reach device memory.  A single query is bound by the one read of the bucket;
+a batch of 32 by the tensor cores: an int8 batch whose column groups are full
+(`int8_wide`: 8 or more queries of up to 16 sentences, 4 of up to 32, ...) runs
+``csrc/scan_int8.cu`` instead, a `wgmma` product fed by TMA from a query
+group kept in shared memory.  That kernel reads each row's 16 bytes of a
+64-wide k stage in one load, so the query's k is permuted to match once a
+call (`int8_k_order`); the sum over k is unchanged.  The choice is by shape
+alone.  `fused_l2max_scan` on float32 rows (the TPU kernel takes them too)
+runs ``csrc/scan.cu``'s f32 kernel: the true-f32 product by FMAs with the
+query in f32, a check path.
 
 `fused_l2max_scan` takes one argument the TPU kernel lacks, `qadd`: a term
 added per query sentence *inside* the max.  The TPU kernel leaves "-|q|^2" to
@@ -25,10 +31,12 @@ Without `qadd` the function is the TPU kernel (0 at valid query sentences,
 -1e30 at padded ones); with ``qadd = -|q_j|^2`` it is what the index needs.
 
 The TPU block rules (n % block_docs, D % 128, Qpad % 8) are gone: any n, any
-S, any number of query sentences up to 128 a query; the kernel needs
+S, any number of query sentences up to 128 a query; the kernels need
 D % 32 == 0.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,6 +45,7 @@ from . import _build
 NEG = -1e30
 MAX_TILES = 16        # 8-column tiles a block keeps in registers: 128 columns
 MAX_DIM = 1024        # a group's query rows must fit a block's shared memory
+K_STAGE = 64          # k a stage of the int8 kernel
 
 
 def _query_mask(qmax: int, q_lens: torch.Tensor) -> torch.Tensor:
@@ -84,16 +93,59 @@ def _pow2_at_least(x: int, floor: int) -> int:
     return p
 
 
-def _tiling(bsz: int, qmax: int):
+def _tiling(bsz: int, qmax: int, max_tiles: int = MAX_TILES):
     """How a [bsz, qmax] batch of query sentences is laid over the kernel's
     column groups: (8-column tiles a group, tiles a query, groups, padded
     batch).  A query takes a power of two of columns (16 at least), a group a
-    power of two of queries within MAX_TILES tiles, and the batch is padded to
-    whole groups."""
+    power of two of queries within `max_tiles` tiles, and the batch is padded
+    to whole groups."""
     tiles_q = _pow2_at_least(qmax, 16) // 8
-    per_group = min(_pow2_at_least(bsz, 1), MAX_TILES // tiles_q)
+    per_group = min(_pow2_at_least(bsz, 1), max_tiles // tiles_q)
     groups = -(-bsz // per_group)
     return tiles_q * per_group, tiles_q, groups, groups * per_group
+
+
+def _max_tiles(d: int) -> int:
+    """8-column tiles a column group of csrc/scan.cu's bf16 and int8 kernel
+    may hold: the group's [8 tiles, D + 32] bf16 query rows, qadd and the
+    maxima live in a block's 227 KB of shared memory -- 16 tiles up to D = 864,
+    8 past it."""
+    smem = 8 * MAX_TILES * ((d + 32) * 2 + 4) + 64 * 8 * 4
+    return MAX_TILES if smem <= 232448 else MAX_TILES // 2
+
+
+def int8_wide(bsz: int, qmax: int, d: int) -> bool:
+    """Whether a [bsz, qmax] int8 batch of width d runs the wide kernel
+    (csrc/scan_int8.cu): when its column groups are full -- 128 columns, 16
+    tiles, where the tensor cores bound the scan -- and the group's [128, D]
+    bf16 query fits a block's shared memory beside the row stages (D up to
+    768).  Narrower batches (a single query: one read of the rows bounds it)
+    run csrc/scan.cu's kernel."""
+    return _tiling(bsz, qmax)[0] == MAX_TILES and -(-d // K_STAGE) * K_STAGE <= 768
+
+
+@functools.lru_cache(maxsize=None)
+def int8_k_order(dp: int, device: str = "cpu") -> torch.Tensor:
+    """The int8 kernel's k order, for a width dp (a multiple of 64): position
+    64 c + 16 j + l holds the stored column 64 c + 16 ((l % 8) // 2) + 4 j +
+    (l % 2) + 2 (l // 8).  A thread's 16 bytes of a row's 64-wide stage are its
+    A fragments of the stage's four k16 steps (word j: steps j's columns 2t,
+    2t+1 and 2t+8, 2t+9 for the thread t of its quad); the query, laid out in
+    this order, meets each byte at its own column."""
+    j = torch.arange(4)[:, None]
+    lane = torch.arange(16)[None, :]
+    phys = (16 * ((lane % 8) // 2) + 4 * j + lane % 2 + 2 * (lane // 8)).reshape(-1)
+    order = (torch.arange(dp // K_STAGE)[:, None] * K_STAGE + phys[None, :]).reshape(-1)
+    return order.to(device)                 # kept per device: no copy a call
+
+
+def int8_query_layout(q: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's query operand: q [..., D] padded with zeros to a
+    multiple of 64 and laid out in `int8_k_order`."""
+    d = q.shape[-1]
+    dp = -(-d // K_STAGE) * K_STAGE
+    order = int8_k_order(dp, str(q.device))
+    return torch.nn.functional.pad(q, (0, dp - d))[..., order].contiguous()
 
 
 def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
@@ -108,17 +160,27 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
     if qmax < 1 or qmax > 8 * MAX_TILES:
         raise ValueError(f"the scan kernel takes 1 to {8 * MAX_TILES} query "
                          f"sentences a query, got {qmax}")
+    wide = name == "aspire_scan_int8" and int8_wide(bsz, qmax, d)
+    # csrc/scan.cu's bf16 and int8 kernel keeps a group's query rows in shared
+    # memory (its f32 kernel stages them in chunks)
+    max_tiles = MAX_TILES if wide or sents.dtype == torch.float32 else _max_tiles(d)
+    if qmax > 8 * max_tiles:
+        raise ValueError(f"the scan kernel takes up to {8 * max_tiles} query "
+                         f"sentences a query at width {d}, got {qmax}")
     rows = (norms,) if scales is None else (norms, scales)
     if any(t.shape != (n, s) or t.dtype != torch.float32 for t in rows):
         raise ValueError("norms and scales must be float32 [n, s]")
     if any(t.device != sents.device for t in (*rows, q, qadd)):
         raise ValueError("all inputs must lie on the same device")
     # pad columns hold zero rows and -1e30, so they never win a max
-    tiles, tiles_q, groups, padded = _tiling(bsz, qmax)
+    tiles, tiles_q, groups, padded = _tiling(bsz, qmax, max_tiles)
     qcols = 8 * tiles_q
     q_dtype = torch.float32 if sents.dtype == torch.float32 else torch.bfloat16
     qp = torch.zeros((padded, qcols, d), dtype=q_dtype, device=sents.device)
     qp[:bsz, :qmax] = q
+    if wide:
+        name = "aspire_scan_int8_wide"
+        qp = int8_query_layout(qp)
     qa = torch.full((padded, qcols), NEG, dtype=torch.float32,
                     device=sents.device)
     qa[:bsz, :qmax] = qadd
@@ -136,8 +198,8 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
     with torch.cuda.device(sents.device):
         err = getattr(lib, name)(
             *args, norms.data_ptr(), qp.data_ptr(), qa.data_ptr(),
-            out.data_ptr(), n, s, d, tiles, tiles_q, groups, padded,
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), n, s, d, *(() if wide else (tiles,)), tiles_q,
+            groups, padded, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out[:, :bsz]
 
@@ -198,8 +260,13 @@ def fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens,
     qadd = torch.where(_query_mask(qmax, q_lens), -q_norms,
                        torch.full_like(q_norms, NEG))
     out = _launch("aspire_scan_int8", sents, scales, norms, qf, qadd)
-    fused_l2max_scan_int8_batched.launches += 1
+    if int8_wide(q.shape[0], qmax, sents.shape[2]):
+        fused_l2max_scan_int8_batched.wide_launches += 1
+    else:
+        fused_l2max_scan_int8_batched.launches += 1
     return out
 
 
+# launches of csrc/scan.cu's int8 kernel and of csrc/scan_int8.cu's
 fused_l2max_scan_int8_batched.launches = 0
+fused_l2max_scan_int8_batched.wide_launches = 0

@@ -6,6 +6,8 @@
     python3 benchmarks/torch_kernel_ab.py --other PATH --bwd   # backward (K5b)
     python3 benchmarks/torch_kernel_ab.py --other PATH --ffn   # FFN forward (K3)
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
+    python3 benchmarks/torch_kernel_ab.py --other PATH --pool   # sentence pool (K4)
+    python3 benchmarks/torch_kernel_ab.py --other PATH --scan-int8   # int8 scan (K7)
 
 PATH is another checkout (for instance the parent commit unpacked with `git
 archive` into a directory that .gitignore lists).  Each checkout builds its own
@@ -25,8 +27,18 @@ FFN reading (`--ffn`) is the no-grad FFN at 4096 and 16384 rows of 768 -> 3072
 calls (`fused_ffn_linear` on [out, in] weights where the checkout has it, else
 `fused_ffn` on [in, out] ones), with its device milliseconds by kernel.  The
 Sinkhorn reading (`--sinkhorn`) is K1 on the serving request's 20 x 20 pairs at
-B = 16 and 1024 (f32).  Attention is bf16.  One JSON object a line, then the
-card's name and power limit.
+B = 16 and 1024 (f32).  The pooling reading (`--pool`) is the kernel alone
+(`sentence_sums`) at the encode shape [64, 256, 768] in bf16 and f32 with 20
+sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
+which the first kernel refused (a checkout that refuses a shape prints its
+error).  The int8 scan reading (`--scan-int8`) is K7
+(`fused_l2max_scan_int8_batched`) on buckets of the shapes of the
+125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
+and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
+at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
+scan (K8) on the same rows in bf16 at B = 1 beside it.  Attention is bf16.
+The modes may be combined.  One JSON object a line, then the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -113,6 +125,89 @@ def measure_sinkhorn() -> None:
                           "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
 
 
+POOL_CASES = ((64, 256, 768, 20, "bfloat16"), (64, 256, 768, 20, "float32"),
+              (16, 256, 768, 20, "bfloat16"), (16, 512, 768, 96, "bfloat16"))
+SCAN_CASES = ((32, 16), (1, 16), (5, 20))
+
+
+def measure_pool() -> None:
+    import numpy as np
+    import torch
+    from aspire_tpu_torch.ops import pool_kernel as pk
+    dev = torch.device("cuda", 0)
+    for b, t, h, smax, dtype in POOL_CASES:
+        rng = np.random.default_rng(t + smax)
+        hidden = torch.from_numpy(rng.standard_normal((b, t, h)).astype(
+            np.float32)).to(dev, getattr(torch, dtype))
+        per = (t - 8) // smax                     # runs after [CLS], a padded tail
+        ids = np.full((b, t), -1, np.int64)
+        ids[:, 1:1 + per * smax] = np.repeat(np.arange(smax), per)
+        ids = torch.from_numpy(ids).to(dev)
+        fn = lambda: pk.sentence_sums(hidden, ids, smax)
+        row = {"shape": [b, t, h], "sentences": smax, "dtype": dtype,
+               "kernel": "pool"}
+        try:
+            fn()
+        except (ValueError, RuntimeError) as exc:
+            print(json.dumps({**row, "refused": str(exc)}), flush=True)
+            continue
+        print(json.dumps({**row, **_median_ms(fn),
+                          "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+
+
+def int8_buckets(dev, n_docs: int = 125_000, buckets=(12, 24), d: int = 768):
+    """Buckets of the shapes `chip_smoke.build_large_index` gives, made on the
+    card: per-sentence int8 rows and scales from a seed, norms of the stored
+    vectors, +inf norms (and zero rows) at pads, docs padded to a multiple of 8."""
+    import numpy as np
+    import torch
+    lens = np.clip(np.random.default_rng(0).poisson(9, n_docs), 3, 20)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out, lo = [], 0
+    for s in buckets:
+        mine = lens[(lens > lo) & (lens <= s)]
+        lo = s
+        n = -(-len(mine) // 8) * 8
+        doc_len = torch.zeros(n, dtype=torch.int64, device=dev)
+        doc_len[:len(mine)] = torch.from_numpy(mine).to(dev)
+        live = torch.arange(s, device=dev)[None, :] < doc_len[:, None]
+        sents = torch.randint(-127, 128, (n, s, d), generator=gen, device=dev,
+                              dtype=torch.int8) * live[:, :, None]
+        scales = (0.01 + 0.02 * torch.rand((n, s), generator=gen, device=dev)) * live
+        norms = (sents.float() ** 2).sum(dim=2) * scales * scales
+        norms = torch.where(live, norms, torch.full_like(norms, float("inf")))
+        out.append((sents.contiguous(), scales.contiguous(), norms.contiguous()))
+    return out
+
+
+def measure_scan_int8() -> None:
+    import numpy as np
+    import torch
+    from aspire_tpu_torch.ops import scan_kernel as sk
+    dev = torch.device("cuda", 0)
+    for sents, scales, norms in int8_buckets(dev):
+        n, s, d = sents.shape
+        for bsz, qmax in SCAN_CASES:
+            rng = np.random.default_rng(bsz + s)
+            q = torch.from_numpy(rng.standard_normal((bsz, qmax, d)).astype(
+                np.float32) * 2.0).to(dev)
+            q_lens = torch.from_numpy(rng.integers(3, qmax + 1, bsz)).to(dev)
+            fn = lambda: sk.fused_l2max_scan_int8_batched(sents, scales, norms, q,
+                                                           q_lens, qmax)
+            print(json.dumps({"bucket": [n, s, d], "batch": bsz, "qmax": qmax,
+                              "kernel": "scan_int8", **_median_ms(fn),
+                              "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+        rows = sents.to(torch.bfloat16)
+        q = torch.from_numpy(np.random.default_rng(s).standard_normal(
+            (16, d)).astype(np.float32)).to(dev)
+        fn = lambda: sk.fused_l2max_scan(rows, q, norms, 10)
+        print(json.dumps({"bucket": [n, s, d], "batch": 1, "qmax": 16,
+                          "kernel": "scan_bf16", **_median_ms(fn),
+                          "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+        del rows
+        torch.cuda.empty_cache()
+
+
 def measure(bwd: bool, dropout: bool) -> None:
     import torch
     from aspire_tpu_torch.ops.attention_kernel import fused_attention
@@ -181,21 +276,28 @@ def main() -> int:
                         help="time the FFN forward (K3) instead")
     parser.add_argument("--sinkhorn", action="store_true",
                         help="time the Sinkhorn solver (K1) instead")
+    parser.add_argument("--pool", action="store_true",
+                        help="time the sentence-pool sums (K4) instead")
+    parser.add_argument("--scan-int8", action="store_true",
+                        help="time the int8 batched scan (K7) instead")
     parser.add_argument("--measure", action="store_true",
                         help="measure the checkout on sys.path (internal)")
     args = parser.parse_args()
+    modes = {"ffn": measure_ffn, "sinkhorn": measure_sinkhorn,
+             "pool": measure_pool, "scan_int8": measure_scan_int8}
     if args.measure:
-        if args.ffn:
-            measure_ffn()
-        elif args.sinkhorn:
-            measure_sinkhorn()
-        else:
+        chosen = [fn for name, fn in modes.items() if getattr(args, name)]
+        for fn in chosen:
+            fn()
+        if not chosen:
             measure(args.bwd, args.dropout)
         return 0
     this = pathlib.Path(__file__).resolve().parent.parent
     other = pathlib.Path(args.other).resolve()
-    argv = ["ab", "--measure"] + [f"--{flag}" for flag in ("bwd", "dropout", "ffn", "sinkhorn")
-                                  if getattr(args, flag)]
+    argv = ["ab", "--measure"] + [
+        "--" + flag.replace("_", "-")
+        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8")
+        if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):
         code = (f"import sys; sys.path.insert(0, {str(root)!r}); "

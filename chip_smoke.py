@@ -771,8 +771,14 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
     n, s, d = sents.shape
     q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev)
     live = bucket["doc_idx"] >= 0
-    got = sk.fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens, qmax)
+    fn = sk.fused_l2max_scan_int8_batched
+    wide = sk.int8_wide(bsz, qmax, d)
+    before = (fn.launches, fn.wide_launches)
+    got = fn(sents, scales, norms, q, q_lens, qmax)
     torch.cuda.synchronize()
+    if (fn.launches - before[0], fn.wide_launches - before[1]) != ((0, 1) if wide else (1, 0)):
+        raise AssertionError(f"scan_int8: B={bsz} x {qmax} did not run the "
+                             f"{'wide' if wide else 'narrow'} kernel")
     chunk = 8                                   # bounds the plain [rows, B qmax] f32
     want = torch.cat([sk.fused_l2max_scan_int8_batched_plain(
         sents, scales, norms, q[i:i + chunk], q_lens[i:i + chunk], qmax)
@@ -796,6 +802,7 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
 
     res.update(
         case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}",
+        source="aspire_tpu_torch/csrc/" + ("scan_int8.cu" if wide else "scan.cu"),
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan_int8_batched(
             sents, scales, norms, q, q_lens, qmax)),
         plain_ms=cuda_ms(lambda: [sk.fused_l2max_scan_int8_batched_plain(
@@ -916,7 +923,10 @@ def phase_pool_kernel(dev) -> list:
              case_pool(64, 256, 768, 20, f32, dev),
              case_pool(3, 200, 768, 20, bf16, dev, ragged=True),
              case_pool(3, 200, 768, 20, f32, dev, ragged=True),
-             case_pool(16, 512, 768, 24, bf16, dev)]
+             case_pool(16, 512, 768, 24, bf16, dev),
+             # past the 48 KB tile of the first kernel, which refused them
+             case_pool(16, 512, 768, 96, bf16, dev),
+             case_pool(4, 512, 768, 96, f32, dev, ragged=True)]
     emit("kernel_cases", kernel="pool", cases=cases)
     return cases
 
@@ -1019,7 +1029,8 @@ def counters() -> dict:
             "dropout": (fused_dropout, "launches"),
             "pool": (sentence_pool_fused, "launches"),
             "scan_bf16": (fused_l2max_scan, "launches"),
-            "scan_int8": (fused_l2max_scan_int8_batched, "launches")}
+            "scan_int8": (fused_l2max_scan_int8_batched, "launches"),
+            "scan_int8_wide": (fused_l2max_scan_int8_batched, "wide_launches")}
 
 
 def read_counts() -> dict:
@@ -1596,14 +1607,18 @@ def build_large_index(dev, n_docs: int, buckets=(12, 24),
 
 def scan_kernel_cases(big: dict, dev) -> dict:
     """K8 and K7 against their plain versions on the large index's buckets;
-    the first case of each is the query path's shape (K7: the batch of 32)."""
-    cases = {"scan_bf16": [case_scan_bf16(b, f"bucket {b['sents'].shape[1]}", dev)
+    the first case of each is the query path's shape.  K7 runs two kernels,
+    chosen by shape (`int8_wide`): csrc/scan.cu's for the single query
+    (first case B=1) and four queries of 16, csrc/scan_int8.cu's for full
+    column groups (first case the batch of 32; B=5 x 20 sentences)."""
+    int8 = big["buckets"]["int8"]
+    label = lambda b: f"bucket {b['sents'].shape[1]}"
+    cases = {"scan_bf16": [case_scan_bf16(b, label(b), dev)
                            for b in big["buckets"]["bfloat16"]],
-             "scan_int8": [case_scan_int8(b, f"bucket {b['sents'].shape[1]}",
-                                          bsz, dev)
-                           for b in big["buckets"]["int8"] for bsz in (32, 1)]}
-    cases["scan_int8"].append(case_scan_int8(
-        big["buckets"]["int8"][0], "bucket 12", 5, dev, qmax=20))
+             "scan_int8": [case_scan_int8(b, label(b), 1, dev) for b in int8]
+             + [case_scan_int8(int8[0], label(int8[0]), 4, dev)],
+             "scan_int8_wide": [case_scan_int8(b, label(b), 32, dev) for b in int8]
+             + [case_scan_int8(int8[0], label(int8[0]), 5, dev, qmax=20)]}
     # K8 on f32 rows: the bf16 bucket 12 in f32 (exact), true-f32 products
     b12 = big["buckets"]["bfloat16"][0]
     cases["scan_bf16"].append(case_scan_bf16(
@@ -1681,7 +1696,7 @@ def index_queries(big: dict, dev):
 
     drive("single bf16", "bfloat16", 1, 50, {"scan_bf16": nb, "sinkhorn": 1})
     drive("single int8", "int8", 1, 64, {"scan_int8": nb, "sinkhorn": 1})
-    drive("batch of 32 int8", "int8", 32, 64, {"scan_int8": nb, "sinkhorn": 1})
+    drive("batch of 32 int8", "int8", 32, 64, {"scan_int8_wide": nb, "sinkhorn": 1})
 
     cand = torch.from_numpy(qrng.integers(0, n_docs, (8, 512)).astype(np.int32))
     cand[:, 500:] = -1
@@ -1800,6 +1815,8 @@ KERNELS = [
      "aspire_tpu/ops/pallas_scan.py:77"),
     ("scan_int8", "aspire_tpu_torch/csrc/scan.cu",
      "aspire_tpu/ops/pallas_scan.py:180"),
+    ("scan_int8_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
+     "aspire_tpu/ops/pallas_scan.py:180"),
 ]
 
 
@@ -1809,7 +1826,8 @@ PATH_KERNELS = {
     "serve": ("sinkhorn", "attention", "ffn", "pool"),
     "train": ("attention", "ffn", "attention_dropout", "attention_bwd",
               "dropout", "pool"),
-    "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
+    "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8",
+              "scan_int8_wide"),
 }
 
 
