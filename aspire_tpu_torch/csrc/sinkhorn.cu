@@ -1,37 +1,225 @@
 // Batched balanced log-domain Sinkhorn with a per-pair eps schedule.
 //
 // Takes the place of the TPU kernel aspire_tpu/ops/pallas_sinkhorn.py
-// (_sinkhorn_kernel).  One warp solves one pair: the cost matrix sits in
-// shared memory with an odd row pitch (rows and columns both conflict-free),
-// lane l owns rows l, l + 32, ... for the f update and columns l, l + 32, ...
-// for the g update, and the whole annealing loop runs on chip.  Each pair loops
-// for its own schedule length, so no batch-wide trip count is needed.  The
-// loop is a chain of dependent exp/log rounds; accurate expf/logf are used (no
-// fast-math) because ~70 rounds compound.
+// (_sinkhorn_kernel).  The schedule [d, d, d*s, ..., blur] runs per pair for
+// its own length, so no batch-wide trip count is needed: symmetric Jacobi
+// updates with 0.5 averaging, log-weights floored at -1e5 by the caller, then
+// (extrapolate = 1) the final step at eps = blur from the loop's f and g.  With
+// extrapolate = 0 the kernel writes the loop's own f and g, before that step:
+// the training loss takes the step itself, in PyTorch, where gradients flow.
 //
-// A lane keeps its atoms' potentials and log-weights in registers, kPer of
-// each (a template: 1, 2, 4, ... 32, so up to 1024 atoms a side).  A pair of
-// at most 32 x 32 runs with kPer = 1, the constant pitch 33 and static shared
-// memory: with dynamic shared memory the 20 x 20 pairs of a serving request
-// ran 4-12% slower on the H100.  (Potentials kept in shared memory instead of
-// registers, which would take any count, made them 43% slower: the reads join
-// each round's dependent chain.)  Pairs a block: four, or as many as fit 227 KB.
+// What bounds it: the rounds.  A pair is a few hundred exponentials a round,
+// about 85 rounds long, each round's softmins needing the last round's
+// potentials, so at the batches of a request (16 pairs) the time is the
+// dependent chain of one round times the rounds, not the card's rate of
+// exponentials (that governs from about a thousand pairs up).
+//
+// Pairs of at most 32 x 32 (every serving, training and query shape):
+// sinkhorn_small_kernel, one block a pair, kLanes = 4 threads a softmin:
+// threads [0, 4 side) the rows, [4 side, 8 side) the columns (at 20 x 20 five
+// warps).  Thread (atom, sub) keeps in registers the cost of its row (column)
+// at columns (rows) sub, sub + 4, ... -- kPer values -- so a round reads only
+// the h of the other side from shared memory, laid out lane-major so that
+// those kPer values are two 16-byte loads.  A softmin is the thread's kPer
+// terms, two butterfly shuffles for the max, the base-2 exponentials on the
+// special-function unit (ex2.approx / lg2.approx, log2(e) folded into 1/eps),
+// two butterfly shuffles for the sum: every thread of an atom ends with the same
+// sum (a + b == b + a) and all four store h.  h is double-buffered, so a round
+// takes one block barrier; eps and 1/eps of every round are tabulated once.
+// The chain of a round: store, barrier, loads, an FMA, kPer max steps, two
+// shuffles, the exponentials, kPer adds, two shuffles, a log, three FMAs.
+//
+// Variants measured on the H100 and not kept (PERF.md, section 6; B = 16): one
+// thread doing its atom's row and column softmins (ptxas put the two chains one
+// after the other: 14% slower), one of four threads storing h (15% slower), eps
+// and 1/eps by expf and a division in each round (5% slower, though off the
+// chain), with that thread 2 or 8 threads an atom (6% and 27% slower than 4),
+// (max, sum) pairs merged in the butterfly (1% slower, 29% at B = 2048), the
+// loop unrolled by two (9% slower); the accurate exp2f / log2f and 8 threads a
+// softmin in benchmarks/torch_sinkhorn_ablation.py.  ex2.approx holds the plain
+// version to 3e-4 where 1e-3 is allowed (chip_smoke.py).
+//
+// Wider pairs (up to 1024 atoms a side): sinkhorn_wide_kernel, one warp a
+// pair, the cost in shared memory with an odd row pitch (rows and columns both
+// conflict-free), lane l owning rows and columns l, l + 32, ... (kPer of each, a
+// template: 2, 4, ... 32), potentials in registers (in shared memory they made
+// the rounds 43% slower: the reads join each round's chain), accurate expf /
+// logf.  Pairs a block: four, or as many as fit 227 KB.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxPairsPerBlock = 4;
+constexpr int kLanes = 4;              // threads an atom in the small kernel
+constexpr int kSmallSide = 32;         // the small kernel's largest side
+constexpr int kTable = 128;            // rounds whose eps the small kernel tabulates
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr int kMaxPairsPerBlock = 4;   // the wide kernel's warps a block
 constexpr int kMaxSmem = 232448;       // shared memory one block can have
 
-// the cost's odd row pitch: 33 (a constant) while a lane owns one atom, m | 1 above
-template <int kPer>
-__host__ __device__ inline int pitch_of(int m) { return kPer == 1 ? 33 : (m | 1); }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// floats a pair keeps in shared memory: cost [n][pitch], then ha [n], hb [m]
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The schedule of one pair: eps_at(i) for round i, and its length.
+struct Schedule {
+  float blur, log_scaling, d_floor, lane_iters;
+  int iters;
+  __device__ Schedule(float d, float blur_, float log_scaling_, int max_iters)
+      : blur(blur_), log_scaling(log_scaling_), d_floor(fmaxf(d, 1e-12f)) {
+    // [d, d, d*s, d*s^2, ..., blur]: length ceil(log(blur/d)/log s) + 2
+    const float ratio = logf(blur / fmaxf(d, 1e-30f)) / log_scaling;
+    lane_iters = ceilf(fmaxf(ratio, 0.f)) + 2.f;
+    iters = (int)fminf(lane_iters, (float)max_iters);
+  }
+  __device__ float eps_at(int i) const {
+    const float k = (float)max(i - 1, 0);
+    return ((float)i >= lane_iters - 1.f) ? blur : d_floor * expf(k * log_scaling);
+  }
+};
+
+// ---------------------------------------------------------------- small pairs
+constexpr int kSlots = kSmallSide / kLanes;   // values of h one thread reads a round
+
+// where atom j's h lies in its side's buffer: lane-major, so that thread `sub`
+// finds its atoms j = sub, sub + kLanes, ... side by side (two 16-byte loads)
+__device__ __forceinline__ int hpos(int j) { return (j % kLanes) * kSlots + j / kLanes; }
+
+template <int kPer>   // cost values a thread holds: ceil(side / kLanes)
+__global__ void __launch_bounds__(2 * kLanes * kSmallSide)
+sinkhorn_small_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
+                      const float* __restrict__ log_b, const float* __restrict__ diam,
+                      float* __restrict__ f_out, float* __restrict__ g_out, int n, int m,
+                      float blur, float log_scaling, int max_iters, int extrapolate) {
+  // log2(e) * h, h = log-weight + potential / eps: [buffer][a by row, b by column][hpos];
+  // atoms past n (m) stay -inf, so the terms they give vanish
+  __shared__ __align__(16) float h2[2][2][kSmallSide];
+  // eps and log2(e) / eps of the first kTable rounds, computed once
+  __shared__ float table[2][kTable];
+  const int pair = blockIdx.x;
+  // threads [0, half) own the rows, [half, 2 half) the columns
+  const int half = kLanes * (n > m ? n : m);
+  const bool by_col = threadIdx.x >= half;
+  const int t = by_col ? threadIdx.x - half : threadIdx.x;
+  const int atom = t / kLanes, sub = t % kLanes;
+  const int other = by_col ? n : m;          // the side a softmin sums over
+  const bool live = atom < (by_col ? m : n);
+  const int mine = by_col ? 1 : 0;           // the side this thread publishes
+  const float* cg = cost + (size_t)pair * n * m;
+  float c[kPer];                             // row: c[atom][o], column: c[o][atom]
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int o = sub + kLanes * k;
+    c[k] = live && o < other ? cg[by_col ? o * m + atom : atom * m + o] : 0.f;
+  }
+  const float lw2 = live ? (by_col ? log_b[(size_t)pair * m + atom]
+                                   : log_a[(size_t)pair * n + atom]) * kLog2e : 0.f;
+  for (int e = threadIdx.x; e < 2 * kSmallSide; e += blockDim.x) {
+    const int side = e / kSmallSide, p = e % kSmallSide;
+    const int j = p / kSlots + kLanes * (p % kSlots);   // hpos(j) == p
+    const int len = side == 0 ? n : m;
+    const float* lw = side == 0 ? log_a + (size_t)pair * n : log_b + (size_t)pair * m;
+    h2[0][side][p] = j < len ? lw[j] * kLog2e : -INFINITY;
+    h2[1][side][p] = j < len ? 0.f : -INFINITY;
+  }
+  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
+  for (int i = threadIdx.x; i < min(sched.iters + 1, kTable); i += blockDim.x) {
+    const float e = sched.eps_at(i);
+    table[0][i] = e;
+    table[1][i] = (1.f / e) * kLog2e;
+  }
+  auto eps_of = [&](int i, float& e, float& inv2) {
+    if (i < kTable) {
+      e = table[0][i];
+      inv2 = table[1][i];
+    } else {
+      e = sched.eps_at(i);
+      inv2 = (1.f / e) * kLog2e;
+    }
+  };
+
+  // -eps ln sum_o exp(h_b[o] - c[o] / eps) over the other side, from buffer b,
+  // at inv2 = log2(e) / eps
+  auto softmin = [&](int b, float inv2, float eps) {
+    float hv[4 * ((kPer + 3) / 4)];
+    const float4* hp = reinterpret_cast<const float4*>(&h2[b][1 - mine][sub * kSlots]);
+#pragma unroll
+    for (int q = 0; q < (kPer + 3) / 4; ++q) {
+      const float4 v = hp[q];
+      hv[4 * q] = v.x;
+      hv[4 * q + 1] = v.y;
+      hv[4 * q + 2] = v.z;
+      hv[4 * q + 3] = v.w;
+    }
+    float tt[kPer], mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      tt[k] = fmaf(-c[k], inv2, hv[k]);
+      mx = fmaxf(mx, tt[k]);
+    }
+#pragma unroll
+    for (int w = 1; w < kLanes; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) sum += ex2(tt[k] - mx);
+#pragma unroll
+    for (int w = 1; w < kLanes; w <<= 1) sum += __shfl_xor_sync(kFull, sum, w);
+    return -eps * kLn2 * (lg2(sum) + mx);
+  };
+  int buf = 0;
+  // h of the next round into the other buffer, then the round's one barrier
+  // (the four threads of an atom hold the same value and all store it)
+  auto publish = [&](float h) {
+    buf ^= 1;
+    if (live) h2[buf][mine][hpos(atom)] = h;
+    __syncthreads();
+  };
+
+  __syncthreads();
+  float eps, inv2;
+  eps_of(0, eps, inv2);
+  float f = softmin(0, inv2, eps);           // this thread's potential: f of its row or g
+  for (int it = 0; it < sched.iters; ++it) {
+    float eps_next, inv2_next;
+    eps_of(it + 1, eps_next, inv2_next);     // read ahead, off the chain
+    publish(fmaf(f, inv2, lw2));             // Jacobi: every softmin reads the old f and g
+    f = 0.5f * (f + softmin(buf, inv2, eps));
+    eps = eps_next;
+    inv2 = inv2_next;
+  }
+  if (extrapolate) {                         // at eps = blur, again from the loop's f and g
+    publish(fmaf(f / blur, kLog2e, lw2));
+    f = softmin(buf, (1.f / blur) * kLog2e, blur);
+  }
+  if (live && sub == 0) (by_col ? g_out + (size_t)pair * m : f_out + (size_t)pair * n)[atom] = f;
+}
+
 template <int kPer>
-__host__ __device__ inline int pair_floats(int n, int m) { return n * pitch_of<kPer>(m) + n + m; }
+int launch_small(const float* cost, const float* log_a, const float* log_b, const float* diam,
+                 float* f, float* g, int bsz, int n, int m, float blur, float log_scaling,
+                 int max_iters, int extrapolate, cudaStream_t stream) {
+  const int side = n > m ? n : m;
+  const int threads = (2 * kLanes * side + 31) / 32 * 32;   // whole warps for the shuffles
+  sinkhorn_small_kernel<kPer><<<bsz, threads, 0, stream>>>(
+      cost, log_a, log_b, diam, f, g, n, m, blur, log_scaling, max_iters, extrapolate);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- wide pairs
+// floats a pair keeps in shared memory: cost [n][m | 1], then ha [n], hb [m]
+__host__ __device__ inline int pair_floats(int n, int m) { return n * (m | 1) + n + m; }
 
 // -eps * logsumexp_k(h[k] - c[k * stride] / eps), max-shifted.
 __device__ __forceinline__ float softmin(const float* c, int stride, const float* h,
@@ -47,22 +235,16 @@ __device__ __forceinline__ float softmin(const float* c, int stride, const float
 
 template <int kPer>
 __global__ void __launch_bounds__(kMaxPairsPerBlock * 32)
-sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
-                const float* __restrict__ log_b, const float* __restrict__ diam,
-                float* __restrict__ f_out, float* __restrict__ g_out, int bsz, int n,
-                int m, float blur, float log_scaling, int max_iters) {
+sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
+                     const float* __restrict__ log_b, const float* __restrict__ diam,
+                     float* __restrict__ f_out, float* __restrict__ g_out, int bsz, int n,
+                     int m, float blur, float log_scaling, int max_iters, int extrapolate) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pair = blockIdx.x * (blockDim.x >> 5) + warp;
   if (pair >= bsz) return;             // warps are independent: no block barrier below
-  const int ld = pitch_of<kPer>(m);
-  float* c;
-  if constexpr (kPer == 1) {           // at most 32 x 32: a fixed share of static shared memory
-    __shared__ float pairs[kMaxPairsPerBlock][32 * 33 + 64];
-    c = pairs[warp];
-  } else {
-    c = smem + (size_t)warp * pair_floats<kPer>(n, m);
-  }
+  const int ld = m | 1;
+  float* c = smem + (size_t)warp * pair_floats(n, m);
   float* ha = c + n * ld;              // log_a + f / eps, by row
   float* hb = ha + n;                  // log_b + g / eps, by column
 
@@ -76,17 +258,7 @@ sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
     la[r] = i < n ? log_a[(size_t)pair * n + i] : 0.f;
     lb[r] = i < m ? log_b[(size_t)pair * m + i] : 0.f;
   }
-
-  // schedule [d, d, d*s, d*s^2, ..., blur]: length ceil(log(blur/d)/log s) + 2
-  const float d = diam[pair];
-  const float ratio = logf(blur / fmaxf(d, 1e-30f)) / log_scaling;
-  const float lane_iters = ceilf(fmaxf(ratio, 0.f)) + 2.f;
-  const int iters = (int)fminf(lane_iters, (float)max_iters);
-  const float d_floor = fmaxf(d, 1e-12f);
-  auto eps_at = [&](int i) {
-    const float k = (float)max(i - 1, 0);
-    return ((float)i >= lane_iters - 1.f) ? blur : d_floor * expf(k * log_scaling);
-  };
+  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
   // ha / hb from f / g at 1 / eps (or a divisor), then the two softmins
   auto write_h = [&](float inv, float div, bool by_div) {
 #pragma unroll
@@ -97,7 +269,7 @@ sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
     }
   };
 
-  float eps = eps_at(0), inv = 1.f / eps;
+  float eps = sched.eps_at(0), inv = 1.f / eps;
 #pragma unroll
   for (int r = 0; r < kPer; ++r) {
     const int i = lane + 32 * r;
@@ -112,8 +284,8 @@ sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
     g[r] = i < m ? softmin(c + i, ld, ha, n, eps, inv) : 0.f;
   }
 
-  for (int it = 0; it < iters; ++it) {
-    eps = eps_at(it);
+  for (int it = 0; it < sched.iters; ++it) {
+    eps = sched.eps_at(it);
     inv = 1.f / eps;
     __syncwarp();                      // every lane is done reading hb / ha
     write_h(inv, 0.f, false);          // Jacobi: both updates read the old f and g
@@ -128,35 +300,39 @@ sinkhorn_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
     }
   }
 
-  // final extrapolation at eps = blur, again from the loop's f and g
-  inv = 1.f / blur;
-  __syncwarp();
-  write_h(inv, blur, true);
-  __syncwarp();
+  if (extrapolate) {                   // at eps = blur, again from the loop's f and g
+    inv = 1.f / blur;
+    __syncwarp();
+    write_h(inv, blur, true);
+    __syncwarp();
+  }
 #pragma unroll
   for (int r = 0; r < kPer; ++r) {
     const int i = lane + 32 * r;
-    if (i < n) f_out[(size_t)pair * n + i] = softmin(c + i * ld, 1, hb, m, blur, inv);
-    if (i < m) g_out[(size_t)pair * m + i] = softmin(c + i, ld, ha, n, blur, inv);
+    if (i < n)
+      f_out[(size_t)pair * n + i] =
+          extrapolate ? softmin(c + i * ld, 1, hb, m, blur, inv) : f[r];
+    if (i < m)
+      g_out[(size_t)pair * m + i] = extrapolate ? softmin(c + i, ld, ha, n, blur, inv) : g[r];
   }
 }
 
 template <int kPer>
-int launch(const float* cost, const float* log_a, const float* log_b, const float* diam,
-           float* f, float* g, int bsz, int n, int m, float blur, float log_scaling,
-           int max_iters, cudaStream_t stream) {
-  const long long per_pair = (long long)pair_floats<kPer>(n, m) * (long long)sizeof(float);
+int launch_wide(const float* cost, const float* log_a, const float* log_b, const float* diam,
+                float* f, float* g, int bsz, int n, int m, float blur, float log_scaling,
+                int max_iters, int extrapolate, cudaStream_t stream) {
+  const long long per_pair = (long long)pair_floats(n, m) * (long long)sizeof(float);
   if (per_pair > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int fit = (int)(kMaxSmem / per_pair);
   const int pairs = fit < kMaxPairsPerBlock ? fit : kMaxPairsPerBlock;
-  const int smem = kPer == 1 ? 0 : (int)(pairs * per_pair);
+  const int smem = (int)(pairs * per_pair);
   // above 48 KB of dynamic shared memory a kernel has to opt in
-  cudaError_t err = cudaFuncSetAttribute(sinkhorn_kernel<kPer>,
+  cudaError_t err = cudaFuncSetAttribute(sinkhorn_wide_kernel<kPer>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (bsz + pairs - 1) / pairs;
-  sinkhorn_kernel<kPer><<<blocks, pairs * 32, smem, stream>>>(
-      cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters);
+  sinkhorn_wide_kernel<kPer><<<blocks, pairs * 32, smem, stream>>>(
+      cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters, extrapolate);
   return (int)cudaGetLastError();
 }
 
@@ -165,20 +341,34 @@ int launch(const float* cost, const float* log_a, const float* log_b, const floa
 extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const float* log_b,
                                    const float* diam, float* f, float* g, int bsz, int n,
                                    int m, float blur, float log_scaling, int max_iters,
-                                   void* stream) {
+                                   int extrapolate, void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
   const int side = n > m ? n : m;
   const cudaStream_t s = (cudaStream_t)stream;
-#define ASPIRE_SINKHORN_PER(P)                                                               \
-  if (side <= 32 * (P))                                                                      \
-    return launch<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters, s);
-  ASPIRE_SINKHORN_PER(1)
-  ASPIRE_SINKHORN_PER(2)
-  ASPIRE_SINKHORN_PER(4)
-  ASPIRE_SINKHORN_PER(8)
-  ASPIRE_SINKHORN_PER(16)
-  ASPIRE_SINKHORN_PER(32)
-#undef ASPIRE_SINKHORN_PER
+#define ASPIRE_SINKHORN_SMALL(P)                                                   \
+  if (side <= kLanes * (P))                                                        \
+    return launch_small<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, \
+                           max_iters, extrapolate, s);
+#define ASPIRE_SINKHORN_WIDE(P)                                                    \
+  if (side <= 32 * (P))                                                            \
+    return launch_wide<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling,  \
+                          max_iters, extrapolate, s);
+  static_assert(kLanes * 8 == kSmallSide, "the small kernel's cases cover 32 atoms");
+  ASPIRE_SINKHORN_SMALL(1)
+  ASPIRE_SINKHORN_SMALL(2)
+  ASPIRE_SINKHORN_SMALL(3)
+  ASPIRE_SINKHORN_SMALL(4)
+  ASPIRE_SINKHORN_SMALL(5)
+  ASPIRE_SINKHORN_SMALL(6)
+  ASPIRE_SINKHORN_SMALL(7)
+  ASPIRE_SINKHORN_SMALL(8)
+  ASPIRE_SINKHORN_WIDE(2)
+  ASPIRE_SINKHORN_WIDE(4)
+  ASPIRE_SINKHORN_WIDE(8)
+  ASPIRE_SINKHORN_WIDE(16)
+  ASPIRE_SINKHORN_WIDE(32)
+#undef ASPIRE_SINKHORN_SMALL
+#undef ASPIRE_SINKHORN_WIDE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -133,10 +133,10 @@ class _DocModelBase(nn.Module):
         group structure, same reductions, same permutations.  Dropout masks
         differ from the sequential path (one wide encode, keyed on the first
         group's seeds).  Every loss term is a sum over examples, so the
-        groups are not walked one by one (the OT solver's loop is launched
-        from the host, round by round): the per-example terms of the whole
+        groups are not walked one by one: the per-example terms of the whole
         wide batch are taken in one call -- the OT solver annealing each group
-        from its own diameter (`grouped_max_diameter`) -- and summed group by group.
+        from its own diameter (`grouped_max_diameter`), on the card in one
+        Sinkhorn kernel launch a distance -- and summed group by group.
 
         Returns (summed loss, per-group losses [n_micro]).
         """
@@ -187,7 +187,10 @@ class _DocModelBase(nn.Module):
     def _dist(self, query, cand, groups: int = 1):
         """The model's distance.  OT anneals from a batch-wide diameter, the
         one distance that couples a batch's examples: over several micro
-        batches it is given each group's own."""
+        batches it is given each group's own, as the per-pair diameters of
+        the solver's one call (on CUDA tensors one launch of the Sinkhorn
+        kernel's annealing loop, each pair its own trip count; see
+        `ops.distances.wasserstein_dist`)."""
         if groups > 1 and self.ot_dist:
             return self.dist_fn(query, cand, diameter_value=grouped_max_diameter(
                 query.embed, cand.embed, groups))
@@ -201,10 +204,12 @@ class _DocModelBase(nn.Module):
 
 class ConSentDocModel(_DocModelBase):
     """Shared skeleton for the contextual-sentence models
-    (miswordbienc / sbalisentbienc / miswordpolyenc)."""
+    (miswordbienc / sbalisentbienc / miswordpolyenc).  ot_solver: the OT
+    distance's Sinkhorn solver ('auto', 'torch', 'kernel_loop'; see
+    `ops.distances.wasserstein_dist`)."""
 
     def __init__(self, hp: ModelHParams, bert_config: BertConfig,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", ot_solver: str = "auto"):
         super().__init__()
         self.hp = hp
         self.bert_config = bert_config
@@ -215,7 +220,7 @@ class ConSentDocModel(_DocModelBase):
             hidden_dropout_impl=hp.hidden_dropout_impl)
         # get_dist_function aliases l2lse -> l2max itself (the reference's
         # caching_score does the same remap, disent_models.py:294-297)
-        self.dist_fn = get_dist_function(hp.score_aggregation, hp)
+        self.dist_fn = get_dist_function(hp.score_aggregation, hp, ot_solver)
         if hp.model_name == "miswordpolyenc":
             self.dist_fn = get_dist_function("jointsm", hp)
         self.ot_dist = (hp.score_aggregation == "l2wasserstein"
@@ -274,8 +279,8 @@ class WordSentAbsAlignModel(ConSentDocModel):
     (WordSentAbsAlignBiEnc, disent_models.py:538-660)."""
 
     def __init__(self, hp: ModelHParams, bert_config: BertConfig,
-                 dtype=torch.float32, device="cuda"):
-        super().__init__(hp, bert_config, dtype, device)
+                 dtype=torch.float32, device="cuda", ot_solver: str = "auto"):
+        super().__init__(hp, bert_config, dtype, device, ot_solver)
         # this family scores with its hparam proportions
         # (WordSentAbsAlignBiEnc.__init__, disent_models.py:583-584)
         self.score_sent_prop = float(hp.sent_loss_prop)
@@ -300,8 +305,8 @@ class WordSentAbsSupAlignModel(ConSentDocModel):
     supervision (disent_models.py:663-837)."""
 
     def __init__(self, hp: ModelHParams, bert_config: BertConfig,
-                 dtype=torch.float32, device="cuda"):
-        super().__init__(hp, bert_config, dtype, device)
+                 dtype=torch.float32, device="cuda", ot_solver: str = "auto"):
+        super().__init__(hp, bert_config, dtype, device, ot_solver)
         self.sup_fn = l2sup_weighted_dist if hp.weighted_sup else l2sup_dist
         # caching_score uses max(sent, sentsup) for this family
         # (disent_models.py:299-304, 714-716) + the hparam abs term
@@ -378,12 +383,18 @@ MODEL_REGISTRY = {
 
 
 def build_model(hp: ModelHParams, bert_config: BertConfig,
-                dtype=torch.float32, device="cuda"):
+                dtype=torch.float32, device="cuda", ot_solver: str = "auto"):
     """Model factory keyed by the reference registries (main_fsim.py:91-99,
-    main_sentsim.py -- cosentbert/ictsentbert included)."""
+    main_sentsim.py -- cosentbert/ictsentbert included).  ot_solver: the
+    Sinkhorn solver of the contextual-sentence models' OT distance; it is not
+    a hyperparameter, so it stays out of `hp` and of run_info.json."""
     registry = {**MODEL_REGISTRY, **_sent_models()}
     try:
         cls = registry[hp.model_name]
     except KeyError:
         raise ValueError(f"Unknown model: {hp.model_name}") from None
+    if issubclass(cls, ConSentDocModel):
+        return cls(hp, bert_config, dtype, device, ot_solver)
+    if ot_solver != "auto":
+        raise ValueError(f"{hp.model_name} has no OT distance to solve")
     return cls(hp, bert_config, dtype, device)

@@ -31,8 +31,9 @@ _DROP = [_I, _U64, _U32, _U32]
 # name -> argtypes; every function returns the cudaError_t of its launch.
 # Without argtypes ctypes would pass each pointer as a 32-bit int.
 SIGNATURES = {
-    # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters, stream
-    "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters,
+    # extrapolate (0: the loop's own f and g), stream
+    "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
     # q, k, v, bias, out, b, nh, t, q/k/v/out strides (batch, head, token) x4,
     # sm_scale, dropout mode.., 1 - p in the compute dtype, bits, row
     # statistics for the backward (or null), stream

@@ -113,6 +113,34 @@ def ot_marginals(query: MultiVec, cand: MultiVec, temp: float = 1.0,
     return a, b, neg
 
 
+SOLVERS = ("auto", "torch", "kernel", "kernel_loop")
+
+
+def _select_solver(solver: str, reach: float | None, on_cuda: bool) -> str:
+    """The OT solver route, keyed on where the inputs lie.
+
+      * 'auto' on CUDA with reach=None -> 'kernel_loop'; on the CPU, or with
+        `reach` set (unbalanced OT, which the kernel does not solve, as the
+        JAX package's Pallas kernel does not), -> 'torch'.
+      * 'torch': the annealing loop as PyTorch rounds, the final step with
+        gradients (ops/sinkhorn.py) -- the yardstick.
+      * 'kernel_loop': the annealing loop as one launch of the CUDA kernel in
+        its loop-only mode, the final step in PyTorch with gradients: the
+        same gradients as 'torch', and no host sync.  Balanced OT only.
+      * 'kernel': the CUDA kernel takes the final step too (forward-only,
+        balanced OT): the serving and rerank path.
+    On CPU tensors either kernel route runs the kernel's plain version.
+    """
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
+    if solver in ("kernel", "kernel_loop") and reach is not None:
+        raise ValueError(f"solver={solver!r} supports balanced OT only "
+                         "(reach=None)")
+    if solver == "auto":
+        return "kernel_loop" if on_cuda and reach is None else "torch"
+    return solver
+
+
 def wasserstein_dist(
     query: MultiVec,
     cand: MultiVec,
@@ -123,7 +151,7 @@ def wasserstein_dist(
     return_pair_sims: bool = False,
     max_iters: int = 128,
     diameter: str = "global",
-    solver: str = "torch",
+    solver: str = "auto",
     diameter_value: torch.Tensor | None = None,
 ):
     """Optimal-transport multi-match scoring (otAspire).
@@ -134,24 +162,21 @@ def wasserstein_dist(
     plan recovered from the dual potentials and the plan-weighted similarity
     sum, plus diagnostics [q_distr, c_distr, pair_sims, plan, masked_sims].
 
-    solver: 'torch' (default; differentiable plain PyTorch) or 'kernel' (the
-    CUDA solver of ops/sinkhorn_kernel.py: forward-only, balanced OT, both
-    diameter modes -- the serving/rerank path).
+    solver: 'auto' (default), 'torch', 'kernel_loop' or 'kernel'; see
+    `_select_solver`.  'auto' is 'kernel_loop' on CUDA tensors with
+    reach=None (the training loss: one kernel launch, differentiable) and
+    'torch' otherwise.
     diameter_value: the annealing's starting diameter, a scalar or f32[bsz],
     instead of the one `diameter` names.  With `grouped_max_diameter` of the
     batch one call gives what a loop of separate 'global' calls on equal
     slices of it would (the grouped training loss, one slice a micro batch).
     """
-    if solver not in ("torch", "kernel"):
-        raise ValueError(f"solver must be 'torch' or 'kernel', got {solver!r}")
-    if solver == "kernel" and reach is not None:
-        raise ValueError("solver='kernel' supports balanced OT only "
-                         "(reach=None)")
+    route = _select_solver(solver, reach, query.embed.is_cuda)
     cost = pairwise_l2(query.embed, cand.embed)
     a, b, neg = ot_marginals(query, cand, temp=temp, cost=cost)
 
     def _solve():
-        if solver == "kernel":
+        if route == "kernel":
             return sinkhorn_potentials_kernel(
                 a, query.embed, b, cand.embed, blur=blur, scaling=scaling,
                 max_iters=max_iters, cost=cost, use_cost=True,
@@ -159,7 +184,8 @@ def wasserstein_dist(
         return sinkhorn_potentials(
             a, query.embed, b, cand.embed, blur=blur, scaling=scaling,
             reach=reach, max_iters=max_iters, diameter=diameter, cost=cost,
-            use_cost=True, diameter_value=diameter_value)
+            use_cost=True, diameter_value=diameter_value,
+            loop="kernel" if route == "kernel_loop" else "torch")
 
     if not return_pair_sims:
         f, g = _solve()
@@ -199,9 +225,10 @@ def jointsm_dist(query: MultiVec, cand: MultiVec, return_pair_sims: bool = False
     return -summed
 
 
-def get_dist_function(score_agg_type: str, hp=None):
+def get_dist_function(score_agg_type: str, hp=None, solver: str = "auto"):
     """Distance-function registry keyed by the reference's config names
-    (disent_models.py:236-247)."""
+    (disent_models.py:236-247).  solver: the OT solver of 'l2wasserstein'
+    (see `wasserstein_dist`)."""
     if score_agg_type in ("l2max", "l2lse"):
         return l2max_dist
     if score_agg_type == "l2top2":
@@ -211,12 +238,13 @@ def get_dist_function(score_agg_type: str, hp=None):
         scaling = getattr(hp, "geoml_scaling", 0.9) if hp is not None else 0.9
         reach = getattr(hp, "geoml_reach", None) if hp is not None else None
         temp = getattr(hp, "sent_sm_temp", 1.0) if hp is not None else 1.0
+        _select_solver(solver, reach, on_cuda=False)     # refuses bad values now
 
         def fn(query, cand, return_pair_sims=False, diameter_value=None):
             return wasserstein_dist(
                 query, cand, blur=blur, scaling=scaling, reach=reach,
                 temp=temp, return_pair_sims=return_pair_sims,
-                diameter_value=diameter_value)
+                diameter_value=diameter_value, solver=solver)
         return fn
     if score_agg_type == "l2attention":
         temp = getattr(hp, "cdatt_sm_temp", 1.0) if hp is not None else 1.0

@@ -1,8 +1,10 @@
 """Log-domain epsilon-scaled Sinkhorn solver, geomloss-compatible.
 
-Counterpart of aspire_tpu/ops/sinkhorn.py in plain PyTorch: the differentiable
-solver that training and strict-parity scoring use.  The serving path runs the
-same schedule inside one CUDA kernel (ops/sinkhorn_kernel.py).
+Counterpart of aspire_tpu/ops/sinkhorn.py in PyTorch: the differentiable
+solver that training and strict-parity scoring use.  Its annealing loop runs
+either as plain PyTorch rounds (``loop="torch"``) or as one launch of the CUDA
+kernel of ops/sinkhorn_kernel.py (``loop="kernel"``, what training takes on
+the card); the serving path runs the final step inside that kernel too.
 
   * ground cost  C(x, y) = |x - y|_2          (geomloss "p=1")
   * eps schedule: diameter -> blur, geometric with ratio `scaling`, with the
@@ -154,6 +156,7 @@ def sinkhorn_potentials(
     use_cost: bool = False,
     diameter: str = "global",
     diameter_value: torch.Tensor | None = None,
+    loop: str = "torch",
 ):
     """Solve regularized OT between weighted point clouds; return potentials.
 
@@ -168,20 +171,28 @@ def sinkhorn_potentials(
     diameter_value: optional precomputed annealing-start diameter (scalar or
         f32[bsz]), overriding the local computation.
 
+    loop: 'torch' runs the annealing loop as PyTorch rounds, reading its trip
+        count on the host (one sync); 'kernel' runs it as one launch of the
+        CUDA kernel in its loop-only mode (`sinkhorn_solve(...,
+        extrapolate=False)`: each pair its own trip count, no sync; balanced
+        OT only).  Either way the final step runs here, with gradients.
+
     Returns (f, g): potentials f32[bsz, n], f32[bsz, m] such that the balanced
     OT cost is sum(a * f + b * g) -- geomloss's potentials=True output for
-    debias=False.  The loop reads its trip count on the host (one sync); the
-    serving path avoids that by running the CUDA kernel instead.
+    debias=False.
     """
     if not 0.0 < scaling < 1.0:
         raise ValueError(f"scaling must be in (0, 1), got {scaling}")
+    if loop not in ("torch", "kernel"):
+        raise ValueError(f"loop must be 'torch' or 'kernel', got {loop!r}")
+    if loop == "kernel" and reach is not None:
+        raise ValueError("loop='kernel' supports balanced OT only (reach=None)")
     a = a.float()
     b = b.float()
     c_xy = cost.float() if use_cost else pairwise_l2(x, y)
     c_yx = c_xy.transpose(1, 2)
     bsz = a.shape[0]
     diam = resolve_diameter(x, y, a, b, diameter, diameter_value)
-    n_iters = _schedule_len(diam, blur, scaling)
     log_a = log_weights(a)
     log_b = log_weights(b)
 
@@ -191,20 +202,14 @@ def sinkhorn_potentials(
         return 1.0 / (1.0 + eps[:, None] / float(reach))
 
     # --- Annealing loop: constant w.r.t. gradients (geomloss detaches it). ---
-    with torch.no_grad():
-        c_xy_ng, c_yx_ng = c_xy.detach(), c_yx.detach()
-        la, lb = log_a.detach(), log_b.detach()
-        eps0 = _eps_at(0, diam, blur, scaling, n_iters)
-        f = damping(eps0) * _softmin(eps0, c_xy_ng, lb)
-        g = damping(eps0) * _softmin(eps0, c_yx_ng, la)
-        n_cap = min(int(n_iters.max()), max_iters)
-        for i in range(n_cap):
-            eps = _eps_at(i, diam, blur, scaling, n_iters)
-            ft = damping(eps) * _softmin(eps, c_xy_ng, lb + g / eps[:, None])
-            gt = damping(eps) * _softmin(eps, c_yx_ng, la + f / eps[:, None])
-            live = (i < n_iters)[:, None]
-            f = torch.where(live, 0.5 * (f + ft), f)
-            g = torch.where(live, 0.5 * (g + gt), g)
+    if loop == "kernel":
+        # imported here: sinkhorn_kernel imports this module
+        from .sinkhorn_kernel import sinkhorn_solve
+        f, g = sinkhorn_solve(c_xy.detach(), log_a.detach(), log_b.detach(),
+                              diam, blur, scaling, max_iters, extrapolate=False)
+    else:
+        f, g = _anneal(c_xy.detach(), c_yx.detach(), log_a.detach(),
+                       log_b.detach(), diam, blur, scaling, max_iters, damping)
 
     # --- Final extrapolation at eps = blur: the differentiable step. ---
     eps_b = torch.full((bsz,), blur, dtype=torch.float32, device=a.device)
@@ -212,6 +217,24 @@ def sinkhorn_potentials(
     f_out = damp * _softmin(eps_b, c_xy, log_b + g / blur)
     g_out = damp * _softmin(eps_b, c_yx, log_a + f / blur)
     return f_out, g_out
+
+
+@torch.no_grad()
+def _anneal(c_xy, c_yx, la, lb, diam, blur, scaling, max_iters, damping):
+    """The annealing loop as PyTorch rounds -> the loop's (f, g)."""
+    n_iters = _schedule_len(diam, blur, scaling)
+    eps0 = _eps_at(0, diam, blur, scaling, n_iters)
+    f = damping(eps0) * _softmin(eps0, c_xy, lb)
+    g = damping(eps0) * _softmin(eps0, c_yx, la)
+    n_cap = min(int(n_iters.max()), max_iters)
+    for i in range(n_cap):
+        eps = _eps_at(i, diam, blur, scaling, n_iters)
+        ft = damping(eps) * _softmin(eps, c_xy, lb + g / eps[:, None])
+        gt = damping(eps) * _softmin(eps, c_yx, la + f / eps[:, None])
+        live = (i < n_iters)[:, None]
+        f = torch.where(live, 0.5 * (f + ft), f)
+        g = torch.where(live, 0.5 * (g + gt), g)
+    return f, g
 
 
 def sinkhorn_cost(a, f, b, g, blur: float = 0.05,

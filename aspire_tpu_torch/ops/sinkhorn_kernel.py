@@ -3,15 +3,19 @@
 Replaces the TPU kernel ``aspire_tpu/ops/pallas_sinkhorn.py:_sinkhorn_kernel``
 (entry point ``sinkhorn_potentials_pallas``): forward-only batched balanced
 log-domain Sinkhorn with a per-pair eps schedule.  The CUDA source is
-``csrc/sinkhorn.cu``: one warp per pair, the cost matrix in shared memory,
-each lane's atoms in registers, the whole annealing loop on chip -- one read
-of the cost, one write of the potentials.  It takes up to 1024 atoms a side
-whose pair fits one block's shared memory (`kernel_takes`: 239 x 239 does,
-240 x 240 does not).  The work is a chain of dependent exp/log rounds on a
-few hundred values per pair, so the card's special-function rate bounds it,
-not its memory: the design keeps every intermediate out of device memory and
-lets each pair stop after its own schedule length, which also removes the
-host-side read of the batch maximum that the TPU version needs.
+``csrc/sinkhorn.cu``; the whole annealing loop runs on chip -- one read of the
+cost, one write of the potentials -- and each pair stops after its own
+schedule length, which also removes the host-side read of the batch maximum
+that the TPU version needs.  The loop is a chain of about 85 dependent rounds,
+so at small batches its latency bounds it, not the card's rate: pairs of up
+to 32 x 32 run one block a pair with four threads a softmin, the cost in
+registers and base-2 exponentials; wider pairs (up to 1024 atoms a side, while
+the pair fits one block's shared memory: `kernel_takes`, 239 x 239 does,
+240 x 240 does not) run one warp a pair with the cost in shared memory.
+
+``extrapolate=False`` returns the loop's own potentials, before the final
+step at eps = blur: the training loss takes that step in PyTorch, where
+gradients flow (`ops.sinkhorn.sinkhorn_potentials(loop="kernel")`).
 """
 from __future__ import annotations
 
@@ -25,14 +29,18 @@ from .sinkhorn import log_weights, resolve_diameter
 
 MAX_SMEM = 232_448   # shared memory of one block on the H100, bytes
 MAX_SIDE = 1024      # atoms a side: 32 lanes x at most 32 atoms in registers
+SMALL_SIDE = 32      # pairs up to 32 x 32 keep the cost in registers
+TABLE = 128          # rounds whose eps the small-pair kernel tabulates
 
 
 def pair_bytes(n: int, m: int) -> int:
-    """Shared memory the kernel keeps for one n x m pair: the cost with an
-    odd row pitch (33 up to 32 atoms a side, else m | 1), and one float an
+    """Shared memory the kernel keeps for one n x m pair: up to 32 atoms a
+    side two buffers of h (32 floats a side each) and eps and 1/eps of 128
+    rounds; above, the cost with an odd row pitch (m | 1) and one float an
     atom of either side."""
-    pitch = 33 if max(n, m) <= 32 else m | 1
-    return 4 * (n * pitch + n + m)
+    if max(n, m) <= SMALL_SIDE:
+        return 4 * (2 * 2 * SMALL_SIDE + 2 * TABLE)
+    return 4 * (n * (m | 1) + n + m)
 
 
 def kernel_takes(n: int, m: int) -> bool:
@@ -41,11 +49,14 @@ def kernel_takes(n: int, m: int) -> bool:
 
 
 def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
-                         scaling: float = 0.9, max_iters: int = 128):
-    """Plain PyTorch version of the kernel, same arithmetic order.
+                         scaling: float = 0.9, max_iters: int = 128,
+                         extrapolate: bool = True):
+    """Plain PyTorch version of the kernel, same arithmetic order (it
+    multiplies by 1 / eps and takes eps from exp(k log s)).
 
     cost f32[B, n, m], log_a f32[B, n], log_b f32[B, m], diam f32[B]
-    -> (f [B, n], g [B, m]).
+    -> (f [B, n], g [B, m]): after the final step at eps = blur, or with
+    extrapolate=False the annealing loop's own potentials.
     """
     log_s = math.log(scaling)
     ratio = torch.log(blur / torch.clamp_min(diam, 1e-30)) / log_s
@@ -77,26 +88,29 @@ def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
         live = (i < lane_iters)[:, None]
         f, g = (torch.where(live, 0.5 * (f + ft), f),
                 torch.where(live, 0.5 * (g + gt), g))
+    if not extrapolate:
+        return f, g
     ce = cost * (1.0 / blur)
     return (softmin_m(blur, ce, log_b + g / blur),
             softmin_n(blur, ce, log_a + f / blur))
 
 
 def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
-                   scaling: float = 0.9, max_iters: int = 128):
+                   scaling: float = 0.9, max_iters: int = 128,
+                   extrapolate: bool = True):
     """The kernel's wrapper: CUDA tensors launch it, CPU tensors run the
     plain version.  Same arguments and results as `sinkhorn_solve_plain`."""
+    bsz, n, m = cost.shape
+    if log_a.shape != (bsz, n) or log_b.shape != (bsz, m) or diam.shape != (bsz,):
+        raise ValueError("log_a, log_b, diam must be [B, n], [B, m], [B]")
     if not cost.is_cuda:
         return sinkhorn_solve_plain(cost, log_a, log_b, diam, blur, scaling,
-                                    max_iters)
-    bsz, n, m = cost.shape
+                                    max_iters, extrapolate)
     if not kernel_takes(n, m):
         raise ValueError(f"the Sinkhorn kernel takes up to {MAX_SIDE} atoms a "
                          f"side whose pair fits one block's shared memory "
                          f"({MAX_SMEM} bytes); {n} x {m} needs "
                          f"{pair_bytes(n, m)}")
-    if log_a.shape != (bsz, n) or log_b.shape != (bsz, m) or diam.shape != (bsz,):
-        raise ValueError("log_a, log_b, diam must be [B, n], [B, m], [B]")
     args = [t.detach().float().contiguous() for t in (cost, log_a, log_b, diam)]
     if any(t.device != cost.device for t in args):
         raise ValueError("all inputs must lie on the same device")
@@ -109,7 +123,7 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
         err = lib.aspire_sinkhorn_f32(
             *(t.data_ptr() for t in args), f.data_ptr(), g.data_ptr(),
             bsz, n, m, float(blur), math.log(scaling), int(max_iters),
-            torch.cuda.current_stream().cuda_stream)
+            int(extrapolate), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "aspire_sinkhorn_f32")
     sinkhorn_solve.launches += 1
     return f, g

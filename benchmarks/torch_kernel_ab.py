@@ -26,8 +26,11 @@ FFN reading (`--ffn`) is the no-grad FFN at 4096 and 16384 rows of 768 -> 3072
 -> 768 in bf16 and at 4096 rows in f32, through the entry the checkout's model
 calls (`fused_ffn_linear` on [out, in] weights where the checkout has it, else
 `fused_ffn` on [in, out] ones), with its device milliseconds by kernel.  The
-Sinkhorn reading (`--sinkhorn`) is K1 on the serving request's 20 x 20 pairs at
-B = 16 and 1024 (f32).  The pooling reading (`--pool`) is the kernel alone
+Sinkhorn reading (`--sinkhorn`) is K1 (f32) on 20 x 20 pairs at B = 16 (a
+request), 30 with grouped diameters (a training step's micro batches of 3),
+1024 and 2048 (a fused batch of 32 queries at k = 64), and at 48 x 40 and
+100 x 100, each after the final step and in the loop-only mode the training
+loss uses (a checkout without that mode prints that it refuses it).  The pooling reading (`--pool`) is the kernel alone
 (`sentence_sums`) at the encode shape [64, 256, 768] in bf16 and f32 with 20
 sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
 which the first kernel refused (a checkout that refuses a shape prints its
@@ -54,7 +57,9 @@ import sys
 SHAPES = ((16, 12, 256, 64), (4, 12, 512, 64), (30, 12, 512, 64))
 DROPOUT_SHAPES = ((30, 12, 512, 64), (16, 12, 256, 64))
 FFN_CASES = ((4096, "bfloat16"), (16384, "bfloat16"), (4096, "float32"))
-SINKHORN_BATCHES = (16, 1024)
+SINKHORN_CASES = ((16, 20, 20, "global"), (30, 20, 20, "grouped"),
+                  (1024, 20, 20, "global"), (2048, 20, 20, "pair"),
+                  (16, 48, 40, "pair"), (16, 100, 100, "pair"))
 BWD_CASES = (((30, 12, 512, 64), 0.1), ((30, 12, 512, 64), 0.0),
              ((16, 12, 256, 64), 0.1), ((16, 12, 256, 64), 0.0))
 
@@ -113,16 +118,29 @@ def measure_ffn() -> None:
 
 
 def measure_sinkhorn() -> None:
+    import inspect
     import torch
     import chip_smoke                   # the checkout's own, on sys.path
+    from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
     from aspire_tpu_torch.ops.sinkhorn_kernel import sinkhorn_solve
     dev = torch.device("cuda", 0)
-    for bsz in SINKHORN_BATCHES:
-        *_, cost, la, lb, diam, _, _ = chip_smoke.sinkhorn_inputs(bsz, 7 + bsz, "global", dev)
-        fn = lambda: sinkhorn_solve(cost, la, lb, diam)
-        print(json.dumps({"batch": bsz, "pairs": "20x20", "dtype": "float32",
-                          "kernel": "sinkhorn", **_median_ms(fn),
-                          "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+    has_loop_only = "extrapolate" in inspect.signature(sinkhorn_solve).parameters
+    for bsz, n, m, diameter in SINKHORN_CASES:
+        q, c, cost, la, lb, diam, _, _ = chip_smoke.sinkhorn_inputs(
+            bsz, 7 + bsz + n + m, "pair" if diameter == "grouped" else diameter,
+            dev, n, m)
+        if diameter == "grouped":
+            diam = grouped_max_diameter(q.embed, c.embed, bsz // 3)
+        for mode in ("extrapolated", "loop_only"):
+            row = {"batch": bsz, "pairs": f"{n}x{m}", "diameter": diameter,
+                   "mode": mode, "dtype": "float32", "kernel": "sinkhorn"}
+            if mode == "loop_only" and not has_loop_only:
+                print(json.dumps({**row, "refused": "no loop-only mode"}), flush=True)
+                continue
+            kw = {} if mode == "extrapolated" else {"extrapolate": False}
+            fn = lambda: sinkhorn_solve(cost, la, lb, diam, **kw)
+            print(json.dumps({**row, **_median_ms(fn),
+                              "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
 
 
 POOL_CASES = ((64, 256, 768, 20, "bfloat16"), (64, 256, 768, 20, "float32"),

@@ -33,7 +33,7 @@ import chip_smoke  # noqa: E402  (the request and weight generators)
 
 
 CLASSES = (
-    ("sinkhorn (K1)", ("sinkhorn_kernel",)),
+    ("sinkhorn (K1)", ("sinkhorn_",)),
     ("attention (K2)", ("attention_bf16_kernel", "attention_f32_kernel")),
     ("ffn (K3)", ("ffn_bf16_kernel", "ffn_f32_kernel")),
     ("pool (K4)", ("pool_kernel",)),

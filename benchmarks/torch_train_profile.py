@@ -14,8 +14,9 @@ one wide encode a side) and prints, one JSON object a line:
             port's own attention and dropout kernels, the cuBLAS products,
             everything else);
   phases    one more step taken apart under the profiler with a synchronise
-            after each phase: the two wide encodes, the group losses (the plain
-            Sinkhorn solver's small ops), the backward, the optimizer --
+            after each phase: the two wide encodes, the group losses (the OT
+            distances: on the card one K1 launch each for the annealing loop,
+            then the final step's small ops), the backward, the optimizer --
             host milliseconds, device busy milliseconds and kernels launched;
   kernel    the device kernels of the profiled steps by total time.
 
@@ -41,6 +42,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the model, weight and batch generators)
 
 CLASSES = (
+    ("sinkhorn (K1)", ("sinkhorn_",)),
     ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_f32_kernel")),
     ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_")),
     ("dropout (K6)", ("dropout_kernel",)),

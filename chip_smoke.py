@@ -15,7 +15,9 @@ Phases, one JSON object a line:
   build    nvcc builds aspire_tpu_torch/csrc/*.cu into one shared library;
   kernels  each CUDA kernel against its plain PyTorch version on the card, at
            the shapes the serving and training paths give it and a few more
-           (Sinkhorn pairs past 32 atoms, heads of 32 and 8 columns padded to
+           (Sinkhorn pairs past 32 atoms, each Sinkhorn case in both modes --
+           after the final step, and the loop's own potentials as the
+           training loss takes them -- heads of 32 and 8 columns padded to
            64, FFN widths other than 768 padded to multiples of 64), with
            times; the dropout kernels with the bits given and with the bits
            made in the kernel (masks equal to ops/philox.py's); then
@@ -45,8 +47,10 @@ Phases, one JSON object a line:
   train    full-width BERT-base ts+otAspire model (sbalisentbienc, bf16 over
            f32 parameters, weights from a numpy seed): the first step's loss
            and gradient norms through the kernels against the plain path fed
-           the same Philox masks (the same model, superbatch and seed as the
-           step that follows); then Trainer.train for four
+           the same Philox masks and built on the plain Sinkhorn loop (the
+           same model, superbatch and seed as the step that follows; the
+           kernel path runs the loop as one K1 launch a distance, two a
+           step); then Trainer.train for four
            optimizer steps on superbatches [10, 3, 512] with one wide encode
            a side, a dev-loss check on a batch with explicit negatives, the
            checkpoint restored into a fresh model, the full state saved,
@@ -229,11 +233,14 @@ def phase_build() -> None:
 def sinkhorn_inputs(bsz: int, seed: int, diameter: str, dev, n: int = 20, m: int = 20):
     """The scoring shape of the pair bench: 20 x 20 sentences, 768-d, lens
     4..20, temp 5000 (or n x m sentences, lens from a fifth of the side up)
-    -> (cost, log_a, log_b, diam, a, b)."""
+    -> (q, c, cost, log_a, log_b, diam, a, b).  diameter 'grouped': each
+    group of 3 pairs anneals from its own diameter, as the training step's
+    micro batches of 3 do (`grouped_max_diameter`)."""
     from aspire_tpu_torch.core.types import MultiVec
     from aspire_tpu_torch.ops.cdist import pairwise_l2
     from aspire_tpu_torch.ops.distances import ot_marginals
-    from aspire_tpu_torch.ops.sinkhorn import log_weights, resolve_diameter
+    from aspire_tpu_torch.ops.sinkhorn import (grouped_max_diameter, log_weights,
+                                               resolve_diameter)
     rng = np.random.default_rng(seed)
     d = 768
 
@@ -247,15 +254,20 @@ def sinkhorn_inputs(bsz: int, seed: int, diameter: str, dev, n: int = 20, m: int
     q, c = side(n), side(m)
     cost = pairwise_l2(q.embed, c.embed)
     a, b, _ = ot_marginals(q, c, temp=5000.0, cost=cost)
-    diam = resolve_diameter(q.embed, c.embed, a, b, diameter, None).contiguous()
+    if diameter == "grouped":
+        diam = grouped_max_diameter(q.embed, c.embed, bsz // 3)
+    else:
+        diam = resolve_diameter(q.embed, c.embed, a, b, diameter, None).contiguous()
     return q, c, cost, log_weights(a), log_weights(b), diam, a, b
 
 
-def sinkhorn_bound(cost, diam, blur=0.05, scaling=0.9, max_iters=128) -> dict:
+def sinkhorn_bound(cost, diam, blur=0.05, scaling=0.9, max_iters=128,
+                   extrapolate=True) -> dict:
     bsz, n, m = cost.shape
     ratio = torch.log(blur / diam.clamp_min(1e-30)) / math.log(scaling)
     iters = (torch.ceil(ratio.clamp_min(0.0)) + 2.0).clamp_max(max_iters)
-    rounds = float((iters + 2.0).sum())         # + the init and the final step
+    # + the first round and, when extrapolating, the final step
+    rounds = float((iters + 1.0 + extrapolate).sum())
     calls = rounds * (2 * n * m + n + m)        # exp per cell twice, log per atom
     moved = 4.0 * (bsz * n * m + 2 * bsz * (n + m) + bsz)
     out = bound(moved, calls, PEAK_SFU)
@@ -264,32 +276,54 @@ def sinkhorn_bound(cost, diam, blur=0.05, scaling=0.9, max_iters=128) -> dict:
 
 
 def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dict:
+    """K1 in both modes against its plain version: after the final step (the
+    serving and query paths) and the loop's own potentials (extrapolate=False,
+    the training loss); for the first, also the scores and plans of
+    `wasserstein_dist` through the kernel against the PyTorch solver, and for
+    the second the training distance through solver 'auto' against 'torch'."""
     from aspire_tpu_torch.ops import sinkhorn_kernel as sk
     from aspire_tpu_torch.ops.distances import wasserstein_dist
     q, c, cost, la, lb, diam, a, b = sinkhorn_inputs(bsz, 7 + bsz + n + m, diameter,
                                                      dev, n, m)
-    f, g = sk.sinkhorn_solve(cost, la, lb, diam)
-    torch.cuda.synchronize()
-    fp, gp = sk.sinkhorn_solve_plain(cost, la, lb, diam)
     # potentials mean something only at atoms with mass; f32 on both sides,
     # other summation order and exp/log routines over ~70 compounding rounds
     tol = dict(atol=1e-3, rtol=1e-3)
-    res = check_close("sinkhorn f", f, fp, mask=a > 0, **tol)
-    res_g = check_close("sinkhorn g", g, gp, mask=b > 0, **tol)
-    res = {k: max(res[k], res_g[k]) for k in res}
-    kw = dict(temp=5000.0, return_pair_sims=True, diameter=diameter)
+    modes = {}
+    for extrapolate in (True, False):
+        f, g = sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=extrapolate)
+        torch.cuda.synchronize()
+        fp, gp = sk.sinkhorn_solve_plain(cost, la, lb, diam, extrapolate=extrapolate)
+        res = check_close("sinkhorn f", f, fp, mask=a > 0, **tol)
+        res_g = check_close("sinkhorn g", g, gp, mask=b > 0, **tol)
+        modes[extrapolate] = {k: max(res[k], res_g[k]) for k in res}
+    res = modes[True]
+    dkw = (dict(diameter_value=diam) if diameter == "grouped"
+           else dict(diameter=diameter))
+    kw = dict(temp=5000.0, return_pair_sims=True, **dkw)
     sims_k, (_, _, _, plan_k, _) = wasserstein_dist(q, c, solver="kernel", **kw)
     sims_t, (_, _, _, plan_t, _) = wasserstein_dist(q, c, solver="torch", **kw)
     sims = check_close("sinkhorn sims", sims_k, sims_t, atol=2e-3, rtol=2e-3)
     plan = check_close("sinkhorn plan", plan_k, plan_t, atol=2e-3, rtol=0.0)
+    before = sk.sinkhorn_solve.launches
+    dist_a = wasserstein_dist(q, c, temp=5000.0, **dkw)
+    if sk.sinkhorn_solve.launches != before + 1:
+        raise AssertionError("wasserstein_dist(solver='auto') launched "
+                             f"{sk.sinkhorn_solve.launches - before} K1 kernels")
+    dist_t = wasserstein_dist(q, c, temp=5000.0, solver="torch", **dkw)
+    dist = check_close("sinkhorn auto distance", dist_a, dist_t, atol=2e-3, rtol=2e-3)
     res.update(sims_max_abs_err=sims["max_abs_err"],
-               plan_max_abs_err=plan["max_abs_err"])
+               plan_max_abs_err=plan["max_abs_err"],
+               auto_distance_max_abs_err=dist["max_abs_err"])
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
+    t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
     res.update(case=f"B={bsz} n={n} m={m} f32 diameter={diameter}",
                kernel_ms=t_k, plain_ms=t_p, library_ms=None,
                pairs_per_s=bsz / t_k["median"] * 1e3,
-               **sinkhorn_bound(cost, diam))
+               **sinkhorn_bound(cost, diam),
+               loop_only={**modes[False], "kernel_ms": t_l,
+                          "bound_ms": sinkhorn_bound(cost, diam, extrapolate=False)[
+                              "bound_ms"]})
     return res
 
 
@@ -821,10 +855,14 @@ def phase_kernels(dev) -> dict:
     the training path's dev check gives the deterministic kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
+        # a request's 16 pairs, a training step's 30 (groups of 3), a fused
+        # batch of 32 queries at k=64
         "sinkhorn": [case_sinkhorn(16, "global", dev),
+                     case_sinkhorn(30, "grouped", dev),
                      case_sinkhorn(50, "global", dev),
                      case_sinkhorn(1024, "global", dev),
                      case_sinkhorn(1024, "pair", dev),
+                     case_sinkhorn(2048, "pair", dev),
                      case_sinkhorn(16, "pair", dev, 48, 40),
                      case_sinkhorn(16, "pair", dev, 100, 100)],
         "attention": [case_attention(16, 12, 256, 64, bf16, dev),
@@ -1152,11 +1190,13 @@ def synth_superbatch(seed: int, n_micro: int, micro: int, seq: int, smax: int,
     return out
 
 
-TRAIN_COUNTERS = ("attention_dropout", "attention_bwd", "dropout")
+TRAIN_COUNTERS = ("attention_dropout", "attention_bwd", "dropout", "sinkhorn")
 
 
 def flagship(cfg, dev, impl: str = "auto"):
-    """The ts+otAspire training configuration on `cfg`, weights from seed 0."""
+    """The ts+otAspire training configuration on `cfg`, weights from seed 0;
+    impl 'naive' builds the plain path (naive attention, dropout and FFN, the
+    Sinkhorn loop as PyTorch rounds)."""
     from aspire_tpu_torch.core.config import ModelHParams
     from aspire_tpu_torch.models.convert import model_state_dict_from_flax_params
     from aspire_tpu_torch.models.doc_models import build_model
@@ -1165,7 +1205,8 @@ def flagship(cfg, dev, impl: str = "auto"):
                       sent_loss_prop=1.0, sentsup_loss_prop=1.0,
                       max_seq_len=512, max_sents=20, attention_impl=impl,
                       hidden_dropout_impl=impl, ffn_impl=impl)
-    model = build_model(hp, cfg, dtype=torch.bfloat16, device=dev)
+    model = build_model(hp, cfg, dtype=torch.bfloat16, device=dev,
+                        ot_solver="torch" if impl == "naive" else "auto")
     model.load_state_dict(model_state_dict_from_flax_params(
         random_flax_tree(cfg, seed=0), hp.model_name, cfg))
     return hp, model
@@ -1183,7 +1224,8 @@ def _group_norms(model) -> dict:
 def kernel_against_plain_step(cfg, dev, superbatch, seed: int) -> dict:
     """The main path's first step (its model, superbatch and generator seed):
     loss and gradients through the kernels and through the plain path (naive
-    attention, dropout and FFN) fed the same Philox masks.  The plain path
+    attention, dropout and FFN, the plain Sinkhorn loop) fed the same Philox
+    masks.  The plain path
     keeps [30, 12, 512, 512] scores, probabilities and masks of every layer
     for its backward."""
     from aspire_tpu_torch.train.trainer import tree_to_device as _to
@@ -1263,18 +1305,20 @@ def phase_train(dev, layers: int) -> dict:
         per_step = [{k: b_[k] - a_[k] for k in a_}
                     for a_, b_ in zip(counts[:-1], counts[1:])]
         # two encodes a step; a bf16 backward is three launches (delta, keys,
-        # dq); 25 dropout sites at 12 layers, forward and backward
+        # dq); 25 dropout sites at 12 layers, forward and backward; the
+        # positive and the negative OT distance, one K1 annealing loop each
         want = {"attention_dropout": 2 * layers, "attention_bwd": 2 * 3 * layers,
-                "dropout": 2 * 2 * (1 + 2 * layers)}
+                "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2}
+        # the dev check came after step 4: three deterministic encodes and
+        # its own two distances
+        dev_want = {"attention": 3 * layers, "ffn": 2 * 3 * layers, "sinkhorn": 2}
         for i, got in enumerate(per_step):
-            if {k: got[k] for k in want} != want:
+            with_dev = dev_want if i == 3 else {}
+            expect = {k: want.get(k, 0) + with_dev.get(k, 0)
+                      for k in (*want, *dev_want)}
+            if {k: got[k] for k in expect} != expect:
                 raise AssertionError(f"train: step {i} launched {got}, "
-                                     f"expected {want}")
-        # the dev check came after step 4: three deterministic encodes
-        dev_want = {"attention": 3 * layers, "ffn": 2 * 3 * layers}
-        if {k: per_step[3][k] for k in dev_want} != dev_want \
-                or any(got["attention"] or got["ffn"] for got in per_step[:3]):
-            raise AssertionError(f"train: dev check launched {per_step}")
+                                     f"expected {expect}")
         if state.step != 4 or len(trainer.dev_score_history) != 1:
             raise AssertionError(f"train: step {state.step}, dev checks "
                                  f"{trainer.dev_score_history}")
@@ -1334,7 +1378,8 @@ def phase_train(dev, layers: int) -> dict:
         seq_ms = (time.perf_counter() - t0) * 1e3
     seq_counts = {k: read_counts()[k] - base[k] for k in TRAIN_COUNTERS}
     seq_want = {"attention_dropout": 10 * 2 * 2,
-                "attention_bwd": 10 * 2 * 2 * 3, "dropout": 10 * 2 * 2 * 5}
+                "attention_bwd": 10 * 2 * 2 * 3, "dropout": 10 * 2 * 2 * 5,
+                "sinkhorn": 10 * 2}
     if seq_counts != seq_want or state3.step != 1 \
             or not bool(torch.isfinite(seq_losses).all()):
         raise AssertionError(f"train: sequential path launched {seq_counts}, "
@@ -1824,8 +1869,8 @@ KERNELS = [
 # is driven and read just after)
 PATH_KERNELS = {
     "serve": ("sinkhorn", "attention", "ffn", "pool"),
-    "train": ("attention", "ffn", "attention_dropout", "attention_bwd",
-              "dropout", "pool"),
+    "train": ("sinkhorn", "attention", "ffn", "attention_dropout",
+              "attention_bwd", "dropout", "pool"),
     "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8",
               "scan_int8_wide"),
 }

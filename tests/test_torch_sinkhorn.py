@@ -178,8 +178,11 @@ def test_kernel_plain_version_past_32_atoms_matches_pallas_interpret(rng, n, m):
 
 def test_what_the_cuda_wrapper_takes():
     """Up to 1024 atoms a side (registers), a pair within one block's shared
-    memory (the cost with an odd pitch and two rows of potentials)."""
-    assert pair_bytes(20, 20) == 4 * (20 * 33 + 40)
+    memory (past 32 atoms a side the cost with an odd pitch and two rows of
+    potentials; up to 32 the cost lies in registers and shared memory holds
+    two buffers of the 32 + 32 values of h and a table of 128 rounds' eps and
+    1/eps)."""
+    assert pair_bytes(20, 20) == pair_bytes(32, 1) == 4 * (2 * (32 + 32) + 2 * 128)
     assert pair_bytes(48, 40) == 4 * (48 * 41 + 88)
     assert kernel_takes(32, 32) and kernel_takes(48, 40) and kernel_takes(100, 100)
     assert kernel_takes(239, 239) and not kernel_takes(240, 240)
