@@ -6,7 +6,10 @@ framework:
 
   * the Flax parameter tree of the JAX package as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)`` on the caller's side);
-  * a Hugging Face BERT ``state_dict`` (tensor name -> tensor or ndarray).
+  * a Hugging Face BERT ``state_dict`` (tensor name -> tensor or ndarray),
+    or a whole local HF model directory read without `transformers`
+    (`load_hf_dir`: config.json, pytorch_model.bin or model.safetensors,
+    vocab.txt and tokenizer_config.json).
 
 The port's parameter names follow the Flax tree, so the first bridge is a
 rename plus a transpose: dense ``kernel`` [in, out] -> ``weight`` [out, in],
@@ -19,10 +22,16 @@ handed to the JAX model and compared.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import pathlib
+import types
+
 import numpy as np
 import torch
 
-from .bert import BertConfig
+from ..core.types import require_device
+from .bert import BertConfig, BertModel
 
 _LEAF_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -193,3 +202,111 @@ def state_dict_from_hf_model(hf_model, config: BertConfig | None = None,
     if config is None:
         config = config_from_hf(hf_model.config)
     return state_dict_from_hf_state_dict(hf_model.state_dict(), config, prefix)
+
+
+# safetensors dtype names -> numpy dtypes (BF16 is widened by hand)
+_SAFETENSORS_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+                       "I64": np.int64, "I32": np.int32, "I16": np.int16,
+                       "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def read_safetensors(path) -> dict:
+    """A ``.safetensors`` file as name -> float32/int numpy array, parsed by
+    hand: an 8-byte little-endian header length, a JSON header of
+    {name: {dtype, shape, data_offsets}}, then the raw little-endian data."""
+    raw = pathlib.Path(path).read_bytes()
+    n = int.from_bytes(raw[:8], "little")
+    header = json.loads(raw[8:8 + n])
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        buf = raw[base + begin:base + end]
+        shape = tuple(info["shape"])
+        if info["dtype"] == "BF16":
+            bits = np.frombuffer(buf, "<u2").astype(np.uint32) << np.uint32(16)
+            arr = bits.view(np.float32)
+        elif info["dtype"] in _SAFETENSORS_DTYPES:
+            arr = np.frombuffer(buf, np.dtype(_SAFETENSORS_DTYPES[info["dtype"]])
+                                .newbyteorder("<"))
+        else:
+            raise ValueError(f"{path}: tensor {name} has dtype "
+                             f"{info['dtype']}, which is not read here")
+        out[name] = arr.reshape(shape).copy()
+    return out
+
+
+def read_hf_config(path) -> dict:
+    """config.json of a local HF model directory, as a dict."""
+    with open(pathlib.Path(path) / "config.json") as f:
+        return json.load(f)
+
+
+def _hf_weights(path: pathlib.Path) -> dict:
+    """The directory's weights (model.safetensors first, as HF prefers it,
+    else pytorch_model.bin), with the old LayerNorm names gamma/beta
+    renamed to weight/bias as `from_pretrained` renames them."""
+    if (path / "model.safetensors").exists():
+        sd = read_safetensors(path / "model.safetensors")
+    elif (path / "pytorch_model.bin").exists():
+        sd = torch.load(path / "pytorch_model.bin", map_location="cpu",
+                        weights_only=True)
+    else:
+        raise FileNotFoundError(f"{path} holds neither model.safetensors nor "
+                                "pytorch_model.bin")
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("LayerNorm.gamma"):
+            k = k[:-len("gamma")] + "weight"
+        elif k.endswith("LayerNorm.beta"):
+            k = k[:-len("beta")] + "bias"
+        out[k] = v
+    return out
+
+
+@dataclasses.dataclass
+class HFDir:
+    """A local HF BERT model directory, read without `transformers`."""
+
+    config: BertConfig
+    hf_state_dict: dict          # the file's tensors, HF names, on the CPU
+    tokenizer: object            # text.fast.FastWordPiece
+    device: torch.device
+
+    def bert_state_dict(self, prefix: str = "") -> dict:
+        """The port's BertModel state_dict (`prefix` before every name:
+        "bert." for the encoders that hold the model as ``self.bert``)."""
+        return state_dict_from_hf_state_dict(self.hf_state_dict, self.config,
+                                             prefix)
+
+    def pooler_state_dict(self) -> dict | None:
+        return pooler_state_dict_from_hf_state_dict(self.hf_state_dict)
+
+    def bert_model(self) -> BertModel:
+        """An f32 BertModel on the directory's device in eval mode, its
+        weights loaded."""
+        model = BertModel(self.config, device=self.device)
+        model.load_state_dict(self.bert_state_dict())
+        return model.eval()
+
+
+def load_hf_dir(path, device="cuda") -> HFDir:
+    """Read a local HF BERT directory as AutoModel / AutoTokenizer
+    `from_pretrained` would: config.json -> BertConfig, the weights from
+    model.safetensors or pytorch_model.bin (with or without a "bert."
+    prefix, with or without a pooler), vocab.txt + tokenizer_config.json ->
+    the port's FastWordPiece.  `device`: where the modules built from it go
+    (a CUDA request without CUDA raises here)."""
+    from ..text.fast import FastWordPiece
+    dev = require_device(device)
+    path = pathlib.Path(path)
+    raw = read_hf_config(path)
+    if raw.get("model_type", "bert") != "bert":
+        raise ValueError(f"{path} holds a {raw['model_type']!r} model; the "
+                         "port encodes BERT checkpoints only")
+    config = config_from_hf(types.SimpleNamespace(**{
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12, **raw}))
+    return HFDir(config=config, hf_state_dict=_hf_weights(path),
+                 tokenizer=FastWordPiece.from_dir(str(path)), device=dev)

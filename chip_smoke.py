@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving, training and index paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving, training, index and evaluation paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
     python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
     python3 chip_smoke.py --phases index --index-docs 20000   # the index path alone
     python3 chip_smoke.py --phases kernels   # every kernel against its plain version, alone
+    python3 chip_smoke.py --phases eval      # the CLI's evaluate and train alone
 
-Phases run in the order device, build, kernels, serve, train, index.
+Phases run in the order device, build, kernels, serve, train, index, eval.
 
 Phases, one JSON object a line:
 
@@ -55,7 +56,23 @@ Phases, one JSON object a line:
            a side, a dev-loss check on a batch with explicit negatives, the
            checkpoint restored into a fresh model, the full state saved,
            restored and one more step taken; then one step of the sequential
-           accumulation path at two layers.
+           accumulation path at two layers;
+  eval     the user's entry points, aspire_tpu_torch.cli.main in this
+           process, at BERT-base width: a Hugging Face BERT directory written
+           from a numpy seed (30,522-entry vocab.txt, tokenizer_config.json,
+           random weights in pytorch_model.bin) and a dataset in CSFCube's
+           layout (the real fold query ids, 16-17 a facet, pools of 120 from
+           2,000 abstracts of 3-20 sentences; five near copies of each query
+           are its relevant candidates).  First the kernels at the
+           evaluation's shapes (K2 and K3 in f32 at 8 x 512 tokens, K4, K1 at
+           256 pairs of 24 x 24).  Then `evaluate --ot-solver pallas` (f32
+           encode through K2, K3, K4; one K1 launch a query) over the three
+           facets and 'all', held to MAP >= 0.9; the same with `--ot-solver
+           xla` (the plain loop), score by score; the plain encoder route on
+           64 abstracts against the kernel route; `train` from a jsonl of
+           triples (sbalisentbienc, micro 3, accumulation 6, 12 examples: two
+           steps, seq 512, bf16, --init-hf-dir); `evaluate --model otaspire
+           --run-dir` on that run.
 
 Any failed check raises: the run then prints {"ok": false, ...} and exits
 with code 1.  Without CUDA it exits with code 1 before printing any result.
@@ -1840,6 +1857,438 @@ def phase_index(dev, layers: int, encode_docs: int, index_docs: int) -> tuple:
     return cases, launches
 
 
+# ----------------------------------------------------------------------- eval
+FACET_LABELS = ("background_label", "objective_label", "method_label",
+                "result_label")
+
+
+def eval_vocab(size: int = 30522) -> list:
+    """A vocab.txt of BERT-base's size: the five special tokens, punctuation,
+    20,000 generated lower-case words of two and three syllables, then '##'
+    pieces of one to three syllables."""
+    syl = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    two = [a + b for a in syl for b in syl]
+    three = [a + b + c for a in syl for b in syl for c in syl]
+    words = two + three[:20_000 - len(two)]
+    pieces = ["##" + p for p in syl + two + three[len(three) // 2:]]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",", "(", ")",
+             "-"] + words + pieces
+    return vocab[:size]
+
+
+def random_hf_state_dict(cfg, seed: int) -> dict:
+    """BertModel weights under Hugging Face's names (pooler included), from a
+    numpy seed: N(0, 0.02), LayerNorm scales 1 + N(0, 0.02)."""
+    rng = np.random.default_rng(seed)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+
+    def t(*shape, base=0.0):
+        return torch.from_numpy(
+            (base + rng.standard_normal(shape) * 0.02).astype(np.float32))
+
+    sd = {"embeddings.word_embeddings.weight": t(cfg.vocab_size, h),
+          "embeddings.position_embeddings.weight": t(cfg.max_position_embeddings, h),
+          "embeddings.token_type_embeddings.weight": t(cfg.type_vocab_size, h),
+          "embeddings.LayerNorm.weight": t(h, base=1.0),
+          "embeddings.LayerNorm.bias": t(h)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (("attention.self.query", (h, h)),
+                                    ("attention.self.key", (h, h)),
+                                    ("attention.self.value", (h, h)),
+                                    ("attention.output.dense", (h, h)),
+                                    ("intermediate.dense", (f, h)),
+                                    ("output.dense", (h, f))):
+            sd[p + name + ".weight"] = t(n_out, n_in)
+            sd[p + name + ".bias"] = t(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"] = t(h, base=1.0)
+            sd[p + name + ".bias"] = t(h)
+    sd["pooler.dense.weight"] = t(h, h)
+    sd["pooler.dense.bias"] = t(h)
+    return sd
+
+
+def write_hf_dir(path: str, cfg, vocab: list, seed: int) -> None:
+    """config.json, vocab.txt, tokenizer_config.json and pytorch_model.bin of
+    a BERT checkpoint, as `save_pretrained` lays them out."""
+    import os
+    os.makedirs(path, exist_ok=True)
+    with open(f"{path}/config.json", "w") as f:
+        json.dump({"architectures": ["BertModel"], "model_type": "bert",
+                   "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "num_hidden_layers": cfg.num_hidden_layers,
+                   "num_attention_heads": cfg.num_attention_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "type_vocab_size": cfg.type_vocab_size,
+                   "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu",
+                   "hidden_dropout_prob": 0.1,
+                   "attention_probs_dropout_prob": 0.1}, f)
+    with open(f"{path}/vocab.txt", "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(f"{path}/tokenizer_config.json", "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True}, f)
+    torch.save(random_hf_state_dict(cfg, seed), f"{path}/pytorch_model.bin")
+
+
+class TextGen:
+    """Sentences of 8 to 25 of the vocab's whole words (now and then with a
+    one-syllable piece stuck on, a comma or brackets), from a numpy seed."""
+
+    def __init__(self, vocab: list, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.words = [w for w in vocab[10:] if not w.startswith("##")]
+        self.suffixes = [w[2:] for w in vocab if w.startswith("##")][:70]
+
+    def word(self) -> str:
+        w = self.words[int(self.rng.integers(len(self.words)))]
+        if self.rng.random() < 0.1:
+            w += self.suffixes[int(self.rng.integers(len(self.suffixes)))]
+        return w
+
+    def sentence(self) -> str:
+        n = int(self.rng.integers(8, 26))
+        ws = [self.word() for _ in range(n)]
+        if self.rng.random() < 0.3:
+            ws[int(self.rng.integers(1, n))] += ","
+        if self.rng.random() < 0.1:
+            ws.append("(" + self.word() + ")")
+        return (" ".join(ws) + ".").capitalize()
+
+    def abstract(self) -> dict:
+        n = int(self.rng.integers(3, 21))
+        labels = list(self.rng.choice(FACET_LABELS, n))
+        # every query facet has a sentence within the encoded prefix
+        labels[:3] = list(self.rng.permutation(
+            ["background_label", "method_label", "result_label"]))
+        return {"title": " ".join(self.word() for _ in range(
+                    int(self.rng.integers(5, 13)))).capitalize(),
+                "abstract": [self.sentence() for _ in range(n)],
+                "pred_labels": labels}
+
+
+def write_csfcube(root: str, vocab: list, seed: int, n_docs: int = 2000,
+                  pool: int = 120, copies: int = 5) -> dict:
+    """A dataset in CSFCube's layout: abstracts-csfcube.jsonl (with
+    pred_labels) and test-pid2anns-csfcube-{facet}.json for the real fold
+    query ids (16-17 a facet).  The corpus holds the queries, `copies` near
+    copies of each (one sentence replaced; relevance 2 or 3) and random
+    abstracts; a pool is a query's near copies and random abstracts
+    (relevance 0), `pool` candidates in a random order."""
+    import os
+    from aspire_tpu_torch.evaluation.protocols import load_csfcube_folds
+    folds = load_csfcube_folds()
+    facet_q = {f: sorted({q.rsplit("_", 1)[0] for fold in folds[f].values()
+                          for q in fold}) for f in ("background", "method", "result")}
+    qpids = sorted(set().union(*facet_q.values()))
+    gen = TextGen(vocab, seed)
+    papers = {q: gen.abstract() for q in qpids}
+    near = {}
+    for q in qpids:
+        near[q] = []
+        for j in range(copies):
+            doc = {**papers[q], "abstract": list(papers[q]["abstract"])}
+            k = int(gen.rng.integers(len(doc["abstract"])))
+            doc["abstract"][k] = gen.sentence()
+            papers[f"{q}-n{j}"] = doc
+            near[q].append(f"{q}-n{j}")
+    others = [f"r{i}" for i in range(n_docs - len(papers))]
+    for pid in others:
+        papers[pid] = gen.abstract()
+    os.makedirs(root, exist_ok=True)
+    with open(f"{root}/abstracts-csfcube.jsonl", "w") as f:
+        for pid, p in papers.items():
+            f.write(json.dumps({"paper_id": pid, **p}) + "\n")
+    for facet, qs in facet_q.items():
+        anns = {}
+        for q in qs:
+            picks = [others[i] for i in gen.rng.choice(len(others), pool - copies,
+                                                      replace=False)]
+            rels = dict.fromkeys(picks, 0)
+            rels.update({c: int(gen.rng.integers(2, 4)) for c in near[q]})
+            cands = list(gen.rng.permutation(list(rels)))
+            anns[q] = {"cands": cands, "relevance_adju": [rels[c] for c in cands]}
+        with open(f"{root}/test-pid2anns-csfcube-{facet}.json", "w") as f:
+            json.dump(anns, f)
+    return {"docs": len(papers), "queries": {f: len(q) for f, q in facet_q.items()},
+            "pool": pool}
+
+
+def write_triples(path: str, vocab: list, seed: int, n: int) -> None:
+    """Co-citation triples: query and positive abstracts, the positive with a
+    pre-aligned sentence pair (cc_align)."""
+    gen = TextGen(vocab, seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            q, p = gen.abstract(), gen.abstract()
+            f.write(json.dumps({
+                "query": {"TITLE": q["title"], "ABSTRACT": q["abstract"]},
+                "pos_context": {"TITLE": p["title"], "ABSTRACT": p["abstract"],
+                                "cc_align": [int(gen.rng.integers(3)),
+                                             int(gen.rng.integers(3))]}}) + "\n")
+
+
+class EvalSpy:
+    """Host-clock time and calls of AspireSimilarityModel.encode and
+    .get_similarities while it is entered (each call ends on the host: its
+    results come back as numpy arrays), and the summed micro-batch losses of
+    each training step."""
+
+    def __enter__(self):
+        from aspire_tpu_torch.evaluation.models import AspireSimilarityModel as M
+        from aspire_tpu_torch.train.trainer import Trainer
+        self.encode_s = self.score_s = 0.0
+        self.docs = self.batches = self.queries = 0
+        self.step_losses = []
+        self._saved = [(M, "encode", M.encode),
+                       (M, "get_similarities", M.get_similarities),
+                       (Trainer, "train_step", Trainer.train_step)]
+        encode, score, step = (fn for _, _, fn in self._saved)
+        spy = self
+
+        def timed_encode(model, papers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(model, papers)
+            spy.encode_s += time.perf_counter() - t0
+            spy.docs += len(papers)
+            spy.batches += 1
+            return out
+
+        def timed_score(model, query, cands):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = score(model, query, cands)
+            spy.score_s += time.perf_counter() - t0
+            spy.queries += 1
+            return out
+
+        def logged_step(trainer, state, superbatch, rng):
+            losses = step(trainer, state, superbatch, rng)
+            spy.step_losses.append([float(x) for x in losses])
+            return losses
+
+        M.encode, M.get_similarities = timed_encode, timed_score
+        Trainer.train_step = logged_step
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _cli(argv: list):
+    """aspire_tpu_torch.cli.main in this process, its printing kept apart."""
+    import contextlib
+    import io
+    from aspire_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv)
+    return out, buf.getvalue()
+
+
+def _scores(path: str) -> dict:
+    with open(path) as f:
+        return {(q, c): -s for q, rows in json.load(f).items() for c, s in rows}
+
+
+def _eval_summary(out: dict) -> dict:
+    summary = {}
+    for key, splits in out.items():
+        vals = [v for split in splits.values() for v in split.values()]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"eval: non-finite aggregates for {key}: {splits}")
+        summary[key] = {"map": splits["test"]["mean_av_precision"],
+                        "ndcg%20": splits["test"]["ndcg%20"]}
+    if set(summary) != {"background", "method", "result", "all"}:
+        raise AssertionError(f"eval: aggregates for {sorted(summary)}")
+    return summary
+
+
+# the eval phase's checkpoint depth (BERT-base) and dataset size
+EVAL_LAYERS = 12
+EVAL_DOCS = 2000
+
+
+def phase_eval(dev) -> tuple:
+    """The user's entry points at BERT-base, through aspire_tpu_torch.cli.main:
+    evaluate (kernel and plain OT routes), the plain encoder route on 64
+    abstracts, train from a jsonl of triples, and evaluate on the trained run.
+    The counts are set to 0 before each run and read after it; those of the
+    main path's runs (evaluate with K1, train, evaluate --run-dir) are
+    summed, the plain routes' runs are left out."""
+    import tempfile
+    from aspire_tpu_torch.evaluation.datasets import EvalDataset
+    from aspire_tpu_torch.evaluation.models import AspireSimilarityModel
+    from aspire_tpu_torch.models.bert import BertConfig
+    f32 = torch.float32
+    # the shapes the evaluation gives the kernels: 8 abstracts x 512 tokens
+    # in f32, 24 sentences, a chunk of 256 pairs of 24 x 24
+    cases = {"sinkhorn": [case_sinkhorn(256, "pair", dev, 24, 24)],
+             "attention": [case_attention(8, 12, 512, 64, f32, dev)],
+             "ffn": [case_ffn(4096, f32, dev)],
+             "pool": [case_pool(8, 512, 768, 24, f32, dev)]}
+    for name, rows in cases.items():
+        emit("kernel_cases", kernel=name, path="eval", cases=rows)
+    layers = EVAL_LAYERS
+    cfg = BertConfig(vocab_size=30522, num_hidden_layers=layers)
+    vocab = eval_vocab(cfg.vocab_size)
+    main = dict.fromkeys(read_counts(), 0)
+
+    def add(delta):
+        for k, v in delta.items():
+            main[k] += v
+
+    def expect(label, got, batches, queries, extra=None):
+        want = dict.fromkeys(got, 0)
+        want.update(attention=layers * batches, ffn=2 * layers * batches,
+                    pool=batches, sinkhorn=queries, **(extra or {}))
+        if got != want:
+            raise AssertionError(f"eval: {label} launched {got}, expected {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_hf_dir(f"{tmp}/hf", cfg, vocab, seed=21)
+        data = write_csfcube(f"{tmp}/data", vocab, seed=22, n_docs=EVAL_DOCS)
+        setup_s = time.perf_counter() - t0
+        common = ["--dataset", "csfcube", "--dataset-dir", f"{tmp}/data",
+                  "--device", dev.type]
+        # 1. the HF checkpoint, OT by K1 (its final step too)
+        reset_counts()
+        with EvalSpy() as spy:
+            out_k, _ = _cli(["evaluate", *common, "--model", "aspire_compsci",
+                             "--weights-dir", f"{tmp}/hf", "--results",
+                             f"{tmp}/res_kernel", "--ot-solver", "pallas"])
+        got = read_counts()
+        expect("evaluate --ot-solver pallas", got, spy.batches, spy.queries)
+        add(got)
+        kernel_spy, kernel_got = spy, got
+        summary = _eval_summary(out_k)
+        # near copies of the query (one sentence replaced) must rank first
+        if not summary["all"]["map"] >= 0.9:
+            raise AssertionError(f"eval: MAP {summary} with near copies as the "
+                                 "relevant candidates")
+        # 2. the same scoring through the plain loop
+        reset_counts()
+        with EvalSpy() as plain_spy:
+            _cli(["evaluate", *common, "--model", "aspire_compsci",
+                  "--weights-dir", f"{tmp}/hf", "--results",
+                  f"{tmp}/res_plain", "--ot-solver", "xla"])
+        if read_counts()["sinkhorn"]:
+            raise AssertionError("eval: --ot-solver xla launched K1")
+        gap, n_scores = 0.0, 0
+        for facet in ("background", "method", "result"):
+            k = _scores(f"{tmp}/res_kernel/scores-{facet}.json")
+            p = _scores(f"{tmp}/res_plain/scores-{facet}.json")
+            if set(k) != set(p):
+                raise AssertionError(f"eval: the routes scored other pairs ({facet})")
+            keys = sorted(k)
+            kv = torch.tensor([k[x] for x in keys], dtype=torch.float64)
+            pv = torch.tensor([p[x] for x in keys], dtype=torch.float64)
+            # K1's case tolerance for the scores (sinkhorn sims)
+            res = check_close(f"eval scores {facet}", kv, pv, atol=2e-3, rtol=2e-3)
+            gap = max(gap, res["max_abs_err"])
+            n_scores += len(keys)
+        # 3. the plain encoder route on 64 abstracts against the kernel route
+        ds = EvalDataset("csfcube", f"{tmp}/data")
+        papers = [ds.get(pid) for pid, _ in list(ds)[:64]]
+        routes = {}
+        for impl in ("auto", "naive"):
+            m = AspireSimilarityModel.from_hf_dir(
+                impl, f"{tmp}/hf", device=dev, attention_impl=impl,
+                ffn_impl=impl, pool_impl=impl)
+            reset_counts()
+            routes[impl] = [r for i in range(0, 64, 8)
+                            for r in m.encode(papers[i:i + 8])]
+            routes[impl + "_launches"] = read_counts()
+            del m
+        if any(routes["naive_launches"].values()):
+            raise AssertionError(f"eval: the plain route launched "
+                                 f"{routes['naive_launches']}")
+        enc_err = {"max_abs_err": 0.0}
+        for a, b in zip(routes["auto"], routes["naive"]):
+            if a.shape != b.shape:
+                raise AssertionError(f"eval: encodings {a.shape} against {b.shape}")
+            res = check_close("eval encode, kernel against plain route",
+                              torch.from_numpy(a), torch.from_numpy(b),
+                              atol=_tol(f32))
+            enc_err = max(enc_err, res, key=lambda r: r["max_abs_err"])
+        torch.cuda.empty_cache()
+        # 4. train from a jsonl of triples, the encoder from the HF directory
+        write_triples(f"{tmp}/train.jsonl", vocab, seed=23, n=12)
+        with open(f"{tmp}/cfg.json", "w") as f:
+            json.dump({"model_name": "sbalisentbienc",
+                       "score_aggregation": "l2wasserstein",
+                       "sent_sm_temp": 5000.0, "sent_loss_prop": 1.0,
+                       "sentsup_loss_prop": 1.0, "max_sents": 24,
+                       "batch_size": 3, "accumulated_batch_size": 6,
+                       "train_size": 12, "num_epochs": 1, "update_rule": "adam",
+                       "learning_rate": 2e-5, "lr_decay_method": "warmuplin",
+                       "num_warmup_steps": 2, "es_check_every": 10_000,
+                       "base-pt-layer": f"{tmp}/hf"}, f)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with EvalSpy() as train_spy:
+            trainer, _ = _cli(["train", "--config", f"{tmp}/cfg.json", "--train",
+                               f"{tmp}/train.jsonl", "--out", f"{tmp}/run",
+                               "--init-hf-dir", f"{tmp}/hf", "--seq-len", "512",
+                               "--device", dev.type])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = read_counts()
+        steps = len(train_spy.step_losses)
+        # per step: two wide encodes (query, positive), a bf16 backward of
+        # three launches a layer each, 1 + 2 * layers dropout sites a side
+        # forward and backward, two K1 annealing loops (positive, negative)
+        want = dict.fromkeys(got, 0)
+        want.update(attention_dropout=steps * 2 * layers,
+                    attention_bwd=steps * 2 * 3 * layers,
+                    dropout=steps * 2 * 2 * (1 + 2 * layers), sinkhorn=steps * 2)
+        losses = [sum(x) for x in train_spy.step_losses]
+        if steps != 2 or got != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"eval: train took {steps} steps, launched "
+                                 f"{got} (expected {want}), losses {losses}")
+        add(got)
+        del trainer
+        torch.cuda.empty_cache()
+        # 5. evaluate the trained run, OT by K1
+        reset_counts()
+        with EvalSpy() as spy5:
+            out_t, _ = _cli(["evaluate", *common, "--model", "otaspire",
+                             "--run-dir", f"{tmp}/run", "--tokenizer", f"{tmp}/hf",
+                             "--results", f"{tmp}/res_trained", "--ot-solver",
+                             "pallas"])
+        got = read_counts()
+        expect("evaluate --run-dir", got, spy5.batches, spy5.queries)
+        add(got)
+        summary_trained = _eval_summary(out_t)
+    spy = kernel_spy
+    emit("eval", model="aspire_compsci (random BERT-base weights, seed 21)",
+         layers=layers, dtype="float32", seq_len=512, max_sents=24,
+         batch=8, dataset=data, setup_s=setup_s,
+         docs_encoded=spy.docs, encode_batches=spy.batches,
+         docs_per_s=spy.docs / spy.encode_s, encode_s=spy.encode_s,
+         queries=spy.queries, score_ms_per_query=spy.score_s / spy.queries * 1e3,
+         score_ms_per_query_plain_loop=plain_spy.score_s / plain_spy.queries * 1e3,
+         launches_per_query={"sinkhorn": kernel_got["sinkhorn"] / spy.queries},
+         launches_per_batch={k: kernel_got[k] / spy.batches
+                             for k in ("attention", "ffn", "pool")},
+         metrics=summary, score_gap_kernel_vs_plain=gap, scores_compared=n_scores,
+         score_tolerance={"atol": 2e-3, "rtol": 2e-3},
+         encode_kernel_vs_plain={"docs": 64, "max_abs_err": enc_err["max_abs_err"],
+                                 "atol": _tol(f32)},
+         train={"model": "sbalisentbienc l2wasserstein", "dtype": "bfloat16",
+                "superbatch": [2, 3, 512], "steps": steps,
+                "step_losses": losses, "seconds_with_checkpoints": train_s},
+         trained_metrics=summary_trained,
+         trained_docs_per_s=spy5.docs / spy5.encode_s,
+         launches=main)
+    return cases, main
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -1873,6 +2322,8 @@ PATH_KERNELS = {
               "attention_bwd", "dropout", "pool"),
     "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8",
               "scan_int8_wide"),
+    "eval": ("sinkhorn", "attention", "ffn", "pool", "attention_dropout",
+             "attention_bwd", "dropout"),
 }
 
 
@@ -1895,6 +2346,10 @@ def run(args) -> dict:
         scan_cases, launches["index"] = phase_index(
             dev, args.layers, args.encode_docs, args.index_docs)
         cases.update(scan_cases)
+    if args.phases in ("all", "eval"):
+        eval_cases, launches["eval"] = phase_eval(dev)
+        for name, rows in eval_cases.items():
+            cases.setdefault(name, []).extend(rows)
     for path, counts in launches.items():
         idle = [name for name in PATH_KERNELS[path] if counts[name] < 1]
         if idle:
@@ -1939,11 +2394,12 @@ def main() -> int:
     parser.add_argument("--index-docs", type=int, default=125_000,
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
-                        choices=("all", "index", "kernels"),
+                        choices=("all", "index", "kernels", "eval"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
-                             "plain versions and drives no path")
+                             "plain versions and drives no path; 'eval' drives "
+                             "the CLI's evaluate and train alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

@@ -1,7 +1,9 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
-pulls in no jax, flax, optax, orbax, ml_dtypes, transformers or aspire_tpu
-module, and needs neither nvcc nor triton; `chip_smoke.py` and the port's
-benchmark scripts import none of them either."""
+pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, pandas, h5py,
+safetensors or aspire_tpu module, and needs neither nvcc nor triton;
+`chip_smoke.py` and the port's benchmark scripts import none of them either
+(h5py only inside `SimilarityModel.set_encodings_cache`, which the card's
+machine never calls: it has no h5py)."""
 import ast
 import os
 import pathlib
@@ -12,7 +14,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "aspire_tpu", "ml_dtypes",
-          "transformers")
+          "transformers", "pandas", "safetensors")
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -24,7 +26,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "aspire_tpu", "ml_dtypes", "transformers"))
+                                    "aspire_tpu", "ml_dtypes", "transformers",
+                                    "pandas", "h5py", "safetensors"))
 assert not bad, bad
 assert "triton" not in sys.modules
 must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
@@ -40,7 +43,14 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.train.predict_utils", "aspire_tpu_torch.utils.checkpoint",
         "aspire_tpu_torch.ops.pool_kernel", "aspire_tpu_torch.ops.scan_kernel",
         "aspire_tpu_torch.text.tokenize", "aspire_tpu_torch.index.build",
-        "aspire_tpu_torch.index.dense", "aspire_tpu_torch.index.cls"}
+        "aspire_tpu_torch.index.dense", "aspire_tpu_torch.index.cls",
+        "aspire_tpu_torch.data.readers", "aspire_tpu_torch.text.fast",
+        "aspire_tpu_torch.evaluation.metrics", "aspire_tpu_torch.evaluation.datasets",
+        "aspire_tpu_torch.evaluation.protocols",
+        "aspire_tpu_torch.evaluation.ranking_eval",
+        "aspire_tpu_torch.evaluation.models", "aspire_tpu_torch.evaluation.evaluate",
+        "aspire_tpu_torch.evaluation.diagnostics", "aspire_tpu_torch.cli",
+        "aspire_tpu_torch.__main__"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
@@ -76,6 +86,26 @@ SOURCES = (sorted((REPO / "aspire_tpu_torch").rglob("*.py"))
 def test_source_imports_nothing_of_jax(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_h5py_only_inside_the_encodings_cache():
+    """The h5 encodings cache keeps its file contract through a lazy import;
+    nothing else in the port imports h5py."""
+    where = []
+    for path in SOURCES:
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.Module)):
+                continue
+            body = fn.body if isinstance(fn, ast.FunctionDef) else [
+                n for n in fn.body if not isinstance(n, (ast.FunctionDef,
+                                                         ast.ClassDef))]
+            for node in body:
+                for sub in ast.walk(node):
+                    if isinstance(sub, ast.Import) and any(
+                            a.name.split(".")[0] == "h5py" for a in sub.names):
+                        where.append((path.name, getattr(fn, "name", "<module>")))
+    assert where == [("models.py", "set_encodings_cache")]
 
 
 def test_kernel_sources_ship_with_the_package():
