@@ -62,9 +62,14 @@
 // next step; the scores in two halves of 32 keys; the next step's scores
 // started with this step's pd.v; pd packed by integer instructions too.
 //
-// f32 (a check path: serving and training run bf16) keeps one block of 64
-// rows, four warps, synchronous tile loads and plain FMAs, so that the result
-// is true f32.
+// f32 without dropout and without a backward to feed (K2 in the evaluation's
+// f32 encode) runs attention_tf32x3_kernel: one walk over the keys with an
+// online softmax, both products on the tensor cores as split-TF32 (3xTF32)
+// mma.sync products, at f32 accuracy.  An f32 forward that leaves the row
+// statistics for the backward -- with dropout (K5a in f32) or without, a
+// check path: training runs bf16 -- keeps attention_f32_kernel: one block of
+// 64 rows, four warps, synchronous tile loads and plain FMAs, the f32
+// backward's products.
 #include "attention_tile.cuh"
 
 namespace {
@@ -296,7 +301,7 @@ int launch_bf16(const FwdArgs& a, int b, int nh, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- f32 kernel
+// ----------------------------------------------------- f32 kernel with dropout
 // Plain FMAs so that the result is true f32.  A warp keeps its 16 x 64 scores
 // and probabilities in shared memory; lane c owns columns c and c + 32 of both
 // products; two lanes share a row of the softmax.
@@ -411,6 +416,259 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------- f32 kernel without dropout: 3xTF32
+// K2 in f32 (the evaluation's encode) on the tensor cores at f32 accuracy:
+// both products by mma.sync m16n8k8 in TF32, each operand split into hi and
+// lo parts in registers (tf32_split, common.cuh) and summed as lo.hi + hi.lo +
+// hi.hi.  Without dropout the probabilities are not rounded before p.v, so
+// the keys are walked once with an online softmax: per 64-key tile the
+// running max m and sum l are updated, the context rescaled by exp(m - m'),
+// and e = exp(s - m') (unnormalised) multiplied into it; the context is
+// divided by l at the end -- sum(e v) / l where the two-pass form has
+// sum((e / l) v), a difference of f32 roundings.  It serves the forward
+// without a backward: a forward that must leave m and l for the f32 backward
+// (training in f32, a check path) runs attention_f32_kernel, whose FMA
+// products are the backward's.
+//
+// A warp owns 16 query rows (a block 64), and splits q's A fragments once,
+// into shared memory.  Key and value tiles come by cp.async into a ring of
+// kStagesTf32 stages.  The k order inside each 8-wide mma step is permuted so
+// that no fragment needs a shuffle: A column tq holds element 2 tq and column
+// tq + 4 element 2 tq + 1, so q's two elements are one float2 load, the
+// score accumulator (c0, c1 = columns 2 tq, 2 tq + 1 of a row) is already
+// p.v's A fragment, and B takes the same pairs: a key tile's float2 at (key
+// g, dims 2 tq, + 1) for q.k^T, the value tile's rows 2 tq and 2 tq + 1 at
+// column g for p.v.  Pitches: 72 floats for keys (conflict-free float2
+// reads), 68 for values (conflict-free scalar reads of rows 2 tq, 2 tq + 1).
+constexpr int kLdKf = 72, kLdVf = 68;
+constexpr int kStageTf32 = kBk * (kLdKf + kLdVf) + kBk;   // floats: keys, values, biases
+// 2: tile j + 1 loads while tile j is computed; 1: it loads after, and other
+// blocks on the SM fill the wait (kBlocksTf32 of them)
+constexpr int kStagesTf32 = 2, kBlocksTf32 = 2;
+// the stages, then q's split A fragments: [warp][k-step][hi, lo][lane][4]
+constexpr int kQFragTf32 = kWarps * (kHd / 8) * 2 * 32 * 4;
+constexpr size_t kSmemTf32 = ((size_t)kStagesTf32 * kStageTf32 + kQFragTf32) * sizeof(float);
+
+// c += a . b, a [16, 8] and b [8, 8] TF32 (low 13 bits zero), c f32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4], float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// c += a_lo . b_hi + a_hi . b_lo: the cross terms of a split product whose
+// b = (b0, b1) is split here
+__device__ __forceinline__ void mma_cross(float (&c)[4], const float (&ah)[4], const float (&al)[4],
+                                          float b0, float b1) {
+  float bh0, bl0, bh1, bl1;
+  tf32_split(b0, bh0, bl0);
+  tf32_split(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+}
+
+// c += a_hi . b_hi
+__device__ __forceinline__ void mma_hihi(float (&c)[4], const float (&ah)[4], float b0, float b1) {
+  mma_tf32(c, ah, tf32_round(b0), tf32_round(b1));
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksTf32)
+attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        float* __restrict__ out, int t, Strides qs, Strides ks, Strides vs,
+                        Strides os, float sm_scale) {
+  extern __shared__ __align__(16) float smem_tf32[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z;
+  const int row_g = q0 + warp * kRows + g;          // the thread's rows row_g and row_g + 8
+  const float* qg = q + b * qs.b + head * qs.h;
+  const float* kg = k + b * ks.b + head * ks.h;
+  const float* vg = v + b * vs.b + head * vs.h;
+  const float* bg = bias + (long long)b * t;
+  const int n = (t + kBk - 1) / kBk;
+
+  // tile j's keys, values and biases into its stage (zeros and -inf past t)
+  auto load = [&](int j) {
+    float* kd = smem_tf32 + (j % kStagesTf32) * kStageTf32;
+    float* vd = kd + kBk * kLdKf;
+    float* bd = vd + kBk * kLdVf;
+    const int k0 = j * kBk;
+    for (int idx = threadIdx.x; idx < kBk * (kHd / 4); idx += kThreads) {
+      const int r = idx / (kHd / 4), c = (idx % (kHd / 4)) * 4;
+      const bool valid = k0 + r < t;
+      cp_async16(kd + r * kLdKf + c, valid ? kg + (long long)(k0 + r) * ks.t + c : kg, valid);
+      cp_async16(vd + r * kLdVf + c, valid ? vg + (long long)(k0 + r) * vs.t + c : vg, valid);
+    }
+    if (threadIdx.x < kBk) {
+      if (k0 + (int)threadIdx.x < t) cp_async4(bd + threadIdx.x, bg + k0 + threadIdx.x);
+      else bd[threadIdx.x] = -INFINITY;   // keys past t: zero weight, no part in the max
+    }
+  };
+  load(0);
+  cp_async_commit();
+
+  // q's A fragments, split: a[0] / a[1] rows g / g + 8 at dim 8 kk + 2 tq,
+  // a[2] / a[3] the same rows at dim 8 kk + 2 tq + 1.  Each thread keeps its
+  // own in shared memory (one 16-byte load a part and k-step, no conflicts):
+  // in registers they would take 64 a thread and push the walk into spills.
+  float4* qfrag = reinterpret_cast<float4*>(smem_tf32 + kStagesTf32 * kStageTf32) +
+                  warp * (kHd / 8) * 2 * 32 + lane;   // + (2 kk + part) * 32
+#pragma unroll
+  for (int kk = 0; kk < kHd / 8; ++kk) {
+    float hi[4], lo[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      float2 x = make_float2(0.f, 0.f);
+      if (row < t) x = *reinterpret_cast<const float2*>(qg + (long long)row * qs.t + 8 * kk + 2 * tq);
+      tf32_split(x.x, hi[h], lo[h]);
+      tf32_split(x.y, hi[2 + h], lo[2 + h]);
+    }
+    qfrag[2 * kk * 32] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    qfrag[(2 * kk + 1) * 32] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+
+  float o[kHd / 8][4];
+#pragma unroll
+  for (int c = 0; c < kHd / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n; ++j) {
+    if constexpr (kStagesTf32 == 2) {
+      if (j + 1 < n) load(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                        // tile j's copies, everyone's
+    const float* kt = smem_tf32 + (j % kStagesTf32) * kStageTf32;
+    const float* vt = kt + kBk * kLdKf;
+    const float* bt = vt + kBk * kLdVf;
+
+    // s[c]: rows g, g + 8 at keys 8 c + 2 tq, + 1 (the accumulator layout).
+    // The tensor cores add into an accumulator with truncation, up to an ulp
+    // of the sum an addition: the cross terms of all k-steps go into their
+    // own accumulator (a sum ~2^-11 the scores' size), the hi.hi terms into
+    // s, and the two meet in one f32 addition.
+    float s[kBk / 8][4], x[kBk / 8][4];
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[c][i] = x[c][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHd / 8; ++kk) {
+      const float4 h4 = qfrag[2 * kk * 32], l4 = qfrag[(2 * kk + 1) * 32];
+      const float qh[4] = {h4.x, h4.y, h4.z, h4.w}, ql[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int c = 0; c < kBk / 8; ++c) {
+        const float2 kv = *reinterpret_cast<const float2*>(kt + (8 * c + g) * kLdKf + 8 * kk + 2 * tq);
+        mma_cross(x[c], qh, ql, kv.x, kv.y);
+        mma_hihi(s[c], qh, kv.x, kv.y);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[c][i] += x[c][i];
+    // scale, bias, online max and sum of rows g (h = 0) and g + 8 (h = 1)
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kBk / 8; ++c) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * c + 2 * tq);
+        s[c][2 * h] = s[c][2 * h] * sm_scale + bb.x;
+        s[c][2 * h + 1] = s[c][2 * h + 1] * sm_scale + bb.y;
+        mx = fmaxf(mx, fmaxf(s[c][2 * h], s[c][2 * h + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kBk / 8; ++c) {
+        s[c][2 * h] = expf(s[c][2 * h] - m_new);
+        s[c][2 * h + 1] = expf(s[c][2 * h + 1] - m_new);
+        sum += s[c][2 * h] + s[c][2 * h + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      corr[h] = expf(m_run[h] - m_new);     // 0 on the first tile
+      l_run[h] = l_run[h] * corr[h] + sum;
+      m_run[h] = m_new;
+    }
+    // pv = e . v of this tile alone, in a fresh accumulator (its truncating
+    // additions at the tile's size, not the whole sum's), cross terms over
+    // the tile first and the hi.hi terms on top; e's k-step c is keys 8 c ..
+    // + 7, its A fragment the accumulator's own values (a[0], a[1]: key 2 tq
+    // of rows g, g + 8; a[2], a[3]: key 2 tq + 1)
+    float pv[kHd / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < kHd / 8; ++nn) pv[nn][0] = pv[nn][1] = pv[nn][2] = pv[nn][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c) {
+      float eh[4], el[4];
+      tf32_split(s[c][0], eh[0], el[0]);
+      tf32_split(s[c][2], eh[1], el[1]);
+      tf32_split(s[c][1], eh[2], el[2]);
+      tf32_split(s[c][3], eh[3], el[3]);
+      const float* v0 = vt + (8 * c + 2 * tq) * kLdVf + g;
+#pragma unroll
+      for (int nn = 0; nn < kHd / 8; ++nn) mma_cross(pv[nn], eh, el, v0[8 * nn], v0[kLdVf + 8 * nn]);
+    }
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c) {
+      const float eh[4] = {tf32_round(s[c][0]), tf32_round(s[c][2]), tf32_round(s[c][1]),
+                           tf32_round(s[c][3])};
+      const float* v0 = vt + (8 * c + 2 * tq) * kLdVf + g;
+#pragma unroll
+      for (int nn = 0; nn < kHd / 8; ++nn) mma_hihi(pv[nn], eh, v0[8 * nn], v0[kLdVf + 8 * nn]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < kHd / 8; ++nn) {
+      o[nn][0] = fmaf(o[nn][0], corr[0], pv[nn][0]);
+      o[nn][1] = fmaf(o[nn][1], corr[0], pv[nn][1]);
+      o[nn][2] = fmaf(o[nn][2], corr[1], pv[nn][2]);
+      o[nn][3] = fmaf(o[nn][3], corr[1], pv[nn][3]);
+    }
+    __syncthreads();                        // the stage is reloaded with tile j + kStagesTf32
+    if constexpr (kStagesTf32 == 1) {
+      if (j + 1 < n) load(j + 1);
+      cp_async_commit();
+    }
+  }
+
+  float* og = out + b * os.b + head * os.h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    if (row >= t) continue;
+#pragma unroll
+    for (int c = 0; c < kHd / 8; ++c)
+      *reinterpret_cast<float2*>(og + (long long)row * os.t + 8 * c + 2 * tq) =
+          make_float2(o[c][2 * h] / l_run[h], o[c][2 * h + 1] / l_run[h]);
+  }
+}
+
+int launch_tf32x3(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  int b, int nh, int t, const long long* s, float sm_scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemTf32);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((t + kBq - 1) / kBq, nh, b);
+  attention_tf32x3_kernel<<<grid, kThreads, kSmemTf32, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t,
+      Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
+      Strides{s[9], s[10], s[11]}, sm_scale);
+  return (int)cudaGetLastError();
+}
+
 template <int kDrop>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out, int b,
                int nh, int t, const long long* s, float sm_scale, const Drop& drop, void* stats,
@@ -466,6 +724,11 @@ extern "C" int aspire_attention_f32(const void* q, const void* k, const void* v,
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
   const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
+  // the inference forward (no row statistics wanted) on the tensor cores; the
+  // forward that leaves m and l for the FMA backward keeps that backward's FMA
+  // products, so that the two compute the same probabilities
+  if (mode == 0 && stats == nullptr)
+    return launch_tf32x3(q, k, v, bias, out, b, nh, t, s, sm_scale, stream);
   if (mode == 0) return launch_f32<0>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
   if (mode == 1) return launch_f32<1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
   if (mode == 2 && bits != nullptr)

@@ -25,6 +25,28 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// ---- split TF32 (3xTF32): f32 products on the TF32 tensor cores -------------
+// x = hi + lo with hi = x rounded to TF32 (10 stored mantissa bits, nearest,
+// ties away from zero: cvt.rna) and lo = the remainder x - hi (exact in f32),
+// itself rounded to TF32.  The tensor cores read only a TF32 operand's top 19
+// bits, so each part is rounded here rather than left to truncation (and the
+// cvt's 13 low "don't care" bits are cleared, so that lo is exact).  a.b is
+// then summed as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in an f32 accumulator, the
+// dropped a_lo.b_lo and lo's rounding about 2^-22 of the product.  The tensor
+// cores add into their accumulator with truncation (up to an ulp of the sum
+// an addition, always towards zero), so the kernels keep each tensor-core sum
+// short -- a stage of k, a tile of keys, the cross terms apart from or before
+// hi.hi -- and add those sums with f32 additions.
+__device__ __forceinline__ float tf32_round(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
 // ---- asynchronous copies (cp.async) -----------------------------------------
 // 16 bytes through L2 only
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

@@ -52,7 +52,9 @@ SIGNATURES = {
     # x, w1 [inter, hidden], b1, w2 [hidden, inter], b2, activation scratch,
     # out, rows, hidden, inter, stream
     "aspire_ffn_bf16": [_P] * 7 + [_I] * 3 + [_P],
-    "aspire_ffn_f32": [_P] * 7 + [_I] * 3 + [_P],
+    # x, w1, b1, w2, b2, TF32 parts of x, w1, w2, parts of the activation,
+    # out, rows, hidden, inter, stream
+    "aspire_ffn_f32": [_P] * 8 + [_I] * 3 + [_P],
     # hidden, sent_ids, out, b, t, h, max_sents, columns a lane, sentences a
     # block, stream
     "aspire_pool_bf16": [_P] * 3 + [_I] * 6 + [_P],

@@ -12,8 +12,12 @@ query rows a block, its two products on wgmma fed by a cp.async ring of key and
 value tiles; at BERT shapes (64-wide heads, t <= 512) the elementwise work of
 the 2 t^2 scores a head (two exponentials each, with dropout a quarter of a
 Philox4x32-10 call) and the latency of each step's loads and products bound it,
-not the bytes.  Called on inputs that need a gradient, it leaves each row's max
-and sum in a [3, b * nh, t] f32 tensor.  The backward keeps q, k, v, bias, the
+not the bytes.  The f32 forward without dropout and without a gradient
+(the evaluation's encode) walks the keys once with an online softmax, both
+products on the tensor cores as split-TF32 products at f32 accuracy; an f32
+forward under grad keeps plain FMAs, the f32 backward's products.  Called on
+inputs that need a gradient, the forward leaves each row's max and sum in a
+[3, b * nh, t] f32 tensor.  The backward keeps q, k, v, bias, the
 seed, the forward's output and those two floats a row, recomputes
 probabilities and mask, and is bounded by its products; in bf16 it hands ds
 from its keys kernel to its dq kernel through a transient [b * nh, tp, tp]

@@ -13,6 +13,12 @@ of the time.  The kernel takes hidden and intermediate widths that are
 multiples of 64; other widths are zero-padded here, which is exact (zero x
 columns meet zero W1 rows, gelu(0) = 0, zero W2 rows add nothing).
 
+In f32 (the evaluation's encode) the products run on the tensor cores at f32
+accuracy as split TF32: one more launch splits x and both weights into TF32
+hi and lo parts in a scratch tensor allocated here, launch 1 stores the
+activation's two parts (a [2, rows, inter] scratch), and each product sums
+lo.hi + hi.lo + hi.hi (``csrc/common.cuh`` says why that holds f32).
+
 The kernel reads the weights K-major, in ``nn.Linear``'s [out, in] layout:
 `fused_ffn_linear` takes them so (the model's cached copies), `fused_ffn`
 keeps the JAX function's [in, out] signature and transposes.
@@ -143,7 +149,8 @@ def pad_ffn(x, w1, b1, w2, b2):
 
 
 def _ffn_cuda(x2, w1, b1, w2, b2) -> torch.Tensor:
-    """The two launches on CUDA tensors: x2 [rows, h], w1 [f, h], w2 [h, f]."""
+    """The launches on CUDA tensors (`LAUNCHES`): x2 [rows, h], w1 [f, h],
+    w2 [h, f]."""
     rows, h = x2.shape
     if rows == 0:
         return torch.empty_like(x2)
@@ -151,19 +158,34 @@ def _ffn_cuda(x2, w1, b1, w2, b2) -> torch.Tensor:
     x2, w1, b1, w2, b2 = (t if t.data_ptr() % 16 == 0 else t.clone()
                           for t in (u.contiguous() for u in pad_ffn(x2, w1, b1, w2, b2)))
     hp, fp = x2.shape[1], w1.shape[0]
-    act = torch.empty((rows, fp), dtype=x2.dtype, device=x2.device)
     out = torch.empty((rows, hp), dtype=x2.dtype, device=x2.device)
     lib = _build.load()
-    name = "aspire_ffn_bf16" if x2.dtype == torch.bfloat16 else "aspire_ffn_f32"
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
-        err = getattr(lib, name)(
-            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), act.data_ptr(), out.data_ptr(), rows, hp, fp,
-            torch.cuda.current_stream().cuda_stream)
+        if x2.dtype == torch.bfloat16:
+            name = "aspire_ffn_bf16"
+            act = torch.empty((rows, fp), dtype=x2.dtype, device=x2.device)
+            err = lib.aspire_ffn_bf16(
+                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), act.data_ptr(), out.data_ptr(), rows, hp, fp,
+                stream)
+        else:
+            # the TF32 hi and lo parts of x and both weights, and of the
+            # activation (written by the first product, read by the second)
+            name = "aspire_ffn_f32"
+            parts = torch.empty(2 * (rows + 2 * fp) * hp, dtype=x2.dtype,
+                                device=x2.device)
+            act = torch.empty((2, rows, fp), dtype=x2.dtype, device=x2.device)
+            err = lib.aspire_ffn_f32(
+                x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), parts.data_ptr(), act.data_ptr(),
+                out.data_ptr(), rows, hp, fp, stream)
     _build.check(err, name)
-    fused_ffn.launches += 2            # what the C function launches
+    fused_ffn.launches += LAUNCHES[x2.dtype]   # what the C function launches
     return out if hp == h else out[:, :h]
 
 
-# kernel launches: two a CUDA call (activation, output)
+# kernel launches: two a bf16 CUDA call (activation, output), three an f32
+# one (the split into TF32 parts, activation, output)
+LAUNCHES = {torch.bfloat16: 2, torch.float32: 3}
 fused_ffn.launches = 0

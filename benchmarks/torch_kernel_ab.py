@@ -14,7 +14,8 @@ archive` into a directory that .gitignore lists).  Each checkout builds its own
 kernels and is measured in its own process, in the order other, this, this,
 other; every reading is the median of 30 CUDA-event readings of 10 calls with
 the device given a head start, so the host's share of a call is not in it.
-The forward reading is `fused_attention` at dropout_p = 0 (K2); the dropout
+The forward reading is `fused_attention` at dropout_p = 0 (K2) in bf16 at
+three shapes and in f32 at the evaluation's [8, 12, 512, 64]; the dropout
 reading (`--dropout`) is `fused_attention` at dropout_p = 0.1 with the Philox
 mask, called on inputs that require a gradient so that the forward leaves its
 row statistics as in a training step (K5a); both with the device milliseconds a
@@ -39,7 +40,10 @@ error).  The int8 scan reading (`--scan-int8`) is K7
 125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
 and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
 at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
-scan (K8) on the same rows in bf16 at B = 1 beside it.  Attention is bf16.
+scan (K8) on the same rows in bf16 at B = 1 beside it.  The f32 readings (K2
+and K3) also give the largest error of the checkout's kernel against an f64
+product of the same inputs (`f64_max_abs_err`).  The backward and the
+dropout readings are bf16.
 The modes may be combined.  One JSON object a line, then the card's name and
 power limit.
 """
@@ -54,7 +58,8 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = ((16, 12, 256, 64), (4, 12, 512, 64), (30, 12, 512, 64))
+SHAPES = (((16, 12, 256, 64), "bfloat16"), ((4, 12, 512, 64), "bfloat16"),
+          ((30, 12, 512, 64), "bfloat16"), ((8, 12, 512, 64), "float32"))
 DROPOUT_SHAPES = ((30, 12, 512, 64), (16, 12, 256, 64))
 FFN_CASES = ((4096, "bfloat16"), (16384, "bfloat16"), (4096, "float32"))
 SINKHORN_CASES = ((16, 20, 20, "global"), (30, 20, 20, "grouped"),
@@ -84,12 +89,18 @@ def _median_ms(fn, calls: int = 10, readings: int = 30) -> dict:
             "ms_max": max(times)}
 
 
-def _inputs(b, nh, t, hd, dev):
+def _inputs(b, nh, t, hd, dev, dtype="bfloat16"):
     import numpy as np
     import torch
     rng = np.random.default_rng(t)
     return [torch.from_numpy(rng.standard_normal((b, t, nh, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(4)]
+        np.float32)).to(dev, getattr(torch, dtype)).permute(0, 2, 1, 3)
+        for _ in range(4)]
+
+
+def _f64_err(got, want64) -> float:
+    """Largest absolute error of an f32 result against its f64 product."""
+    return float((got.double() - want64).abs().max())
 
 
 def measure_ffn() -> None:
@@ -109,12 +120,18 @@ def measure_ffn() -> None:
             fn = lambda: fk.fused_ffn_linear(x, w1t, b1, w2t, b2)
         else:
             fn = lambda: fk.fused_ffn(x, w1, b1, w2, b2)
+        extra = {}
         with torch.inference_mode():
+            if dtype == "float32":
+                pre = x.double() @ w1.double() + b1.double()
+                extra["f64_max_abs_err"] = _f64_err(fn(), torch.nn.functional.gelu(
+                    pre, approximate="none") @ w2.double() + b2.double())
+                del pre
             ms = _median_ms(fn)
             by_kernel = _by_kernel(fn)
         print(json.dumps({"rows": rows, "ffn": "768->3072->768", "dtype": dtype,
-                          "kernel": "ffn", **ms, "device_ms_by_kernel": by_kernel}),
-              flush=True)
+                          "kernel": "ffn", **ms, **extra,
+                          "device_ms_by_kernel": by_kernel}), flush=True)
 
 
 def measure_sinkhorn() -> None:
@@ -242,14 +259,20 @@ def measure(bwd: bool, dropout: bool) -> None:
                               "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
         return
     if not bwd:
-        for b, nh, t, hd in SHAPES:
-            q, k, v, _ = _inputs(b, nh, t, hd, dev)
+        for (b, nh, t, hd), dtype in SHAPES:
+            q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
             bias = torch.zeros((b, t), device=dev)
             fn = lambda: fused_attention(q, k, v, bias, 1.0 / math.sqrt(hd))
+            extra = {}
             with torch.inference_mode():
+                if dtype == "float32":
+                    s64 = q.double() @ k.double().transpose(-1, -2) / math.sqrt(hd)
+                    extra["f64_max_abs_err"] = _f64_err(
+                        fn(), torch.softmax(s64, dim=-1) @ v.double())
+                    del s64
                 ms = _median_ms(fn)
                 by_kernel = _by_kernel(fn)
-            print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16", **ms,
+            print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype, **ms, **extra,
                               "device_ms_by_kernel": by_kernel}), flush=True)
         return
     for (b, nh, t, hd), p in BWD_CASES:

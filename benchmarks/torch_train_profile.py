@@ -46,7 +46,7 @@ CLASSES = (
     ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_f32_kernel")),
     ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_")),
     ("dropout (K6)", ("dropout_kernel",)),
-    ("ffn (K3)", ("ffn_bf16_kernel", "ffn_f32_kernel")),
+    ("ffn (K3)", ("ffn_bf16_kernel", "ffn_tf32x3_kernel", "split_tf32_kernel")),
     ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
 

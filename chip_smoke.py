@@ -97,6 +97,11 @@ import torch.nn.functional as F
 PEAK_BYTES = 3.35e12          # device memory, bytes/s
 PEAK_BF16 = 989e12            # tensor cores, FLOP/s
 PEAK_FP32 = 67e12             # FP32 lanes outside the tensor cores, FLOP/s
+PEAK_TF32 = 495e12            # tensor cores in TF32, FLOP/s
+# An f32 product can run on the FP32 lanes or, split into TF32 parts (three
+# products: lo.hi + hi.lo + hi.hi), on the tensor cores at f32 accuracy: its
+# operations bound is the lesser of ops / PEAK_FP32 and 3 ops / PEAK_TF32.
+PEAK_F32_PRODUCT = max(PEAK_FP32, PEAK_TF32 / 3)
 # exp/log go through the special-function units: 16 an SM against 128 FP32
 # lanes, each of which counts 2 FLOP in PEAK_FP32 -> PEAK_FP32 / 2 / 8 calls/s.
 PEAK_SFU = PEAK_FP32 / 2 / 8
@@ -165,6 +170,19 @@ def check_norm(name, got, want, rel: float, abs_of_max: float) -> dict:
                              f"value {peak} (limit {abs_of_max} of it)")
     return {"norm_rel_err": norm_rel, "max_abs_err": max_abs,
             "max_abs_of_max": max_abs / peak}
+
+
+def product_peak(dtype) -> float:
+    """Peak rate of a product's operations in the given compute dtype."""
+    return PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32_PRODUCT
+
+
+def f64_errors(**routes) -> dict:
+    """Largest absolute error of each route's output against the f64 one:
+    f64_errors(f64=reference, kernel=..., plain=...)."""
+    ref = routes.pop("f64")
+    return {name: float((out.double() - ref).abs().max())
+            for name, out in routes.items()}
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> dict:
@@ -371,6 +389,14 @@ def case_attention(b, nh, t, hd, dtype, dev) -> dict:
     # summation order and expf routine.
     tol = dict(atol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-4)
     res = check_close("attention", out, want, **tol)
+    if dtype == torch.float32:
+        # the rows with a real key (the fully padded one is uniform in f32,
+        # where -1e9 + s rounds to -1e9, but not in f64)
+        q64, k64, v64 = (x[:b - 1].double() for x in (q, k, v))
+        s64 = q64 @ k64.transpose(-1, -2) * scale + bias[:b - 1, None, None, :].double()
+        res["f64_max_abs_err"] = f64_errors(
+            f64=torch.softmax(s64, dim=-1) @ v64, kernel=out[:b - 1], plain=want[:b - 1])
+        del s64
     uniform = v[b - 1].float().mean(dim=1, keepdim=True).expand(-1, t, -1)
     check_close("attention, fully padded row", out[b - 1], uniform,
                 atol=2e-2 if dtype == torch.bfloat16 else 1e-4)
@@ -384,7 +410,7 @@ def case_attention(b, nh, t, hd, dtype, dev) -> dict:
             q, k, v, attn_mask=mask, scale=scale)),
         **bound(4.0 * b * nh * t * hd * size + 4.0 * b * t,
                 4.0 * b * nh * t * t * hd,
-                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+                product_peak(dtype)))
     return res
 
 
@@ -467,7 +493,7 @@ def case_attention_dropout(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
             q, k, v, attn_mask=mask, dropout_p=p, scale=scale)),
         **bound(4.0 * b * nh * t * hd * size + 4.0 * b * t,
                 4.0 * b * nh * t * t * hd,
-                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+                product_peak(dtype)))
     return res
 
 
@@ -577,7 +603,7 @@ def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
         # writes dq, dk, dv; five products of 2 t t hd
         **bound(8.0 * b * nh * t * hd * size + 4.0 * b * t + 8.0 * b * nh * t,
                 10.0 * b * nh * t * t * hd,
-                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+                product_peak(dtype)))
     return res
 
 
@@ -707,6 +733,12 @@ def case_ffn(rows, dtype, dev, h=768, f=3072) -> dict:
     # f32: sums of h and f terms in another order.
     tol = dict(atol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-4)
     res = check_close("ffn", out, want, **tol)
+    if dtype == torch.float32:
+        pre = x.double() @ w1.double() + b1.double()
+        res["f64_max_abs_err"] = f64_errors(
+            f64=F.gelu(pre, approximate="none") @ w2.double() + b2.double(),
+            kernel=out, plain=want)
+        del pre
     if not torch.equal(out, fk.fused_ffn(x, w1, b1, w2, b2)):
         raise AssertionError("ffn: the [in, out] entry differs from the [out, in] one")
     size = x.element_size()
@@ -718,7 +750,7 @@ def case_ffn(rows, dtype, dev, h=768, f=3072) -> dict:
             F.gelu(F.linear(x, w1t, b1), approximate="none"), w2t, b2)),
         **bound(size * (2.0 * rows * h + 2.0 * h * f + h + f),
                 4.0 * rows * h * f,
-                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32))
+                product_peak(dtype)))
     return res
 
 
@@ -811,7 +843,7 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
         library_ms=cuda_ms(library),
         **bound(sents.element_size() * (n * s * d + qmax * d) + 4.0 * n * s + 4.0 * n,
                 2.0 * n * s * d * qmax,
-                PEAK_BF16 if sents.dtype == torch.bfloat16 else PEAK_FP32))
+                product_peak(sents.dtype)))
     return res
 
 
@@ -960,7 +992,8 @@ def tiny_encode(dev) -> dict:
                                         if v != before[k]}
         got = outs["auto_launches"]
         if got.get("attention") != cfg.num_hidden_layers \
-                or got.get("ffn") != 2 * cfg.num_hidden_layers or outs["naive_launches"]:
+                or got.get("ffn") != ffn_launches(dtype) * cfg.num_hidden_layers \
+                or outs["naive_launches"]:
             raise AssertionError(f"tiny encode: launches {got}, naive "
                                  f"{outs['naive_launches']}")
         res = check_close(f"tiny encode {dtype}", outs["auto"], outs["naive"], atol)
@@ -1088,6 +1121,12 @@ def counters() -> dict:
             "scan_int8_wide": (fused_l2max_scan_int8_batched, "wide_launches")}
 
 
+def ffn_launches(dtype) -> int:
+    """Launches of one K3 call: two in bf16, three in f32 (the TF32 split)."""
+    from aspire_tpu_torch.ops.ffn_kernel import LAUNCHES
+    return LAUNCHES[dtype]
+
+
 def read_counts() -> dict:
     return {k: getattr(w, attr) for k, (w, attr) in counters().items()}
 
@@ -1121,7 +1160,8 @@ def serve_once(cfg, dtype, dev, n_requests: int, sents_atol: float,
                                 for k, v in read_counts().items()})
     launches = read_counts()
     want = dict.fromkeys(read_counts(), 0)
-    want.update(sinkhorn=1, attention=layers, ffn=2 * layers, pool=1)
+    want.update(sinkhorn=1, attention=layers, ffn=ffn_launches(dtype) * layers,
+                pool=1)
     for got in per_request:
         if got != want:
             raise AssertionError(f"{label}: launches per request {got}, "
@@ -2143,7 +2183,8 @@ def phase_eval(dev) -> tuple:
 
     def expect(label, got, batches, queries, extra=None):
         want = dict.fromkeys(got, 0)
-        want.update(attention=layers * batches, ffn=2 * layers * batches,
+        want.update(attention=layers * batches,
+                    ffn=ffn_launches(f32) * layers * batches,
                     pool=batches, sinkhorn=queries, **(extra or {}))
         if got != want:
             raise AssertionError(f"eval: {label} launched {got}, expected {want}")
