@@ -62,14 +62,11 @@
 // next step; the scores in two halves of 32 keys; the next step's scores
 // started with this step's pd.v; pd packed by integer instructions too.
 //
-// f32 without dropout and without a backward to feed (K2 in the evaluation's
-// f32 encode) runs attention_tf32x3_kernel: one walk over the keys with an
-// online softmax, both products on the tensor cores as split-TF32 (3xTF32)
-// mma.sync products, at f32 accuracy.  An f32 forward that leaves the row
-// statistics for the backward -- with dropout (K5a in f32) or without, a
-// check path: training runs bf16 -- keeps attention_f32_kernel: one block of
-// 64 rows, four warps, synchronous tile loads and plain FMAs, the f32
-// backward's products.
+// f32 runs on the tensor cores as split-TF32 (3xTF32) mma.sync products at
+// f32 accuracy: attention_tf32x3_kernel walks the keys once (the inference
+// forward), attention_tf32x3_stats_kernel twice (the forward that leaves the
+// row statistics for the backward, and every forward with dropout); see the
+// f32 section below.
 #include "attention_tile.cuh"
 
 namespace {
@@ -301,178 +298,127 @@ int launch_bf16(const FwdArgs& a, int b, int nh, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------- f32 kernel with dropout
-// Plain FMAs so that the result is true f32.  A warp keeps its 16 x 64 scores
-// and probabilities in shared memory; lane c owns columns c and c + 32 of both
-// products; two lanes share a row of the softmax.
-constexpr size_t kSmemF32 =
-    (size_t)(3 * kBq * 65 + kWarps * kRows * 65 + kWarps * kRows * kLdS + kBk) * sizeof(float);
-
-template <int kDrop>
-__global__ void __launch_bounds__(kThreads)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, int t,
-                     long long qsb, long long qsh, long long qst,
-                     long long ksb, long long ksh, long long kst,
-                     long long vsb, long long vsh, long long vst,
-                     long long osb, long long osh, long long ost, float sm_scale, Drop drop,
-                     float* __restrict__ stats) {
-  constexpr int ld = Cfg<float>::ld;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kBq * ld;
-  float* vs = ks + kBk * ld;
-  float* ps = vs + kBk * ld;                       // [warps][16][ld] probabilities
-  float* ss = ps + kWarps * kRows * ld;            // [warps][16][kLdS] scores
-  float* bias_s = ss + kWarps * kRows * kLdS;      // [64]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z;
-  const float* qg = q + b * qsb + head * qsh;
-  const float* kg = k + b * ksb + head * ksh;
-  const float* vg = v + b * vsb + head * vsh;
-  const float* bg = bias + (long long)b * t;
-
-  float* qw = qs + warp * kRows * ld;
-  float* pw = ps + warp * kRows * ld;
-  float* sw = ss + warp * kRows * kLdS;
-
-  load_tile<float>(qs, qg, qst, q0, t);
-  __syncthreads();
-  float o0[kRows], o1[kRows];   // columns lane and lane + 32 of the warp's 16 rows
-  for (int r = 0; r < kRows; ++r) o0[r] = o1[r] = 0.f;
-
-  // two lanes share a row: lane = 2 * row + half, columns half, half + 2, ...
-  const int row = lane >> 1, half = lane & 1;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < t; k0 += kBk) {
-      __syncthreads();                 // the previous tile is no longer read
-      load_tile<float>(ks, kg, kst, k0, t);
-      if (pass == 1) load_tile<float>(vs, vg, vst, k0, t);
-      if (threadIdx.x < kBk)           // keys past t get -inf: zero weight, no part in the max
-        bias_s[threadIdx.x] = (k0 + threadIdx.x < t) ? bg[k0 + threadIdx.x] : -INFINITY;
-      __syncthreads();
-      f32_abT(qw, ks, sw);
-      __syncwarp();
-      if (pass == 0) {
-        float mx = -INFINITY;
-        for (int c = half; c < kBk; c += 2)
-          mx = fmaxf(mx, sw[row * kLdS + c] * sm_scale + bias_s[c]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        const float m_new = fmaxf(m_run, mx);
-        float sum = 0.f;
-        for (int c = half; c < kBk; c += 2)
-          sum += expf(sw[row * kLdS + c] * sm_scale + bias_s[c] - m_new);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        l_run = l_run * expf(m_run - m_new) + sum;
-        m_run = m_new;
-      } else {
-        for (int c = half; c < kBk; c += 2)
-          pw[row * ld + c] = expf(sw[row * kLdS + c] * sm_scale + bias_s[c] - m_run) / l_run;
-        __syncwarp();
-        if constexpr (kDrop != 0) {
-          // one item = four neighbouring columns of a row = one Philox call
-          for (int idx = lane; idx < kRows * (kBk / 4); idx += 32) {
-            const int r = idx / (kBk / 4), c4 = idx % (kBk / 4);
-            const uint4 w = row_bits<kDrop>(drop, b * gridDim.y + head, t, q0 + warp * kRows + r,
-                                            k0 / 4 + c4);
-            const unsigned bits[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              float* p = pw + r * ld + c4 * 4 + i;
-              *p = bits[i] >= drop.thresh ? *p / drop.keep_div : 0.f;
-            }
-          }
-          __syncwarp();
-        }
-        f32_ab(o0, o1, pw, ld, vs);
-      }
-      __syncwarp();                    // sw is rewritten by the next tile
-    }
-    if (pass == 0 && stats != nullptr && half == 0 && q0 + warp * kRows + row < t) {
-      const long long planes_t = (long long)gridDim.z * gridDim.y * t;
-      float* st = stats + (long long)(b * gridDim.y + head) * t + q0 + warp * kRows + row;
-      st[0] = m_run;
-      st[planes_t] = l_run;
-    }
-  }
-
-  for (int r = 0; r < kRows; ++r) {
-    sw[r * kLdS + lane] = o0[r];
-    sw[r * kLdS + lane + 32] = o1[r];
-  }
-  __syncwarp();
-  float* og = out + b * osb + head * osh;
-  for (int idx = lane; idx < kRows * (kHd / 4); idx += 32) {
-    const int r = idx / (kHd / 4), cv = (idx % (kHd / 4)) * 4;
-    const int qrow = q0 + warp * kRows + r;
-    if (qrow < t)
-      *reinterpret_cast<float4*>(og + (long long)qrow * ost + cv) =
-          make_float4(sw[r * kLdS + cv], sw[r * kLdS + cv + 1], sw[r * kLdS + cv + 2],
-                      sw[r * kLdS + cv + 3]);
-  }
-}
-
-// ------------------------------------------- f32 kernel without dropout: 3xTF32
-// K2 in f32 (the evaluation's encode) on the tensor cores at f32 accuracy:
-// both products by mma.sync m16n8k8 in TF32, each operand split into hi and
-// lo parts in registers (tf32_split, common.cuh) and summed as lo.hi + hi.lo +
-// hi.hi.  Without dropout the probabilities are not rounded before p.v, so
-// the keys are walked once with an online softmax: per 64-key tile the
-// running max m and sum l are updated, the context rescaled by exp(m - m'),
-// and e = exp(s - m') (unnormalised) multiplied into it; the context is
-// divided by l at the end -- sum(e v) / l where the two-pass form has
-// sum((e / l) v), a difference of f32 roundings.  It serves the forward
-// without a backward: a forward that must leave m and l for the f32 backward
-// (training in f32, a check path) runs attention_f32_kernel, whose FMA
-// products are the backward's.
-//
-// A warp owns 16 query rows (a block 64), and splits q's A fragments once,
-// into shared memory.  Key and value tiles come by cp.async into a ring of
-// kStagesTf32 stages.  The k order inside each 8-wide mma step is permuted so
-// that no fragment needs a shuffle: A column tq holds element 2 tq and column
-// tq + 4 element 2 tq + 1, so q's two elements are one float2 load, the
-// score accumulator (c0, c1 = columns 2 tq, 2 tq + 1 of a row) is already
+// ---------------------------------------------------- f32 kernels: 3xTF32
+// Both products on the tensor cores at f32 accuracy: mma.sync m16n8k8 in
+// TF32, each operand split into hi and lo parts in registers (tf32_split,
+// common.cuh) and summed as lo.hi + hi.lo + hi.hi (attention_tile.cuh).  A
+// warp owns 16 query rows (a block 64); key and value tiles come by cp.async
+// into a ring of kStagesTf32 stages.  The k order inside each 8-wide mma step
+// is permuted (attention_tile.cuh), so that no fragment needs a shuffle: q's
+// two elements of a step are one float2, the score accumulator is already
 // p.v's A fragment, and B takes the same pairs: a key tile's float2 at (key
 // g, dims 2 tq, + 1) for q.k^T, the value tile's rows 2 tq and 2 tq + 1 at
 // column g for p.v.  Pitches: 72 floats for keys (conflict-free float2
 // reads), 68 for values (conflict-free scalar reads of rows 2 tq, 2 tq + 1).
+//
+// attention_tf32x3_kernel (K2 in f32, the evaluation's encode: no dropout, no
+// backward to feed) walks the keys once with an online softmax: per 64-key
+// tile the running max m and sum l are updated, the context rescaled by
+// exp(m - m'), and e = exp(s - m') (unnormalised) multiplied into it; the
+// context is divided by l at the end -- sum(e v) / l where the two-walk form
+// has sum((e / l) v), a difference of f32 roundings.  q's split A fragments
+// sit in shared memory (in registers they would take 64 a thread and push the
+// walk into spills).
+//
+// attention_tf32x3_stats_kernel (K5a in f32, and the f32 forward at p = 0
+// whose gradient is wanted) leaves each row's m and l for the backward and
+// walks the keys twice: pass 1 the online m and l, pass 2 the same scores
+// again, p = exp(s - m) * (1 / l) with the final m and l, the mask, p.v.  The
+// backward's rows kernel (attention_bwd.cu) recomputes p from those m and l
+// with the same score tile (tf32x3_scores) and the same arithmetic, so its p
+// is this kernel's bit for bit.  That is why not one walk: the one-walk p of a
+// key, e rescaled tile after tile, is a few ulps from exp(s - m) / l, and in a
+// row where one key takes nearly all the weight, delta = rowsum(g * ctx) then
+// carries that mismatch times g.v (of order 10) into every ds of the row: the
+// f32 backward's dq read 2.3e-6 of its largest value against a 2e-6 limit so
+// (PERF.md).  With dropout, pd = keep ? p * (1 / (1 - p_drop)) : 0, the
+// product taken before the select; the mask words come as in the bf16 kernel
+// (acc_bits).  Its products sum each k-step in a fresh accumulator added by
+// f32 additions (tf32x3_abT, mma3_add): the gradients are held to
+// 2e-6 of the f32 plain version's, and 8 truncating additions a score at the
+// score's size read 2.0e-6 of dk's largest value against f32 products whose
+// own error there is 1.1e-6 (PERF.md).  Pass 2 takes a tile in two halves of
+// 32 keys (registers).  q's fragments sit unsplit in shared memory and are
+// split at each use, which keeps the block at 88 KB: two blocks an SM.
 constexpr int kLdKf = 72, kLdVf = 68;
+constexpr int kHalf = kBk / 16;        // the 8-key n-tiles of half a key tile
 constexpr int kStageTf32 = kBk * (kLdKf + kLdVf) + kBk;   // floats: keys, values, biases
 // 2: tile j + 1 loads while tile j is computed; 1: it loads after, and other
 // blocks on the SM fill the wait (kBlocksTf32 of them)
 constexpr int kStagesTf32 = 2, kBlocksTf32 = 2;
-// the stages, then q's split A fragments: [warp][k-step][hi, lo][lane][4]
+// the stages, then q's A fragments: K2 split, [warp][k-step][hi, lo][lane][4];
+// the forward with statistics unsplit, [warp][k-step][lane][4]
 constexpr int kQFragTf32 = kWarps * (kHd / 8) * 2 * 32 * 4;
 constexpr size_t kSmemTf32 = ((size_t)kStagesTf32 * kStageTf32 + kQFragTf32) * sizeof(float);
+constexpr size_t kSmemStats = ((size_t)kStagesTf32 * kStageTf32 + kQFragTf32 / 2) * sizeof(float);
 
-// c += a . b, a [16, 8] and b [8, 8] TF32 (low 13 bits zero), c f32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4], float b0, float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
-        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+// the keys (and values) of the tile from key k0 on and their biases into a
+// stage, by cp.async (zeros and -inf past t)
+__device__ __forceinline__ void load_kv_tf32(float* kd, const float* kg, const float* vg,
+                                             const float* bg, long long kst, long long vst, int k0,
+                                             int t, bool values) {
+  load_tile_f32_async<kLdKf>(kd, kg, kst, k0, t);
+  if (values) load_tile_f32_async<kLdVf>(kd + kBk * kLdKf, vg, vst, k0, t);
+  float* bd = kd + kBk * (kLdKf + kLdVf);
+  if (threadIdx.x < kBk) {
+    if (k0 + (int)threadIdx.x < t) cp_async4(bd + threadIdx.x, bg + k0 + threadIdx.x);
+    else bd[threadIdx.x] = -INFINITY;   // keys past t: zero weight, no part in the max
+  }
 }
 
-// c += a_lo . b_hi + a_hi . b_lo: the cross terms of a split product whose
-// b = (b0, b1) is split here
-__device__ __forceinline__ void mma_cross(float (&c)[4], const float (&ah)[4], const float (&al)[4],
-                                          float b0, float b1) {
-  float bh0, bl0, bh1, bl1;
-  tf32_split(b0, bh0, bl0);
-  tf32_split(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
+// step j's stage once everyone's copies have landed; with two stages, step
+// j + 1's loads are started first
+template <typename Load>
+__device__ __forceinline__ const float* arrive_tf32(float* smem, int j, int steps, Load load) {
+  if constexpr (kStagesTf32 == 2) {
+    if (j + 1 < steps) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return smem + (j % kStagesTf32) * kStageTf32;
 }
 
-// c += a_hi . b_hi
-__device__ __forceinline__ void mma_hihi(float (&c)[4], const float (&ah)[4], float b0, float b1) {
-  mma_tf32(c, ah, tf32_round(b0), tf32_round(b1));
+// after step j's reads: the stage is free (with one stage, step j + 1's loads
+// start now)
+template <typename Load>
+__device__ __forceinline__ void release_tf32(int j, int steps, Load load) {
+  __syncthreads();
+  if constexpr (kStagesTf32 == 1) {
+    if (j + 1 < steps) load(j + 1);
+    cp_async_commit();
+  }
+}
+
+// one tile of the online softmax of rows g (h = 0) and g + 8 (h = 1): s, the
+// scaled and biased scores, becomes e = exp(s - m') with m' the new running
+// max; l = l exp(m - m') + the tile's sum of e; corr = exp(m - m') (0 on the
+// first tile)
+__device__ __forceinline__ void online_softmax(float (&s)[kBk / 8][4], float (&m_run)[2],
+                                               float (&l_run)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c) mx = fmaxf(mx, fmaxf(s[c][2 * h], s[c][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[h], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kBk / 8; ++c) {
+      s[c][2 * h] = expf(s[c][2 * h] - m_new);
+      s[c][2 * h + 1] = expf(s[c][2 * h + 1] - m_new);
+      sum += s[c][2 * h] + s[c][2 * h + 1];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    corr[h] = expf(m_run[h] - m_new);
+    l_run[h] = l_run[h] * corr[h] + sum;
+    m_run[h] = m_new;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocksTf32)
@@ -655,6 +601,101 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+template <int kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksTf32)
+attention_tf32x3_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ bias,
+                              float* __restrict__ out, int t, Strides qs, Strides ks, Strides vs,
+                              Strides os, float sm_scale, const Drop drop, float inv_keep,
+                              float* __restrict__ stats) {
+  extern __shared__ __align__(16) float smem_tf32[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z;
+  const int plane = b * gridDim.y + head;
+  const int row_g = q0 + warp * kRows + g;          // the thread's rows row_g and row_g + 8
+  const float* kg = k + b * ks.b + head * ks.h;
+  const float* vg = v + b * vs.b + head * vs.h;
+  const float* bg = bias + (long long)b * t;
+  const int n = (t + kBk - 1) / kBk, steps = 2 * n;   // steps 0 .. n - 1 pass 1, then pass 2
+
+  auto load = [&](int j) {
+    load_kv_tf32(smem_tf32 + (j % kStagesTf32) * kStageTf32, kg, vg, bg, ks.t, vs.t,
+                 (j < n ? j : j - n) * kBk, t, j >= n);
+  };
+  load(0);
+  cp_async_commit();
+  // each thread reads back only its own fragments: no barrier
+  float4* qfrag = reinterpret_cast<float4*>(smem_tf32 + kStagesTf32 * kStageTf32) +
+                  warp * (kHd / 8) * 32 + lane;
+  store_row_frags(qfrag, q + b * qs.b + head * qs.h, qs.t, row_g, t, tq);
+  auto qa = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(qfrag[kk * 32], hi, lo); };
+
+  // pass 1: each row's max and sum
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int j = 0; j < n; ++j) {
+    const float* kt = arrive_tf32(smem_tf32, j, steps, load);
+    float s[kBk / 8][4], corr[2];
+    tf32x3_scores<kLdKf, kBk / 8>(s, qa, kt, kt + kBk * (kLdKf + kLdVf), sm_scale, g, tq);
+    online_softmax(s, m_run, l_run, corr);
+    release_tf32(j, steps, load);
+  }
+  if (stats != nullptr && tq == 0) {    // a training forward leaves them for the backward
+    const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row_g + 8 * h < t) {
+        float* st = stats + (long long)plane * t + row_g + 8 * h;
+        st[0] = m_run[h];
+        st[planes_t] = l_run[h];
+      }
+    }
+  }
+  const float inv_l[2] = {1.f / l_run[0], 1.f / l_run[1]};
+
+  // pass 2: probabilities, mask, context
+  const PhiloxRow prow = philox_row(drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
+  float o[kHd / 8][4];
+#pragma unroll
+  for (int c = 0; c < kHd / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  for (int j = n; j < steps; ++j) {
+    const float* kt = arrive_tf32(smem_tf32, j, steps, load);
+    const float* vt = kt + kBk * kLdKf;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBk / 8; c0 += kHalf) {
+      float s[kHalf][4];
+      tf32x3_scores<kLdKf, kHalf>(s, qa, kt + 8 * c0 * kLdKf,
+                                        kt + kBk * (kLdKf + kLdVf) + 8 * c0, sm_scale, g, tq);
+#pragma unroll
+      for (int c = 0; c < kHalf; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[c][i] = expf(s[c][i] - m_run[i >> 1]) * inv_l[i >> 1];
+        if constexpr (kDrop != 0) {
+          unsigned bits[4];
+          acc_bits<kDrop>(drop, prow, plane, t, row_g, (j - n) * kBk + 8 * (c0 + c), lane, bits);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float kept = s[c][i] * inv_keep;   // before the select: no branch
+            s[c][i] = bits[i] >= drop.thresh ? kept : 0.f;
+          }
+        }
+      }
+      // o += pd.v, each k-step of 8 keys in a fresh accumulator (mma3_add):
+      // pd's A fragment of step c is (s[c][0], s[c][2], s[c][1], s[c][3]), B
+      // the value tile's rows 8 c + 2 tq, + 1 at column 8 nn + g
+#pragma unroll
+      for (int c = 0; c < kHalf; ++c) {
+        float ph[4], pl[4];
+        split_frag(make_float4(s[c][0], s[c][2], s[c][1], s[c][3]), ph, pl);
+        const float* v0 = vt + (8 * (c0 + c) + 2 * tq) * kLdVf + g;
+#pragma unroll
+        for (int nn = 0; nn < kHd / 8; ++nn) mma3_add(o[nn], ph, pl, v0[8 * nn], v0[kLdVf + 8 * nn]);
+      }
+    }
+    release_tf32(j, steps, load);
+  }
+  store_rows_f32(o, out + b * os.b + head * os.h, os.t, row_g, t, tq);
+}
+
 int launch_tf32x3(const void* q, const void* k, const void* v, const void* bias, void* out,
                   int b, int nh, int t, const long long* s, float sm_scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_kernel,
@@ -670,18 +711,18 @@ int launch_tf32x3(const void* q, const void* k, const void* v, const void* bias,
 }
 
 template <int kDrop>
-int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out, int b,
-               int nh, int t, const long long* s, float sm_scale, const Drop& drop, void* stats,
-               void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel<kDrop>,
+int launch_tf32x3_stats(const void* q, const void* k, const void* v, const void* bias, void* out,
+                        int b, int nh, int t, const long long* s, float sm_scale, const Drop& drop,
+                        void* stats, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_stats_kernel<kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemF32);
+                                         (int)kSmemStats);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + kBq - 1) / kBq, nh, b);
-  attention_f32_kernel<kDrop><<<grid, kThreads, kSmemF32, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t, s[0],
-      s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], sm_scale, drop,
-      (float*)stats);
+  attention_tf32x3_stats_kernel<kDrop><<<grid, kThreads, kSmemStats, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t,
+      Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
+      Strides{s[9], s[10], s[11]}, sm_scale, drop, 1.f / drop.keep_div, (float*)stats);
   return (int)cudaGetLastError();
 }
 
@@ -724,14 +765,14 @@ extern "C" int aspire_attention_f32(const void* q, const void* k, const void* v,
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
   const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
-  // the inference forward (no row statistics wanted) on the tensor cores; the
-  // forward that leaves m and l for the FMA backward keeps that backward's FMA
-  // products, so that the two compute the same probabilities
+  // the inference forward (no row statistics wanted) walks the keys once;
+  // the forward that leaves m and l for the backward, and every forward with
+  // dropout, twice
   if (mode == 0 && stats == nullptr)
     return launch_tf32x3(q, k, v, bias, out, b, nh, t, s, sm_scale, stream);
-  if (mode == 0) return launch_f32<0>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
-  if (mode == 1) return launch_f32<1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 0) return launch_tf32x3_stats<0>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 1) return launch_tf32x3_stats<1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
   if (mode == 2 && bits != nullptr)
-    return launch_f32<2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+    return launch_tf32x3_stats<2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -66,9 +66,10 @@
 // by dk and dq alike.  f32 accumulation in all products; outputs cast on store.
 // The bias gets no gradient here (the wrapper returns none for it).
 //
-// f32 keeps the two-kernel design of plain FMAs (a check path; training runs
-// bf16): a rows kernel (delta, dq) and a keys kernel (dk, dv), each computing
-// scores and dpd, seven products in all.
+// f32 (training with --no-bf16-compute) runs two launches on the tensor cores
+// as split-TF32 products: a rows kernel (delta, dq) and a keys kernel (dk,
+// dv), each computing scores and dpd, seven products in all; see the f32
+// section below.
 #include "attention_tile.cuh"
 
 namespace {
@@ -432,228 +433,276 @@ int launch_bf16(const BwdArgs& a, int b, int nh, void* stream) {
 }
 
 // ==================================================================== f32 ====
-// Elementwise work on a warp's [16, 64] tile goes by items of four neighbouring
-// columns (one Philox call): lane handles rows (lane / 16) + 2 i, i = 0..7, and
-// columns 4 (lane % 16) .. + 3; the 16 lanes of a half warp share a row.
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// sw: q.k^T, dw: g.v^T of the warp's tile (pitch kLdS); writes pd and ds
-// (pitch kLdS; either may alias its input tile).
-template <int kDrop>
-__device__ __forceinline__ void bwd_items_f32(const float* sw, const float* dw,
-                                              const float* bias_s, const float (&m)[8],
-                                              const float (&l)[8], const float (&delta)[8],
-                                              float sm_scale, const Drop& drop, int plane, int t,
-                                              int row0, int k0, int lane, float* pd_w,
-                                              float* ds_w) {
-  const int c4 = lane & 15;
-  const float4 bias4 = *reinterpret_cast<const float4*>(bias_s + 4 * c4);
-  const float bias[4] = {bias4.x, bias4.y, bias4.z, bias4.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (lane >> 4) + 2 * i;
-    const float4 s4 = *reinterpret_cast<const float4*>(sw + r * kLdS + 4 * c4);
-    const float4 d4 = *reinterpret_cast<const float4*>(dw + r * kLdS + 4 * c4);
-    const float s[4] = {s4.x, s4.y, s4.z, s4.w}, dpd[4] = {d4.x, d4.y, d4.z, d4.w};
-    unsigned bits[4] = {0u, 0u, 0u, 0u};
-    if constexpr (kDrop != 0) {
-      const uint4 w = row_bits<kDrop>(drop, plane, t, row0 + r, k0 / 4 + c4);
-      bits[0] = w.x; bits[1] = w.y; bits[2] = w.z; bits[3] = w.w;
-    }
-    float pd[4], ds[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float probs = expf(s[e] * sm_scale + bias[e] - m[i]) / l[i];
-      float dprobs = dpd[e];
-      pd[e] = probs;
-      if constexpr (kDrop != 0) {
-        const bool keep = bits[e] >= drop.thresh;
-        dprobs = keep ? dprobs / drop.keep_div32 : 0.f;
-        pd[e] = keep ? probs / drop.keep_div : 0.f;
-      }
-      ds[e] = (probs * (dprobs - delta[i])) * sm_scale;
-    }
-    *reinterpret_cast<float4*>(pd_w + r * kLdS + 4 * c4) = make_float4(pd[0], pd[1], pd[2], pd[3]);
-    *reinterpret_cast<float4*>(ds_w + r * kLdS + 4 * c4) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-  }
-}
-
-__device__ __forceinline__ void store_acc_f32(const float (&o0)[kRows], const float (&o1)[kRows],
-                                              float* stage_w, float* dst, long long stride,
-                                              int row0, int t, int lane) {
-  __syncwarp();
-  for (int r = 0; r < kRows; ++r) {
-    stage_w[r * kLdS + lane] = o0[r];
-    stage_w[r * kLdS + lane + 32] = o1[r];
-  }
-  __syncwarp();
-  for (int idx = lane; idx < kRows * (kHd / 4); idx += 32) {
-    const int r = idx / (kHd / 4), cv = (idx % (kHd / 4)) * 4;
-    if (row0 + r < t)
-      *reinterpret_cast<float4*>(dst + (long long)(row0 + r) * stride + cv) =
-          *reinterpret_cast<const float4*>(stage_w + r * kLdS + cv);
-  }
-}
-
-constexpr size_t kSmemRowsF32 =
-    (size_t)(4 * 64 * 65 + 3 * kWarps * kRows * kLdS + 64) * sizeof(float);
+// Two launches a backward, each product split TF32 (3xTF32) on mma.sync
+// m16n8k8 (attention_tile.cuh), seven products in all: the scores and dpd
+// are computed in both kernels rather than handed over in an f32 ds scratch
+// ([b * heads, t, t] f32 is 377 MB written and read at [30, 12, 512, 64],
+// 0.23 ms of bytes, against about 0.15 ms for two products at the split-TF32
+// rate).
+//
+//   rows  one block per 64 query rows, one warp per 16, walking the key tiles
+//         (keys, values and biases by cp.async, two stages): delta =
+//         rowsum(g * ctx) of the warp's rows first (into plane 2 of the
+//         statistics, for the keys kernel), then per tile the scores through
+//         tf32x3_scores -- the forward's own score tile, so that p = exp(s -
+//         m) * (1 / l) is the forward's bit for bit -- dpd = g.v^T, ds, and
+//         dq += ds . k, ds's A fragments straight from its accumulator.
+//   keys  one block per 64 keys, one warp per 16, walking the query tiles
+//         (q, g and the rows' m, 1 / l, delta, two stages): the tile
+//         transposed, keys as the M dimension, S^T = k.q^T and dpd^T = v.g^T,
+//         then pd^T and ds^T straight from the accumulators as the A
+//         fragments of dv += pd^T . g and dk += ds^T . q.  The mask words of
+//         the transposed tile come as in the bf16 keys kernel (acc_bits_t).
+//
+// q and g (rows kernel), k and v (keys kernel) of the warp's 16 rows sit
+// unsplit in shared memory as A fragments and are split at each use; the
+// tiles walked over have a pitch of 72 floats (float2 B reads without
+// conflicts, the scalar B reads of dq, dk, dv two-way), and a warp takes a
+// tile in four parts of 16 keys or rows, one after the other: the keys
+// kernel's dk and dv sums (64 registers) stay beside its scores without
+// spills (in halves of 32 it spilled up to 92 bytes and read 0.52 ms against
+// 0.43 at [4, 12, 512, 64], PERF.md).  The sums over keys
+// (dq) and rows (dk, dv) take a fresh tensor-core accumulator every k-step of
+// 8 and add it by FADD (mma3_add), so that the truncating additions stay at
+// the size of 8 products.  Blocks of 107 and 108 KB: two an SM.
+constexpr int kLdT = 72;                              // pitch of the walked tiles
+constexpr int kPartF32 = kBk / 32;                    // the 8-wide n-tiles of a quarter tile
+constexpr int kFragF32 = kWarps * (kHd / 8) * 32 * 4;   // a block's rows as A fragments
+constexpr int kStageRows = 2 * kBk * kLdT + kBk;      // keys, values, biases
+constexpr int kStageKeys = 2 * kBq * kLdT + 3 * kBq;  // q, g, then m, 1 / l, delta
+constexpr size_t kSmemRowsF32 = ((size_t)2 * kStageRows + 2 * kFragF32) * sizeof(float);
+constexpr size_t kSmemKeysF32 = ((size_t)2 * kStageKeys + 2 * kFragF32) * sizeof(float);
 
 template <int kDrop>
-__global__ void __launch_bounds__(kThreads) bwd_rows_f32_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* gs = qs + 64 * 65;
-  float* ks = gs + 64 * 65;
-  float* vs = ks + 64 * 65;
-  float* ss = vs + 64 * 65;                    // [warps][16][kLdS] q.k^T
-  float* dd = ss + kWarps * kRows * kLdS;      // [warps][16][kLdS] g.v^T, then ds
-  float* pp = dd + kWarps * kRows * kLdS;      // [warps][16][kLdS] pd (not used for dq)
-  float* bias_s = pp + kWarps * kRows * kLdS;  // [64], 16-byte aligned
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kThreads, 2) bwd_rows_tf32x3_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem_rows[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z, t = a.t;
-  const int plane = b * gridDim.y + head;
+  const int plane = b * gridDim.y + head, row_g = q0 + warp * kRows + g;
   const long long planes_t = (long long)gridDim.z * gridDim.y * t;
   const float* kg = head_ptr<float>(a.k, a.ks, b, head);
   const float* vg = head_ptr<float>(a.v, a.vs, b, head);
   const float* bg = a.bias + (long long)b * t;
   float* st = a.stats + (long long)plane * t;
-  float* sw = ss + warp * kRows * kLdS;
-  float* dw = dd + warp * kRows * kLdS;
-  float* pw = pp + warp * kRows * kLdS;
-  const float* qw = qs + warp * kRows * 65;
-  const float* gw = gs + warp * kRows * 65;
+  const int n = (t + kBk - 1) / kBk;
 
-  load_tile<float>(qs, head_ptr<float>(a.q, a.qs, b, head), a.qs.t, q0, t);
-  load_tile<float>(gs, head_ptr<float>(a.g, a.gs, b, head), a.gs.t, q0, t);
-  load_tile<float>(ks, head_ptr<float>(a.out, a.os, b, head), a.os.t, q0, t);   // ctx, for delta
-  __syncthreads();
+  auto load = [&](int j) {
+    float* kd = smem_rows + (j & 1) * kStageRows;
+    load_tile_f32_async<kLdT>(kd, kg, a.ks.t, j * kBk, t);
+    load_tile_f32_async<kLdT>(kd + kBk * kLdT, vg, a.vs.t, j * kBk, t);
+    float* bd = kd + 2 * kBk * kLdT;
+    if (threadIdx.x < kBk) {
+      if (j * kBk + (int)threadIdx.x < t) cp_async4(bd + threadIdx.x, bg + j * kBk + threadIdx.x);
+      else bd[threadIdx.x] = -INFINITY;   // keys past t: zero weight
+    }
+  };
+  load(0);
+  cp_async_commit();
+  // each thread reads back only its own fragments: no barrier
+  float4* qfrag = reinterpret_cast<float4*>(smem_rows + 2 * kStageRows) + warp * (kHd / 8) * 32 + lane;
+  float4* gfrag = qfrag + kFragF32 / 4;
+  const float* gsrc = head_ptr<float>(a.g, a.gs, b, head);
+  store_row_frags(qfrag, head_ptr<float>(a.q, a.qs, b, head), a.qs.t, row_g, t, tq);
+  store_row_frags(gfrag, gsrc, a.gs.t, row_g, t, tq);
+  auto qa = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(qfrag[kk * 32], hi, lo); };
+  auto ga = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(gfrag[kk * 32], hi, lo); };
 
-  float o0[kRows], o1[kRows];
-  for (int r = 0; r < kRows; ++r) o0[r] = o1[r] = 0.f;
-  const int row0 = q0 + warp * kRows, c4 = lane & 15;
-  float m[8], l[8], delta[8];
+  // delta = rowsum(g * ctx) of rows row_g (h = 0) and row_g + 8: the thread's
+  // 16 columns, then the quad's sum; the forward's m and 1 / l.  Rows past t
+  // (q and g are zero there) take (m, 1 / l, delta) = (0, 1, 0).
+  float m[2], inv_l[2], delta[2];
+  const float* ctx = head_ptr<float>(a.out, a.os, b, head);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    // delta = rowsum(g * ctx): the 16 lanes of a half warp share a row
-    const int r = (lane >> 4) + 2 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    const bool valid = row < t;
     float sum = 0.f;
+    if (valid) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sum += gw[r * 65 + 4 * c4 + e] * ks[(warp * kRows + r) * 65 + 4 * c4 + e];
-    delta[i] = half_warp_sum(sum);
-    const bool valid = row0 + r < t;   // rows past t: q and g are zero, any finite values do
-    m[i] = valid ? st[row0 + r] : 0.f;
-    l[i] = valid ? st[planes_t + row0 + r] : 1.f;
-    if (c4 == 0 && valid) st[2 * planes_t + row0 + r] = delta[i];
-  }
-
-  for (int k0 = 0; k0 < t; k0 += kBk) {
-    __syncthreads();
-    load_tile<float>(ks, kg, a.ks.t, k0, t);
-    load_tile<float>(vs, vg, a.vs.t, k0, t);
-    if (threadIdx.x < kBk)
-      bias_s[threadIdx.x] = (k0 + threadIdx.x < t) ? bg[k0 + threadIdx.x] : -INFINITY;
-    __syncthreads();
-    f32_abT(qw, ks, sw);
-    f32_abT(gw, vs, dw);
-    __syncwarp();
-    bwd_items_f32<kDrop>(sw, dw, bias_s, m, l, delta, a.sm_scale, a.drop, plane, t, row0, k0,
-                         lane, pw, dw);
-    __syncwarp();
-    f32_ab(o0, o1, dw, kLdS, ks);            // dq += ds . k
-    __syncwarp();
-  }
-  store_acc_f32(o0, o1, sw, head_ptr<float>(a.dq, a.dqs, b, head), a.dqs.t, row0, t, lane);
-}
-
-constexpr size_t kSmemKeysF32 =
-    (size_t)(4 * 64 * 65 + 2 * kWarps * kRows * kLdS + 2 * 64 * kLdS + 4 * 64) * sizeof(float);
-
-template <int kDrop>
-__global__ void __launch_bounds__(kThreads) bwd_keys_f32_kernel(BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + 64 * 65;
-  float* qs = vs + 64 * 65;
-  float* gs = qs + 64 * 65;
-  float* ss = gs + 64 * 65;                    // [warps][16][kLdS] q.k^T
-  float* dd = ss + kWarps * kRows * kLdS;      // [warps][16][kLdS] g.v^T
-  float* pds = dd + kWarps * kRows * kLdS;     // [64 rows][kLdS] pd of the tile
-  float* dss = pds + 64 * kLdS;                // [64 rows][kLdS] ds of the tile
-  float* bias_s = dss + 64 * kLdS;             // 16-byte aligned
-  float* m_s = bias_s + 64;
-  float* l_s = m_s + 64;
-  float* d_s = l_s + 64;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * kBk, head = blockIdx.y, b = blockIdx.z, t = a.t;
-  const int plane = b * gridDim.y + head;
-  const float* qg = head_ptr<float>(a.q, a.qs, b, head);
-  const float* gg = head_ptr<float>(a.g, a.gs, b, head);
-  const float* st = a.stats + (long long)plane * t;
-  const long long planes_t = (long long)gridDim.z * gridDim.y * t;
-  float* sw = ss + warp * kRows * kLdS;
-  float* dw = dd + warp * kRows * kLdS;
-
-  load_tile<float>(ks, head_ptr<float>(a.k, a.ks, b, head), a.ks.t, k0, t);
-  load_tile<float>(vs, head_ptr<float>(a.v, a.vs, b, head), a.vs.t, k0, t);
-  if (threadIdx.x < kBk)
-    bias_s[threadIdx.x] =
-        (k0 + threadIdx.x < t) ? a.bias[(long long)b * t + k0 + threadIdx.x] : -INFINITY;
-
-  // the warp's 16 keys, columns lane and lane + 32
-  float dk0[kRows], dk1[kRows], dv0[kRows], dv1[kRows];
-  for (int r = 0; r < kRows; ++r) dk0[r] = dk1[r] = dv0[r] = dv1[r] = 0.f;
-
-  for (int q0 = 0; q0 < t; q0 += kBq) {
-    __syncthreads();
-    load_tile<float>(qs, qg, a.qs.t, q0, t);
-    load_tile<float>(gs, gg, a.gs.t, q0, t);
-    if (threadIdx.x < kBq) {
-      const bool valid = q0 + threadIdx.x < t;
-      m_s[threadIdx.x] = valid ? st[q0 + threadIdx.x] : 0.f;
-      l_s[threadIdx.x] = valid ? st[planes_t + q0 + threadIdx.x] : 1.f;
-      d_s[threadIdx.x] = valid ? st[2 * planes_t + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    f32_abT(qs + warp * kRows * 65, ks, sw);
-    f32_abT(gs + warp * kRows * 65, vs, dw);
-    __syncwarp();
-    float m[8], l[8], delta[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = warp * kRows + (lane >> 4) + 2 * i;
-      m[i] = m_s[r]; l[i] = l_s[r]; delta[i] = d_s[r];
-    }
-    bwd_items_f32<kDrop>(sw, dw, bias_s, m, l, delta, a.sm_scale, a.drop, plane, t,
-                         q0 + warp * kRows, k0, lane, pds + warp * kRows * kLdS,
-                         dss + warp * kRows * kLdS);
-    __syncthreads();
-    // dv[key][c] += sum_row pd[row][key] g[row][c];  dk likewise with ds and q
-    for (int row = 0; row < kBq; ++row) {
-      const float g0 = gs[row * 65 + lane], g1 = gs[row * 65 + lane + 32];
-      const float x0 = qs[row * 65 + lane], x1 = qs[row * 65 + lane + 32];
-#pragma unroll
-      for (int kk = 0; kk < kRows; ++kk) {
-        const float p = pds[row * kLdS + warp * kRows + kk];
-        const float d = dss[row * kLdS + warp * kRows + kk];
-        dv0[kk] = fmaf(p, g0, dv0[kk]);
-        dv1[kk] = fmaf(p, g1, dv1[kk]);
-        dk0[kk] = fmaf(d, x0, dk0[kk]);
-        dk1[kk] = fmaf(d, x1, dk1[kk]);
+      for (int i = 0; i < 4; ++i) {
+        const float4 gv = *reinterpret_cast<const float4*>(gsrc + (long long)row * a.gs.t + 16 * tq + 4 * i);
+        const float4 ov = *reinterpret_cast<const float4*>(ctx + (long long)row * a.os.t + 16 * tq + 4 * i);
+        sum += gv.x * ov.x + gv.y * ov.y + gv.z * ov.z + gv.w * ov.w;
       }
     }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    m[h] = valid ? st[row] : 0.f;
+    inv_l[h] = valid ? 1.f / st[planes_t + row] : 1.f;   // the forward's 1 / l
+    delta[h] = sum;
+    if (valid && tq == 0) st[2 * planes_t + row] = sum;
   }
-  __syncthreads();
-  store_acc_f32(dv0, dv1, sw, head_ptr<float>(a.dv, a.dvs, b, head), a.dvs.t, k0 + warp * kRows,
-                t, lane);
-  store_acc_f32(dk0, dk1, dw, head_ptr<float>(a.dk, a.dks, b, head), a.dks.t, k0 + warp * kRows,
-                t, lane);
+
+  const PhiloxRow prow = philox_row(a.drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
+  float dq[kHd / 8][4];
+#pragma unroll
+  for (int c = 0; c < kHd / 8; ++c) dq[c][0] = dq[c][1] = dq[c][2] = dq[c][3] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    if (j + 1 < n) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                      // tile j's copies, everyone's
+    const float* kt = smem_rows + (j & 1) * kStageRows;
+    // the tile in four parts of 16 keys, one after the other (registers)
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBk / 8; c0 += kPartF32) {
+      float dp[kPartF32][4], s[kPartF32][4];
+      tf32x3_abT<kLdT, kPartF32>(dp, ga, kt + (kBk + 8 * c0) * kLdT, g, tq);   // dpd = g.v^T
+      tf32x3_scores<kLdT, kPartF32>(s, qa, kt + 8 * c0 * kLdT, kt + 2 * kBk * kLdT + 8 * c0,
+                                          a.sm_scale, g, tq);
+#pragma unroll
+      for (int c = 0; c < kPartF32; ++c) {
+        unsigned bits[4];
+        if constexpr (kDrop != 0)
+          acc_bits<kDrop>(a.drop, prow, plane, t, row_g, j * kBk + 8 * (c0 + c), lane, bits);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float probs = expf(s[c][i] - m[i >> 1]) * inv_l[i >> 1];
+          float dprobs = dp[c][i];
+          if constexpr (kDrop != 0) {
+            const float kept = dprobs * a.inv_keep32;   // before the select: no branch
+            dprobs = bits[i] >= a.drop.thresh ? kept : 0.f;
+          }
+          s[c][i] = (probs * (dprobs - delta[i >> 1])) * a.sm_scale;   // ds
+        }
+      }
+      // dq += ds . k: k-step c is keys 8 c .. + 7 (ds's A fragment (c0, c2,
+      // c1, c3) of its accumulator tile c), B the key tile's rows 8 c + 2 tq,
+      // + 1 at dims 8 nn + g
+#pragma unroll
+      for (int c = 0; c < kPartF32; ++c) {
+        float dh[4], dl[4];
+        split_frag(make_float4(s[c][0], s[c][2], s[c][1], s[c][3]), dh, dl);
+        const float* k0 = kt + (8 * (c0 + c) + 2 * tq) * kLdT + g;
+#pragma unroll
+        for (int nn = 0; nn < kHd / 8; ++nn) mma3_add(dq[nn], dh, dl, k0[8 * nn], k0[kLdT + 8 * nn]);
+      }
+    }
+    __syncthreads();                      // the stage is reloaded with tile j + 2
+  }
+  store_rows_f32(dq, head_ptr<float>(a.dq, a.dqs, b, head), a.dqs.t, row_g, t, tq);
+}
+
+template <int kDrop>
+__global__ void __launch_bounds__(kThreads, 2) bwd_keys_tf32x3_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem_keys_f32[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * kBk, head = blockIdx.y, b = blockIdx.z, t = a.t;
+  const int plane = b * gridDim.y + head;
+  const int kw = k0 + warp * 16;          // the warp's keys; the thread's kw + g and kw + g + 8
+  const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+  const float* st = a.stats + (long long)plane * t;
+  const float* qg = head_ptr<float>(a.q, a.qs, b, head);
+  const float* gg = head_ptr<float>(a.g, a.gs, b, head);
+  const int n = (t + kBq - 1) / kBq;
+
+  auto load = [&](int i) {
+    float* d = smem_keys_f32 + (i & 1) * kStageKeys;
+    load_tile_f32_async<kLdT>(d, qg, a.qs.t, i * kBq, t);
+    load_tile_f32_async<kLdT>(d + kBq * kLdT, gg, a.gs.t, i * kBq, t);
+  };
+  // m, 1 / l (the forward's, as it takes it) and delta of a query row; rows
+  // past t (q and g are zero there) take 0, 1, 0
+  auto row_stats = [&](int row, float (&r)[3]) {
+    const bool valid = row < t;
+    r[0] = valid ? st[row] : 0.f;
+    r[1] = valid ? 1.f / st[planes_t + row] : 1.f;
+    r[2] = valid ? st[2 * planes_t + row] : 0.f;
+  };
+  auto put_stats = [&](int i, const float (&r)[3]) {
+    float* d = smem_keys_f32 + (i & 1) * kStageKeys + 2 * kBq * kLdT + threadIdx.x;
+    d[0] = r[0];
+    d[kBq] = r[1];
+    d[2 * kBq] = r[2];
+  };
+  load(0);
+  cp_async_commit();
+  if (threadIdx.x < kBq) {
+    float r[3];
+    row_stats(threadIdx.x, r);
+    put_stats(0, r);
+  }
+  float4* kfrag = reinterpret_cast<float4*>(smem_keys_f32 + 2 * kStageKeys) + warp * (kHd / 8) * 32 + lane;
+  float4* vfrag = kfrag + kFragF32 / 4;
+  store_row_frags(kfrag, head_ptr<float>(a.k, a.ks, b, head), a.ks.t, kw + g, t, tq);
+  store_row_frags(vfrag, head_ptr<float>(a.v, a.vs, b, head), a.vs.t, kw + g, t, tq);
+  auto ka = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(kfrag[kk * 32], hi, lo); };
+  auto va = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(vfrag[kk * 32], hi, lo); };
+  // bias of the thread's keys, the rows of its transposed tile
+  const float bias0 = kw + g < t ? a.bias[(long long)b * t + kw + g] : -INFINITY;
+  const float bias1 = kw + g + 8 < t ? a.bias[(long long)b * t + kw + g + 8] : -INFINITY;
+
+  float dk[kHd / 8][4], dv[kHd / 8][4];
+#pragma unroll
+  for (int c = 0; c < kHd / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[c][i] = dv[c][i] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    const bool more = it + 1 < n;
+    float next[3] = {0.f, 1.f, 0.f};
+    if (more) {                           // tile it + 1, in flight during the math
+      load(it + 1);
+      if (threadIdx.x < kBq) row_stats((it + 1) * kBq + threadIdx.x, next);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                      // tile it's copies and statistics, everyone's
+    const float* qt = smem_keys_f32 + (it & 1) * kStageKeys;
+    const float* gt = qt + kBq * kLdT;
+    const float* sb = gt + kBq * kLdT;
+    // the tile in four parts of 16 rows, one after the other (registers):
+    // S^T = k.q^T and dpd^T = v.g^T of the warp's 16 keys, s[c] holding keys
+    // g, g + 8 at rows 8 c + 2 tq, + 1
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBq / 8; c0 += kPartF32) {
+      float s[kPartF32][4], dp[kPartF32][4];
+      tf32x3_abT<kLdT, kPartF32>(s, ka, qt + 8 * c0 * kLdT, g, tq);
+      tf32x3_abT<kLdT, kPartF32>(dp, va, gt + 8 * c0 * kLdT, g, tq);
+#pragma unroll
+      for (int c = 0; c < kPartF32; ++c) {
+        unsigned bits[4];
+        if constexpr (kDrop != 0)
+          acc_bits_t<kDrop>(a.drop, plane, t, kw, it * kBq + 8 * (c0 + c), lane, bits);
+        const int r = 8 * (c0 + c) + 2 * tq;
+        const float2 m2 = *reinterpret_cast<const float2*>(sb + r);
+        const float2 il2 = *reinterpret_cast<const float2*>(sb + kBq + r);
+        const float2 d2 = *reinterpret_cast<const float2*>(sb + 2 * kBq + r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sv = s[c][i] * a.sm_scale + ((i >> 1) ? bias1 : bias0);
+          const float probs = expf(sv - ((i & 1) ? m2.y : m2.x)) * ((i & 1) ? il2.y : il2.x);
+          float pd = probs, dprobs = dp[c][i];
+          if constexpr (kDrop != 0) {
+            const bool keep = bits[i] >= a.drop.thresh;
+            const float kept_p = probs * a.inv_keep, kept_d = dprobs * a.inv_keep32;
+            pd = keep ? kept_p : 0.f;
+            dprobs = keep ? kept_d : 0.f;
+          }
+          s[c][i] = pd;
+          dp[c][i] = (probs * (dprobs - ((i & 1) ? d2.y : d2.x))) * a.sm_scale;   // ds^T
+        }
+      }
+      // dv += pd^T . g and dk += ds^T . q: k-step c is rows 8 c .. + 7, B the
+      // g and q tiles' rows 8 c + 2 tq, + 1 at dims 8 nn + g
+#pragma unroll
+      for (int c = 0; c < kPartF32; ++c) {
+        float ph[4], pl[4], dh[4], dl[4];
+        split_frag(make_float4(s[c][0], s[c][2], s[c][1], s[c][3]), ph, pl);
+        split_frag(make_float4(dp[c][0], dp[c][2], dp[c][1], dp[c][3]), dh, dl);
+        const float* g0 = gt + (8 * (c0 + c) + 2 * tq) * kLdT + g;
+        const float* q0 = qt + (8 * (c0 + c) + 2 * tq) * kLdT + g;
+#pragma unroll
+        for (int nn = 0; nn < kHd / 8; ++nn) {
+          mma3_add(dv[nn], ph, pl, g0[8 * nn], g0[kLdT + 8 * nn]);
+          mma3_add(dk[nn], dh, dl, q0[8 * nn], q0[kLdT + 8 * nn]);
+        }
+      }
+    }
+    if (more && threadIdx.x < kBq) put_stats(it + 1, next);   // last read before this tile's barrier
+    __syncthreads();                      // buffers it & 1 are free for tile it + 2
+  }
+  store_rows_f32(dv, head_ptr<float>(a.dv, a.dvs, b, head), a.dvs.t, kw + g, t, tq);
+  store_rows_f32(dk, head_ptr<float>(a.dk, a.dks, b, head), a.dks.t, kw + g, t, tq);
 }
 
 int launch_f32(void (*rows)(BwdArgs), void (*keys)(BwdArgs), const BwdArgs& a, int b, int nh,
@@ -723,9 +772,11 @@ extern "C" int aspire_attention_bwd_f32(const void* q, const void* k, const void
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, nullptr, t, strides,
                               sm_scale, seed, c0, thresh, keep_div, keep_div32, bits);
-  if (mode == 0) return launch_f32(bwd_rows_f32_kernel<0>, bwd_keys_f32_kernel<0>, a, b, nh, stream);
-  if (mode == 1) return launch_f32(bwd_rows_f32_kernel<1>, bwd_keys_f32_kernel<1>, a, b, nh, stream);
+  if (mode == 0)
+    return launch_f32(bwd_rows_tf32x3_kernel<0>, bwd_keys_tf32x3_kernel<0>, a, b, nh, stream);
+  if (mode == 1)
+    return launch_f32(bwd_rows_tf32x3_kernel<1>, bwd_keys_tf32x3_kernel<1>, a, b, nh, stream);
   if (mode == 2 && bits != nullptr)
-    return launch_f32(bwd_rows_f32_kernel<2>, bwd_keys_f32_kernel<2>, a, b, nh, stream);
+    return launch_f32(bwd_rows_tf32x3_kernel<2>, bwd_keys_tf32x3_kernel<2>, a, b, nh, stream);
   return (int)cudaErrorInvalidValue;
 }

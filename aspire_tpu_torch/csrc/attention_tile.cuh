@@ -1,8 +1,8 @@
 // What the attention forward (attention.cu) and backward (attention_bwd.cu)
-// share: tile sizes, the tile loaders (plain f32, and asynchronous bf16 into
-// the padded or the wgmma layout), the mma.sync product of a warp's 16 rows
+// share: tile sizes, the tile loaders (asynchronous bf16 into the padded or
+// the wgmma layout, asynchronous f32), the mma.sync product of a warp's 16 rows
 // with a 64-row tile that the backward's dq kernel runs, and the f32 kernels'
-// FMA products.
+// split-TF32 products, the score tile among them.
 #pragma once
 
 #include <math.h>
@@ -17,26 +17,9 @@ constexpr int kBk = 64;        // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kBq / kWarps;   // 16 query rows per warp
-constexpr int kLdS = 68;       // pitch of the f32 kernels' score rows (float4 reads)
 
 template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> { static constexpr int ld = 72; };   // 16-byte rows, skewed banks
-template <> struct Cfg<float> { static constexpr int ld = 65; };           // odd pitch: k[c][d] by lane c
-
-// rows [row0, row0 + 64) of a [t, 64] f32 matrix with row pitch `stride`; zero past t
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long stride, int row0,
-                                          int t) {
-  static_assert(sizeof(T) == 4, "bf16 tiles are loaded by cp.async");
-  constexpr int ld = Cfg<T>::ld;
-  for (int idx = threadIdx.x; idx < kBk * (kHd / 4); idx += kThreads) {
-    const int r = idx / (kHd / 4), cv = (idx % (kHd / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < t) v = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * stride + cv);
-    float* o = reinterpret_cast<float*>(dst) + r * ld + cv;
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-}
 
 // rows [row0, row0 + 64) of a [t, 64] bf16 matrix into a [64][72] tile without
 // waiting: the copies join the thread's open group; zero past t
@@ -80,43 +63,152 @@ __device__ __forceinline__ void mma_ab_chunk(float (&acc)[kHd / 8][4], const uns
   }
 }
 
-// ---- f32 building blocks: plain FMAs, a warp's 16 rows, lane c owns columns
-// c and c + 32 of a product ---------------------------------------------------
+// ---- f32 building blocks: split-TF32 (3xTF32) mma.sync products ----------
+// mma.sync m16n8k8 TF32: with g = lane / 4 and t = lane % 4 a thread holds
+// A[16, 8] as a0 = (row g, k t), a1 = (row g + 8, k t), a2 = (row g, k t + 4),
+// a3 = (row g + 8, k t + 4); B[8, 8] as b0 = (k t, col g), b1 = (k t + 4,
+// col g); C as c0, c1 = (row g, cols 2t, 2t + 1), c2, c3 = (row g + 8, the
+// same).  The f32 kernels permute k inside each step: slot t is element 2t and
+// slot t + 4 element 2t + 1, so that an accumulator tile (c0, c2, c1, c3) is
+// the A fragment of a product that contracts over its columns, and a row's two
+// elements of a step are one float2.
 
-// out[16][kLdS] = a[16][65] . b[64][65]^T
-__device__ __forceinline__ void f32_abT(const float* a, const float* b, float* out) {
-  const int lane = threadIdx.x & 31;
-  float a0[kRows], a1[kRows];
-  for (int r = 0; r < kRows; ++r) a0[r] = a1[r] = 0.f;
-  const float* b0 = b + lane * 65;
-  const float* b1 = b + (lane + 32) * 65;
-  for (int d = 0; d < kHd; ++d) {
-    const float x0 = b0[d], x1 = b1[d];
+// c += a . b, a [16, 8] and b [8, 8] TF32 (low 13 bits zero), c f32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const float (&a)[4], float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// c += a_lo . b_hi + a_hi . b_lo: the cross terms of a split product whose
+// b = (b0, b1) is split here
+__device__ __forceinline__ void mma_cross(float (&c)[4], const float (&ah)[4], const float (&al)[4],
+                                          float b0, float b1) {
+  float bh0, bl0, bh1, bl1;
+  tf32_split(b0, bh0, bl0);
+  tf32_split(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+}
+
+// c += a_hi . b_hi
+__device__ __forceinline__ void mma_hihi(float (&c)[4], const float (&ah)[4], float b0, float b1) {
+  mma_tf32(c, ah, tf32_round(b0), tf32_round(b1));
+}
+
+// acc += a . b of one k-step in a fresh accumulator (cross terms, then hi.hi),
+// added to acc by f32 additions: the tensor cores' truncating additions stay
+// at the size of eight products, for sums over hundreds of rows or keys
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const float (&ah)[4],
+                                         const float (&al)[4], float b0, float b1) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_cross(c, ah, al, b0, b1);
+  mma_hihi(c, ah, b0, b1);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float av = a[r * 65 + d];
-      a0[r] = fmaf(av, x0, a0[r]);
-      a1[r] = fmaf(av, x1, a1[r]);
+  for (int i = 0; i < 4; ++i) acc[i] += c[i];
+}
+
+// the split A fragment (hi, lo) of four f32 values in slot order
+__device__ __forceinline__ void split_frag(const float4 x, float (&hi)[4], float (&lo)[4]) {
+  tf32_split(x.x, hi[0], lo[0]);
+  tf32_split(x.y, hi[1], lo[1]);
+  tf32_split(x.z, hi[2], lo[2]);
+  tf32_split(x.w, hi[3], lo[3]);
+}
+
+// The A fragments of a warp's 16 rows (rows row_g and row_g + 8 of this
+// thread) of a [t, 64] f32 matrix, unsplit, into shared memory at frag (this
+// warp's, + lane): k-step kk at frag[kk * 32], slots (row g dim 2t, row g + 8
+// dim 2t, row g dim 2t + 1, row g + 8 dim 2t + 1) of dims 8 kk ..; rows past t
+// are zero.  One float4 a step and a lane, read without bank conflicts.
+__device__ __forceinline__ void store_row_frags(float4* frag, const float* src, long long stride,
+                                                int row_g, int t, int tq) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 8; ++kk) {
+    float2 x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      x[h] = row < t ? *reinterpret_cast<const float2*>(src + (long long)row * stride + 8 * kk + 2 * tq)
+                     : make_float2(0.f, 0.f);
     }
-  }
-  for (int r = 0; r < kRows; ++r) {
-    out[r * kLdS + lane] = a0[r];
-    out[r * kLdS + lane + 32] = a1[r];
+    frag[kk * 32] = make_float4(x[0].x, x[1].x, x[0].y, x[1].y);
   }
 }
 
-// o0/o1[16] += p[16][ldp] . b[64][65]: columns lane and lane + 32
-__device__ __forceinline__ void f32_ab(float (&o0)[kRows], float (&o1)[kRows], const float* p,
-                                       int ldp, const float* b) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < kBk; ++j) {
-    const float v0 = b[j * 65 + lane], v1 = b[j * 65 + lane + 32];
+// rows [row0, row0 + 64) of a [t, 64] f32 matrix with row pitch `stride` into
+// a [64][ld] tile by cp.async, joining the thread's open group; zero past t
+template <int ld>
+__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src, long long stride,
+                                                    int row0, int t) {
+  for (int idx = threadIdx.x; idx < kBk * (kHd / 4); idx += kThreads) {
+    const int r = idx / (kHd / 4), c = (idx % (kHd / 4)) * 4;
+    const bool valid = row0 + r < t;
+    cp_async16(dst + r * ld + c, valid ? src + (long long)(row0 + r) * stride + c : src, valid);
+  }
+}
+
+// A.B^T of a warp's 16 rows of A (a(kk, hi, lo) gives the split A fragment
+// of k-step kk) and 8 kN rows of a tile from bt on (rows of kLdB floats), in
+// the accumulator layout: s[c] holds rows g, g + 8 at tile rows 8 c + 2 t, + 1.
+// The tensor cores add into an accumulator with truncation (up to an ulp of
+// the sum an addition, always towards zero), so each k-step's sum (cross
+// terms, then hi.hi) goes into a fresh accumulator, added to s by f32
+// additions (mma3_add): the result is as good as an FMA loop's and its error
+// has no bias, which the training kernels need, whose gradients carry a
+// score's bias into every ds.  (K2 in f32, whose context averages the scores,
+// sums all k-steps in one accumulator, attention.cu.)
+template <int kLdB, int kN, typename AFrag>
+__device__ __forceinline__ void tf32x3_abT(float (&s)[kN][4], AFrag a, const float* bt, int g,
+                                           int tq) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float pv = p[r * ldp + j];
-      o0[r] = fmaf(pv, v0, o0[r]);
-      o1[r] = fmaf(pv, v1, o1[r]);
+  for (int c = 0; c < kN; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[c][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kHd / 8; ++kk) {
+    float ah[4], al[4];
+    a(kk, ah, al);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      const float2 bv = *reinterpret_cast<const float2*>(bt + (8 * c + g) * kLdB + 8 * kk + 2 * tq);
+      mma3_add(s[c], ah, al, bv.x, bv.y);
     }
+  }
+}
+
+// The scores of a warp's 16 query rows and 8 kN keys (kt: their rows of
+// kLdK f32, bt: their biases), q.k^T * sm_scale + bias in the accumulator
+// layout.  The forward and the backward's rows kernel both take their scores
+// from here, so that the backward's recomputed probabilities are the
+// forward's bit for bit (an element's arithmetic does not depend on kN).
+template <int kLdK, int kN, typename QFrag>
+__device__ __forceinline__ void tf32x3_scores(float (&s)[kN][4], QFrag qa, const float* kt,
+                                              const float* bt, float sm_scale, int g, int tq) {
+  tf32x3_abT<kLdK, kN>(s, qa, kt, g, tq);
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * c + 2 * tq);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[c][i] = s[c][i] * sm_scale + ((i & 1) ? bb.y : bb.x);
+  }
+}
+
+// a warp's [16, 64] f32 accumulator (rows row_g, row_g + 8 of this thread,
+// dims 8 c + 2 t, + 1), the rows below t, by float2 stores
+__device__ __forceinline__ void store_rows_f32(const float (&o)[kHd / 8][4], float* dst,
+                                               long long stride, int row_g, int t, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    if (row >= t) continue;
+#pragma unroll
+    for (int c = 0; c < kHd / 8; ++c)
+      *reinterpret_cast<float2*>(dst + (long long)row * stride + 8 * c + 2 * tq) =
+          make_float2(o[c][2 * h], o[c][2 * h + 1]);
   }
 }
 

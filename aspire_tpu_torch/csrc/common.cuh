@@ -434,20 +434,6 @@ __device__ __forceinline__ void acc_bits(const Drop& d, const PhiloxRow& r, int 
   }
 }
 
-// Bits of four neighbouring columns col4 * 4 .. + 3 of one row of a [t, t] plane.
-template <int kMode>
-__device__ __forceinline__ uint4 row_bits(const Drop& d, int plane, int t, int row, int col4) {
-  if constexpr (kMode == 1) {
-    return drop_words(d, (unsigned)plane, (unsigned)row, (unsigned)col4);
-  } else {
-    unsigned w[4];
-    const unsigned* p = d.bits + ((long long)plane * t + row) * t + col4 * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = (row < t && col4 * 4 + i < t) ? p[i] : 0xffffffffu;
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 // x rounded to the nearest bf16, ties to even, for finite x: what
 // __float2bfloat16_rn gives, by integer instructions (the conversion
 // instruction's unit is the one expf's exp2 needs)

@@ -12,16 +12,20 @@ query rows a block, its two products on wgmma fed by a cp.async ring of key and
 value tiles; at BERT shapes (64-wide heads, t <= 512) the elementwise work of
 the 2 t^2 scores a head (two exponentials each, with dropout a quarter of a
 Philox4x32-10 call) and the latency of each step's loads and products bound it,
-not the bytes.  The f32 forward without dropout and without a gradient
-(the evaluation's encode) walks the keys once with an online softmax, both
-products on the tensor cores as split-TF32 products at f32 accuracy; an f32
-forward under grad keeps plain FMAs, the f32 backward's products.  Called on
+not the bytes.  f32 runs both products on the tensor cores as split-TF32
+(3xTF32) products at f32 accuracy: the forward without dropout and without a
+gradient (the evaluation's encode) walks the keys once with an online
+softmax; a forward with dropout or under grad (training with
+``--no-bf16-compute``) walks them twice, so that the backward recomputes its
+probabilities bit for bit.  Called on
 inputs that need a gradient, the forward leaves each row's max and sum in a
 [3, b * nh, t] f32 tensor.  The backward keeps q, k, v, bias, the
 seed, the forward's output and those two floats a row, recomputes
 probabilities and mask, and is bounded by its products; in bf16 it hands ds
 from its keys kernel to its dq kernel through a transient [b * nh, tp, tp]
-scratch (tp = t rounded up to 64) that lives only during the backward.
+scratch (tp = t rounded up to 64) that lives only during the backward; in f32
+a rows kernel (delta, dq) and a keys kernel (dk, dv) each recompute scores and
+dpd on the tensor cores.
 
 Rounding follows the TPU kernel: scores, max, exp and sum in f32, the
 normalised probabilities cast to the compute dtype, then (with dropout)
@@ -29,7 +33,9 @@ divided by 1 - p in the compute dtype and the dropped ones zeroed, then
 probs.v accumulated in f32.  The bf16 kernels normalise as exp(s - m) * (1 / l)
 and divide as bf16(p) * (1 / bf16(1 - p)), each reciprocal taken once (a row,
 a call): the backward recomputes the forward's pd with the same arithmetic,
-and the second product is the bf16 quotient exactly.  The mask is keep = bits
+and the second product is the bf16 quotient exactly.  The f32 kernels
+normalise the same way and multiply a kept probability by 1 / (1 - p), an f32
+ulp from the division.  The mask is keep = bits
 >= round(p * 2**32) with bits from the ``rng_bits`` operand or from Philox
 words keyed on the element's position (``ops/philox.py``).
 
@@ -145,6 +151,8 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
     _build.check(err, name)
     if mode == 0:
         fused_attention.launches += 1
+    elif q.dtype == torch.float32:
+        fused_attention.f32_dropout_launches += 1
     else:
         fused_attention.dropout_launches += 1
     return out
@@ -186,7 +194,10 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
             float(sm_scale), mode, seed, c0, thresh, keep_div, keep_div32,
             bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    fused_attention.bwd_launches += 3 if bf16 else 2   # what the C function launches
+    if bf16:                            # what the C function launches
+        fused_attention.bwd_launches += 3
+    else:
+        fused_attention.f32_bwd_launches += 2
     return dq, dk, dv
 
 
@@ -282,9 +293,11 @@ def _attention_cuda(q, k, v, *args):
     return _forward_cuda(q, k, v, *args)
 
 
-# launches of the deterministic forward, of the forward with dropout, and of
-# the backward's kernels (three a bf16 backward: delta, keys, dq; two an f32
-# one: rows, keys)
+# launches of the deterministic forward (either dtype), of the forward with
+# dropout and of the backward's kernels, bf16 (three a backward: delta, keys,
+# dq) and f32 (two: rows, keys) apart
 fused_attention.launches = 0
 fused_attention.dropout_launches = 0
 fused_attention.bwd_launches = 0
+fused_attention.f32_dropout_launches = 0
+fused_attention.f32_bwd_launches = 0

@@ -77,16 +77,16 @@ def build(out_dir: pathlib.Path) -> dict:
     for kernel, variants in VARIANTS.items():
         source = (_build.CSRC / SOURCES[kernel]).read_text()
         for name, subs in variants.items():
-            text = source
+            files = {SOURCES[kernel]: source, **headers}
             for old, new in subs:
-                if old not in text:
-                    raise RuntimeError(f"{kernel} {name}: the source no longer holds {old!r}")
-                text = text.replace(old, new)
+                holder = next((f for f, body in files.items() if old in body), None)
+                if holder is None:
+                    raise RuntimeError(f"{kernel} {name}: the sources no longer hold {old!r}")
+                files[holder] = files[holder].replace(old, new)
             d = out_dir / kernel / name
             d.mkdir(parents=True, exist_ok=True)
-            for header, body in headers.items():
-                (d / header).write_text(body)
-            (d / SOURCES[kernel]).write_text(text)
+            for file, body in files.items():
+                (d / file).write_text(body)
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
                    str(d / SOURCES[kernel])]
             procs[kernel, name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -18,11 +18,16 @@ The forward reading is `fused_attention` at dropout_p = 0 (K2) in bf16 at
 three shapes and in f32 at the evaluation's [8, 12, 512, 64]; the dropout
 reading (`--dropout`) is `fused_attention` at dropout_p = 0.1 with the Philox
 mask, called on inputs that require a gradient so that the forward leaves its
-row statistics as in a training step (K5a); both with the device milliseconds a
-call by kernel under torch.profiler beside them.  The backward
+row statistics as in a training step (K5a), in bf16 and in f32 (the training
+shape [30, 12, 512, 64] and [4, 12, 512, 64]); both with the device
+milliseconds a call by kernel under torch.profiler beside them.  The backward
 reading (`--bwd`) is `torch.autograd.grad` of `fused_attention` at dropout_p =
-0.1 (Philox mask) and at 0, which launches the backward kernels alone, with
-the device milliseconds a call by kernel under torch.profiler beside it.  The
+0.1 (Philox mask) and at 0, which launches the backward kernels alone, in bf16
+and in f32 at the same two shapes, with the device milliseconds a call by
+kernel under torch.profiler beside it.  The dropout and backward readings
+carry `library_ms`, the same call through `scaled_dot_product_attention`
+(which draws its own mask), and in f32 the largest error of the forward, or of
+dq, dk and dv, against an f64 version fed the same mask (`f64_max_abs_err`).  The
 FFN reading (`--ffn`) is the no-grad FFN at 4096 and 16384 rows of 768 -> 3072
 -> 768 in bf16 and at 4096 rows in f32, through the entry the checkout's model
 calls (`fused_ffn_linear` on [out, in] weights where the checkout has it, else
@@ -42,8 +47,7 @@ and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
 at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
 scan (K8) on the same rows in bf16 at B = 1 beside it.  The f32 readings (K2
 and K3) also give the largest error of the checkout's kernel against an f64
-product of the same inputs (`f64_max_abs_err`).  The backward and the
-dropout readings are bf16.
+product of the same inputs (`f64_max_abs_err`).
 The modes may be combined.  One JSON object a line, then the card's name and
 power limit.
 """
@@ -60,13 +64,15 @@ import sys
 
 SHAPES = (((16, 12, 256, 64), "bfloat16"), ((4, 12, 512, 64), "bfloat16"),
           ((30, 12, 512, 64), "bfloat16"), ((8, 12, 512, 64), "float32"))
-DROPOUT_SHAPES = ((30, 12, 512, 64), (16, 12, 256, 64))
+DROPOUT_CASES = (((30, 12, 512, 64), "bfloat16"), ((16, 12, 256, 64), "bfloat16"),
+                 ((30, 12, 512, 64), "float32"), ((4, 12, 512, 64), "float32"))
 FFN_CASES = ((4096, "bfloat16"), (16384, "bfloat16"), (4096, "float32"))
 SINKHORN_CASES = ((16, 20, 20, "global"), (30, 20, 20, "grouped"),
                   (1024, 20, 20, "global"), (2048, 20, 20, "pair"),
                   (16, 48, 40, "pair"), (16, 100, 100, "pair"))
-BWD_CASES = (((30, 12, 512, 64), 0.1), ((30, 12, 512, 64), 0.0),
-             ((16, 12, 256, 64), 0.1), ((16, 12, 256, 64), 0.0))
+BWD_CASES = tuple((shape, p, dtype) for shape, dtype in (
+    ((30, 12, 512, 64), "bfloat16"), ((16, 12, 256, 64), "bfloat16"),
+    ((30, 12, 512, 64), "float32"), ((4, 12, 512, 64), "float32")) for p in (0.1, 0.0))
 
 
 def _median_ms(fn, calls: int = 10, readings: int = 30) -> dict:
@@ -243,19 +249,41 @@ def measure_scan_int8() -> None:
         torch.cuda.empty_cache()
 
 
+def _attention64(q, k, v, scale, p, keep):
+    """The attention in f64 (differentiable), the mask given."""
+    import torch
+    q, k, v = (x.double() for x in (q, k, v))
+    probs = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    if p > 0:
+        probs = torch.where(keep, probs / (1.0 - p), 0.0)
+    return probs @ v
+
+
 def measure(bwd: bool, dropout: bool) -> None:
     import torch
-    from aspire_tpu_torch.ops.attention_kernel import fused_attention
+    import torch.nn.functional as F
+    from aspire_tpu_torch.ops.attention_kernel import (attention_keep_mask,
+                                                       fused_attention)
     dev = torch.device("cuda", 0)
     if dropout:
-        for b, nh, t, hd in DROPOUT_SHAPES:
-            q, k, v, _ = _inputs(b, nh, t, hd, dev)
+        for (b, nh, t, hd), dtype in DROPOUT_CASES:
+            q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
             bias = torch.zeros((b, t), device=dev)
+            scale = 1.0 / math.sqrt(hd)
             leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-            fn = lambda: fused_attention(*leaves, bias, 1.0 / math.sqrt(hd), 0.1,
-                                         seed=7, site=1)
-            print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16",
+            fn = lambda: fused_attention(*leaves, bias, scale, 0.1, seed=7, site=1)
+            extra = {}
+            if dtype == "float32":
+                keep = attention_keep_mask(q.shape, 0.1, seed=7, site=1, device=dev)
+                with torch.no_grad():
+                    extra["f64_max_abs_err"] = _f64_err(
+                        fn(), _attention64(q, k, v, scale, 0.1, keep))
+                del keep
+            library = _median_ms(lambda: F.scaled_dot_product_attention(
+                *leaves, dropout_p=0.1, scale=scale))["ms_median"]
+            print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype,
                               "kernel": "forward", "dropout_p": 0.1, **_median_ms(fn),
+                              "library_ms": library, **extra,
                               "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
         return
     if not bwd:
@@ -275,15 +303,31 @@ def measure(bwd: bool, dropout: bool) -> None:
             print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype, **ms, **extra,
                               "device_ms_by_kernel": by_kernel}), flush=True)
         return
-    for (b, nh, t, hd), p in BWD_CASES:
-        q, k, v, g = _inputs(b, nh, t, hd, dev)
+    for (b, nh, t, hd), p, dtype in BWD_CASES:
+        q, k, v, g = _inputs(b, nh, t, hd, dev, dtype)
         bias = torch.zeros((b, t), device=dev)
+        scale = 1.0 / math.sqrt(hd)
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-        out = fused_attention(*leaves, bias, 1.0 / math.sqrt(hd), p, seed=7, site=1)
+        out = fused_attention(*leaves, bias, scale, p, seed=7, site=1)
         fn = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+        extra = {}
+        if dtype == "float32":
+            keep = (attention_keep_mask(q.shape, p, seed=7, site=1, device=dev)
+                    if p > 0 else None)
+            leaves64 = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+            want = torch.autograd.grad(_attention64(*leaves64, scale, p, keep),
+                                       leaves64, g.double())
+            extra["f64_max_abs_err"] = max(_f64_err(got, ref)
+                                           for got, ref in zip(fn(), want))
+            del keep, leaves64, want
         ms = _median_ms(fn)
-        print(json.dumps({"shape": [b, nh, t, hd], "dtype": "bfloat16",
+        out_l = F.scaled_dot_product_attention(*leaves, dropout_p=p, scale=scale)
+        library = _median_ms(lambda: torch.autograd.grad(
+            out_l, leaves, g, retain_graph=True))["ms_median"]
+        del out_l
+        print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype,
                           "kernel": "backward", "dropout_p": p, **ms,
+                          "library_ms": library, **extra,
                           "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
 
 

@@ -34,8 +34,7 @@ import chip_smoke  # noqa: E402  (the request and weight generators)
 
 CLASSES = (
     ("sinkhorn (K1)", ("sinkhorn_",)),
-    ("attention (K2)", ("attention_bf16_kernel", "attention_f32_kernel",
-                        "attention_tf32x3_kernel")),
+    ("attention (K2)", ("attention_bf16_kernel", "attention_tf32x3_kernel")),
     ("ffn (K3)", ("ffn_bf16_kernel", "ffn_tf32x3_kernel", "split_tf32_kernel")),
     ("pool (K4)", ("pool_kernel",)),
     ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),

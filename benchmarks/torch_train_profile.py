@@ -2,10 +2,13 @@
 """Where a training step of aspire_tpu_torch spends its time, by kernel.
 
     python3 benchmarks/torch_train_profile.py [--layers 12] [--steps 3]   # one GPU
+    python3 benchmarks/torch_train_profile.py --f32     # the step in f32
+    python3 benchmarks/torch_train_profile.py --f32 --root build/parent   # another checkout
 
 Builds the flagship training configuration of `chip_smoke.py` (ts+otAspire,
 full BERT-base width, bf16 over f32 parameters, Adam, superbatch [10, 3, 512],
-one wide encode a side) and prints, one JSON object a line:
+one wide encode a side; with `--f32` the model `train --no-bf16-compute`
+builds, f32 activations) and prints, one JSON object a line:
 
   steps     host-clock milliseconds of `--steps` warm optimizer steps through
             `Trainer.train_step`, each ending in a synchronise;
@@ -20,7 +23,9 @@ one wide encode a side) and prints, one JSON object a line:
             host milliseconds, device busy milliseconds and kernels launched;
   kernel    the device kernels of the profiled steps by total time.
 
-Last, the card's name and power limit.
+Last, the card's name and power limit.  `--root` profiles the package of
+another checkout of this repo (its `chip_smoke.py` gives the weights and the
+batches), so that two trees are compared by one script in one call.
 """
 from __future__ import annotations
 
@@ -37,13 +42,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+if "--root" in sys.argv:
+    ROOT = pathlib.Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (the model, weight and batch generators)
+import chip_smoke  # noqa: E402  (the weight and batch generators)
 
 CLASSES = (
     ("sinkhorn (K1)", ("sinkhorn_",)),
-    ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_f32_kernel")),
+    ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_tf32x3_stats_kernel",
+                                 "attention_f32_kernel")),
     ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_")),
     ("dropout (K6)", ("dropout_kernel",)),
     ("ffn (K3)", ("ffn_bf16_kernel", "ffn_tf32x3_kernel", "split_tf32_kernel")),
@@ -112,11 +120,29 @@ def phased_step(model, trainer, state, sb, rng) -> None:
         torch.cuda.synchronize()
 
 
+def flagship(cfg, dev, dtype):
+    """chip_smoke.flagship's model in the given compute dtype."""
+    from aspire_tpu_torch.core.config import ModelHParams
+    from aspire_tpu_torch.models.convert import model_state_dict_from_flax_params
+    from aspire_tpu_torch.models.doc_models import build_model
+    hp = ModelHParams(model_name="sbalisentbienc",
+                      score_aggregation="l2wasserstein", sent_sm_temp=5000.0,
+                      sent_loss_prop=1.0, sentsup_loss_prop=1.0,
+                      max_seq_len=512, max_sents=20)
+    model = build_model(hp, cfg, dtype=dtype, device=dev)
+    model.load_state_dict(model_state_dict_from_flax_params(
+        chip_smoke.random_flax_tree(cfg, seed=0), hp.model_name, cfg))
+    return hp, model
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--layers", type=int, default=12)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=16)
+    parser.add_argument("--f32", action="store_true",
+                        help="f32 activations (train --no-bf16-compute)")
+    parser.add_argument("--root", help="another checkout whose package is profiled")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -128,7 +154,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = BertConfig(num_hidden_layers=args.layers)
-    hp, model = chip_smoke.flagship(cfg, dev)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    hp, model = flagship(cfg, dev, dtype)
     tp = TrainHParams(batch_size=3, accumulated_batch_size=30, learning_rate=2e-5,
                       num_warmup_steps=20, train_size=3000)
     batches = [tree_to_device(chip_smoke.synth_superbatch(
@@ -148,6 +175,7 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         print(json.dumps({"steps": step_ms, "layers": args.layers,
+                          "dtype": str(dtype).split(".")[-1], "root": str(ROOT),
                           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}))
 
         t0 = time.perf_counter()

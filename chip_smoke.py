@@ -56,7 +56,12 @@ Phases, one JSON object a line:
            a side, a dev-loss check on a batch with explicit negatives, the
            checkpoint restored into a fresh model, the full state saved,
            restored and one more step taken; then one step of the sequential
-           accumulation path at two layers;
+           accumulation path at two layers.  Then, with the launch counts
+           at 0, the f32 training step (`train --no-bf16-compute`: f32
+           activations through the f32 K5a, K5b and K6): its first step
+           against the plain path in f32, three optimizer steps with each
+           step's launches checked, an `f32 train` line (step ms, peak
+           memory, the card) and a train_f32 line;
   eval     the user's entry points, aspire_tpu_torch.cli.main in this
            process, at BERT-base width: a Hugging Face BERT directory written
            from a numpy seed (30,522-entry vocab.txt, tokenizer_config.json,
@@ -114,6 +119,7 @@ def emit(phase: str, **fields) -> None:
 
 
 HEAD_START_CYCLES = 2_000_000      # about a millisecond of device spinning
+CARD = None                        # the card's name and power limit (device line)
 
 
 def cuda_ms(fn) -> dict:
@@ -207,6 +213,8 @@ def phase_device() -> None:
     except ImportError:
         triton_version = None
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     info = {"card": smi, "python": sys.version.split()[0],
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "nvcc": " | ".join(nvcc), "triton": triton_version,
@@ -899,8 +907,8 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
 
 def phase_kernels(dev) -> dict:
     """Runs every case; the first case of each kernel is its main path's shape
-    (serving for the first three, training for the rest) and feeds the
-    contract line.  Attention [3,12,512,64] and the FFN at 1536 rows are what
+    (serving for the first three, training for the rest, the f32 training
+    step for the f32 attention kernels) and feeds the contract line.  Attention [3,12,512,64] and the FFN at 1536 rows are what
     the training path's dev check gives the deterministic kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
@@ -933,10 +941,13 @@ def phase_kernels(dev) -> dict:
             case_attention_dropout(16, 12, 256, 64, bf16, dev),
             case_attention_dropout(4, 12, 512, 64, bf16, dev),
             case_attention_dropout(2, 12, 200, 64, bf16, dev),
-            case_attention_dropout(4, 12, 512, 64, f32, dev),
-            case_attention_dropout(2, 12, 200, 64, f32, dev),
             case_attention_dropout(4, 4, 128, 32, bf16, dev),
             case_attention_dropout(2, 4, 64, 8, bf16, dev)],
+        # f32 (training with --no-bf16-compute): the training shape first
+        "attention_dropout_f32": [
+            case_attention_dropout(30, 12, 512, 64, f32, dev),
+            case_attention_dropout(4, 12, 512, 64, f32, dev),
+            case_attention_dropout(2, 12, 200, 64, f32, dev)],
         "attention_bwd": [
             case_attention_bwd(30, 12, 512, 64, bf16, dev),
             case_attention_bwd(30, 12, 512, 64, bf16, dev, p=0.0),
@@ -944,13 +955,16 @@ def phase_kernels(dev) -> dict:
             case_attention_bwd(4, 12, 512, 64, bf16, dev),
             case_attention_bwd(2, 12, 200, 64, bf16, dev),
             case_attention_bwd(2, 12, 200, 64, bf16, dev, p=0.0),
-            case_attention_bwd(4, 12, 512, 64, f32, dev),
-            case_attention_bwd(2, 12, 200, 64, f32, dev),
-            case_attention_bwd(2, 12, 200, 64, f32, dev, p=0.0),
             case_attention_bwd(4, 4, 128, 32, bf16, dev),
             case_attention_bwd(4, 4, 128, 32, bf16, dev, p=0.0),
             case_attention_bwd(2, 4, 64, 8, bf16, dev),
             case_attention_bwd(2, 4, 64, 8, bf16, dev, p=0.0)],
+        "attention_bwd_f32": [
+            case_attention_bwd(30, 12, 512, 64, f32, dev),
+            case_attention_bwd(30, 12, 512, 64, f32, dev, p=0.0),
+            case_attention_bwd(4, 12, 512, 64, f32, dev),
+            case_attention_bwd(2, 12, 200, 64, f32, dev),
+            case_attention_bwd(2, 12, 200, 64, f32, dev, p=0.0)],
         "dropout": [case_dropout(15360, 768, bf16, dev),
                     case_dropout(15360, 768, f32, dev),
                     case_dropout(1001, 768, bf16, dev)],
@@ -1114,6 +1128,8 @@ def counters() -> dict:
             "ffn": (fused_ffn, "launches"),
             "attention_dropout": (fused_attention, "dropout_launches"),
             "attention_bwd": (fused_attention, "bwd_launches"),
+            "attention_dropout_f32": (fused_attention, "f32_dropout_launches"),
+            "attention_bwd_f32": (fused_attention, "f32_bwd_launches"),
             "dropout": (fused_dropout, "launches"),
             "pool": (sentence_pool_fused, "launches"),
             "scan_bf16": (fused_l2max_scan, "launches"),
@@ -1250,10 +1266,11 @@ def synth_superbatch(seed: int, n_micro: int, micro: int, seq: int, smax: int,
 TRAIN_COUNTERS = ("attention_dropout", "attention_bwd", "dropout", "sinkhorn")
 
 
-def flagship(cfg, dev, impl: str = "auto"):
-    """The ts+otAspire training configuration on `cfg`, weights from seed 0;
-    impl 'naive' builds the plain path (naive attention, dropout and FFN, the
-    Sinkhorn loop as PyTorch rounds)."""
+def flagship(cfg, dev, impl: str = "auto", dtype=torch.bfloat16):
+    """The ts+otAspire training configuration on `cfg`, weights from seed 0,
+    activations in `dtype` (bf16 over f32 parameters; f32 is what `train
+    --no-bf16-compute` builds); impl 'naive' builds the plain path (naive
+    attention, dropout and FFN, the Sinkhorn loop as PyTorch rounds)."""
     from aspire_tpu_torch.core.config import ModelHParams
     from aspire_tpu_torch.models.convert import model_state_dict_from_flax_params
     from aspire_tpu_torch.models.doc_models import build_model
@@ -1262,7 +1279,7 @@ def flagship(cfg, dev, impl: str = "auto"):
                       sent_loss_prop=1.0, sentsup_loss_prop=1.0,
                       max_seq_len=512, max_sents=20, attention_impl=impl,
                       hidden_dropout_impl=impl, ffn_impl=impl)
-    model = build_model(hp, cfg, dtype=torch.bfloat16, device=dev,
+    model = build_model(hp, cfg, dtype=dtype, device=dev,
                         ot_solver="torch" if impl == "naive" else "auto")
     model.load_state_dict(model_state_dict_from_flax_params(
         random_flax_tree(cfg, seed=0), hp.model_name, cfg))
@@ -1278,7 +1295,18 @@ def _group_norms(model) -> dict:
     return {k: math.sqrt(v) for k, v in sums.items()}
 
 
-def kernel_against_plain_step(cfg, dev, superbatch, seed: int) -> dict:
+# first training step, kernel path against plain path: the loss (relative) and
+# each group's gradient norm (relative).  bf16: both paths round at the same
+# places but for the FFN pre-activation and the backward's dprobs,
+# independently over 12 layers.  f32: the kernels' products are split TF32 and
+# sum in other orders than cuBLAS's f32 products, a few f32 ulps an element;
+# at 12 layers the card reads 1.3e-7 in loss and 2.4e-7 in gradient norm.
+STEP_TOL = {torch.bfloat16: {"loss_rel": 1e-2, "grad_norm_rel": 0.05},
+            torch.float32: {"loss_rel": 1e-5, "grad_norm_rel": 1e-5}}
+
+
+def kernel_against_plain_step(cfg, dev, superbatch, seed: int,
+                              dtype=torch.bfloat16) -> dict:
     """The main path's first step (its model, superbatch and generator seed):
     loss and gradients through the kernels and through the plain path (naive
     attention, dropout and FFN, the plain Sinkhorn loop) fed the same Philox
@@ -1290,7 +1318,7 @@ def kernel_against_plain_step(cfg, dev, superbatch, seed: int) -> dict:
     out, peak_mb = {}, {}
     for label, impl in (("kernel", "auto"), ("plain", "naive")):
         torch.cuda.reset_peak_memory_stats()
-        _, model = flagship(cfg, dev, impl)
+        _, model = flagship(cfg, dev, impl, dtype)
         loss, _ = model.train_loss_grouped(
             sb, torch.Generator().manual_seed(seed), True)
         loss.backward()
@@ -1299,18 +1327,17 @@ def kernel_against_plain_step(cfg, dev, superbatch, seed: int) -> dict:
         del model, loss
         torch.cuda.empty_cache()
     (lk, nk), (lp, np_) = out["kernel"], out["plain"]
-    # bf16 activations: both paths round at the same places but for the FFN
-    # pre-activation and the backward's dprobs, independently over 12 layers
-    if not math.isfinite(lk) or abs(lk - lp) > 1e-2 * abs(lp):
+    tol = STEP_TOL[dtype]
+    if not math.isfinite(lk) or abs(lk - lp) > tol["loss_rel"] * abs(lp):
         raise AssertionError(f"train: first-step loss {lk} (kernels) against "
                              f"{lp} (plain path)")
     worst = max(abs(nk[g] - np_[g]) / np_[g] for g in np_)
-    if not worst <= 0.05:
+    if not worst <= tol["grad_norm_rel"]:
         raise AssertionError(f"train: gradient norms differ by {worst}: "
                              f"{nk} against {np_}")
     return {"superbatch": list(sb["query"]["token_ids"].shape),
             "loss_kernel": lk, "loss_plain": lp, "peak_memory_mb": peak_mb,
-            "tolerance": {"loss_rel": 1e-2, "grad_norm_rel": 0.05},
+            "loss_rel_err": abs(lk - lp) / abs(lp), "tolerance": tol,
             "grad_norm_rel_worst": worst, "grad_norms_kernel": nk,
             "grad_norms_plain": np_}
 
@@ -1455,6 +1482,83 @@ def phase_train(dev, layers: int) -> dict:
          sequential_path={"layers": 2, "step_ms": seq_ms,
                           "launches": seq_counts,
                           "losses": [float(x) for x in seq_losses]})
+    return launches
+
+
+def phase_train_f32(dev, layers: int) -> dict:
+    """The f32 training step, the model `train --no-bf16-compute` builds (f32
+    activations over f32 parameters; dropout passes through the f32 K5a, K5b
+    and K6): the first step against the plain path in f32, then three
+    optimizer steps with the launches of each counted."""
+    import tempfile
+    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
+    from aspire_tpu_torch.models.bert import BertConfig
+    from aspire_tpu_torch.train.trainer import Trainer
+    f32 = torch.float32
+    cfg = BertConfig(num_hidden_layers=layers)
+    steps = [synth_superbatch(600 + i, 10, 3, 512, 20, cfg.vocab_size) for i in range(3)]
+    train_seed = 21
+    against_plain = kernel_against_plain_step(cfg, dev, steps[0], train_seed, f32)
+
+    hp, model = flagship(cfg, dev, dtype=f32)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tp = TrainHParams(batch_size=3, accumulated_batch_size=30,
+                      update_rule="adam", learning_rate=2e-5,
+                      lr_decay_method="warmuplin", num_warmup_steps=20,
+                      train_size=3000)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks, counts = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, RunConfig(model=hp, train=tp), tmp, fused_accum=True)
+        state = trainer.train(trainer.init_state(), _timed(steps, marks, counts),
+                              seed=train_seed)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(read_counts())
+    launches = read_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # two encodes a step; an f32 backward is two launches (rows, keys); 25
+    # dropout sites at 12 layers, forward and backward; one K1 annealing loop
+    # for each of the two OT distances; nothing of the bf16 kernels
+    want = {"attention_dropout_f32": 2 * layers,
+            "attention_bwd_f32": 2 * 2 * layers,
+            "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2,
+            "attention_dropout": 0, "attention_bwd": 0}
+    for i, (a_, b_) in enumerate(zip(counts[:-1], counts[1:])):
+        got = {k: b_[k] - a_[k] for k in want}
+        if got != want:
+            raise AssertionError(f"train f32: step {i} launched {got}, expected {want}")
+    # the trainer pulls the first step's losses (then every fifth step's); a
+    # step whose loss is not finite leaves state.step where it was, so step 3
+    # is three finite steps
+    losses = trainer.loss_history
+    if state.step != 3 or len(losses) != 10 \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train f32: step {state.step}, losses {losses}")
+    first_loss = sum(losses[:10])
+    if abs(first_loss - against_plain["loss_kernel"]) > 1e-4 * abs(first_loss):
+        raise AssertionError(
+            f"train f32: the first step's loss {first_loss} is not the "
+            f"{against_plain['loss_kernel']} held against the plain path")
+    after = model.state_dict()
+    changed = sum(not torch.equal(before[k], after[k]) for k in before)
+    finite = all(bool(torch.isfinite(v).all()) for v in after.values())
+    if changed != len(before) or not finite:
+        raise AssertionError(f"train f32: {changed} of {len(before)} "
+                             f"parameters changed, finite={finite}")
+    # the last step's time holds the trainer's closing checkpoint saves
+    step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])]
+    print(f"f32 train: {layers} layers, first step {step_ms[0]:.1f} ms, warm "
+          f"step {step_ms[1]:.1f} ms, last step with checkpoints {step_ms[2]:.1f} ms "
+          f"(host clock), peak {peak_mb:.1f} MB; {CARD}", flush=True)
+    emit("train_f32", model="sbalisentbienc l2wasserstein", dtype="float32",
+         layers=layers, hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         superbatch=[10, 3, 512], max_sents=20, optimizer="adam warmuplin",
+         first_step_ms=step_ms[0], warm_step_ms=step_ms[1],
+         last_step_with_checkpoints_ms=step_ms[2], peak_memory_mb=peak_mb, launches_per_step=want, launches=launches,
+         first_losses=losses, first_step_loss=first_loss, steps=state.step,
+         kernel_path_against_plain_path=against_plain, card=CARD)
     return launches
 
 
@@ -2342,6 +2446,10 @@ KERNELS = [
      "aspire_tpu/ops/pallas_attention.py:210"),
     ("attention_bwd", "aspire_tpu_torch/csrc/attention_bwd.cu",
      "aspire_tpu/ops/pallas_attention.py:229"),
+    ("attention_dropout_f32", "aspire_tpu_torch/csrc/attention.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_bwd_f32", "aspire_tpu_torch/csrc/attention_bwd.cu",
+     "aspire_tpu/ops/pallas_attention.py:229"),
     ("dropout", "aspire_tpu_torch/csrc/dropout.cu",
      "aspire_tpu/ops/pallas_dropout.py:110"),
     ("pool", "aspire_tpu_torch/csrc/pool.cu",
@@ -2361,6 +2469,8 @@ PATH_KERNELS = {
     "serve": ("sinkhorn", "attention", "ffn", "pool"),
     "train": ("sinkhorn", "attention", "ffn", "attention_dropout",
               "attention_bwd", "dropout", "pool"),
+    "train_f32": ("sinkhorn", "attention_dropout_f32", "attention_bwd_f32",
+                  "dropout"),
     "index": ("sinkhorn", "attention", "ffn", "pool", "scan_bf16", "scan_int8",
               "scan_int8_wide"),
     "eval": ("sinkhorn", "attention", "ffn", "pool", "attention_dropout",
@@ -2383,6 +2493,7 @@ def run(args) -> dict:
     if args.phases == "all":
         launches["serve"] = phase_serve(dev, args.layers)
         launches["train"] = phase_train(dev, args.train_layers)
+        launches["train_f32"] = phase_train_f32(dev, args.train_layers)
     if args.phases in ("all", "index"):
         scan_cases, launches["index"] = phase_index(
             dev, args.layers, args.encode_docs, args.index_docs)
@@ -2428,8 +2539,8 @@ def main() -> int:
                         help="depth of the bf16 serving model (widths stay "
                              "BERT-base)")
     parser.add_argument("--train-layers", type=int, default=12,
-                        help="depth of the bf16 training model (widths stay "
-                             "BERT-base)")
+                        help="depth of the bf16 and the f32 training models "
+                             "(widths stay BERT-base)")
     parser.add_argument("--encode-docs", type=int, default=512,
                         help="abstracts the index phase encodes")
     parser.add_argument("--index-docs", type=int, default=125_000,
