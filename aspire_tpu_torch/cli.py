@@ -6,9 +6,13 @@ same subcommands, flags, defaults and files in and out, on one CUDA device.
   python -m aspire_tpu_torch rank         --index idx/ --run-dir run/ --dataset-dir d/ --dataset name --out res/
   python -m aspire_tpu_torch evaluate     --dataset-dir d/ --dataset name --model aspire_compsci --results res/
   python -m aspire_tpu_torch compare      --results-a a.csv --results-b b.csv
+  python -m aspire_tpu_torch preprocess   gorc --in-path corpus/ --out-path triples/ --extra '{"processes": 4}'
+  python -m aspire_tpu_torch ner          --abstracts abstracts-x.jsonl --out x-ner.jsonl
 
-Every subcommand takes `--device` (default `cuda`; without CUDA it raises
-unless `--device cpu` is given).  Tokenizers are the port's own
+Every subcommand but `compare` takes `--device` (default `cuda`; without CUDA
+it raises unless `--device cpu` is given).  `preprocess` and `ner` run on the
+host; only a `preprocess` action given an `aligner_run_dir` (in `--extra`)
+encodes, on that device.  Tokenizers are the port's own
 (text/fast.FastWordPiece over a local vocab.txt) and HF weights are read from
 local directories without `transformers` (models/convert.load_hf_dir).
 
@@ -16,7 +20,6 @@ The JAX package's several-device flags (`--num-processes`, `--coordinator`,
 `--process-id`, `--num-devices` above 1, `--n-shards` above 1) and
 `--fast-rng` are accepted and refused when set; `--fast-tokenizer` is
 accepted and changes nothing (the native tokenizer is the only one).
-`preprocess` and `ner` are not ported yet.
 """
 from __future__ import annotations
 
@@ -682,6 +685,21 @@ def cmd_compare(args):
     return out
 
 
+def cmd_preprocess(args):
+    from .data import preprocess as pp
+    return pp.main(args)
+
+
+def cmd_ner(args):
+    from .data import ner
+    if args.extractor == "scispacy":
+        extractor = ner.scispacy_entity_extractor(args.spacy_model)
+    else:
+        extractor = ner.simple_entity_extractor
+    n = ner.write_ner_file(args.abstracts, args.out, extractor)
+    logging.info("wrote NER entities for %d papers -> %s", n, args.out)
+
+
 def _device_flag(parser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device; without CUDA the run raises "
@@ -862,6 +880,28 @@ def build_parser():
     c.add_argument("--n-comparisons", type=int, default=1)
     c.add_argument("--log_fname")
     c.set_defaults(fn=cmd_compare)
+
+    pp = sub.add_parser("preprocess", help="dataset preparation pipelines")
+    pp.add_argument("action", choices=["gorc", "cocit-examples",
+                                       "regen-examples", "relish",
+                                       "treccovid", "scidocs", "filter-cocits"])
+    pp.add_argument("--in-path", required=True)
+    pp.add_argument("--out-path", required=True)
+    pp.add_argument("--extra", help="json dict of pipeline-specific options")
+    pp.add_argument("--log_fname")
+    _device_flag(pp)
+    pp.set_defaults(fn=cmd_preprocess)
+
+    n = sub.add_parser("ner", help="extract entities into {dataset}-ner.jsonl")
+    n.add_argument("--abstracts", required=True,
+                   help="abstracts-{dataset}.jsonl input")
+    n.add_argument("--out", required=True)
+    n.add_argument("--extractor", choices=["simple", "scispacy"],
+                   default="simple")
+    n.add_argument("--spacy-model", default="en_core_sci_sm")
+    n.add_argument("--log_fname")
+    _device_flag(n)
+    n.set_defaults(fn=cmd_ner)
     return p
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving, training, index and evaluation paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving, training, index, evaluation and data-pipeline paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
     python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
     python3 chip_smoke.py --phases index --index-docs 20000   # the index path alone
     python3 chip_smoke.py --phases kernels   # every kernel against its plain version, alone
     python3 chip_smoke.py --phases eval      # the CLI's evaluate and train alone
+    python3 chip_smoke.py --phases chain     # the data pipeline's two-model chain alone
 
-Phases run in the order device, build, kernels, serve, train, index, eval.
+Phases run in the order device, build, kernels, serve, train, index, eval,
+chain.
 
 Phases, one JSON object a line:
 
@@ -77,7 +79,22 @@ Phases, one JSON object a line:
            64 abstracts against the kernel route; `train` from a jsonl of
            triples (sbalisentbienc, micro 3, accumulation 6, 12 examples: two
            steps, seq 512, bf16, --init-hf-dir); `evaluate --model otaspire
-           --run-dir` on that run.
+           --run-dir` on that run;
+  chain    the two-model supervision chain (scripts/torch_e2e_chain.py's
+           pilot corpus: 4 topics, 8 batch files, 208 papers; BERT-base
+           encoders, 64 tokens a sentence, 128 a document; each training cut
+           to 4 optimizer steps), every stage through
+           aspire_tpu_torch.cli.main with the counts set to 0 before it and
+           read after it: `preprocess gorc` (a spawn pool of 4; once more as
+           a subprocess, `python -m aspire_tpu_torch`, whose files must be
+           the same), `train` cosentbert, `preprocess regen-examples` with
+           that run as the aligner (f32 on the card: 12 K2 and 36 K3 launches
+           a call), `train` sbalisentbienc on the aligned triples,
+           `build-index`, `rank --rerank ot`; the aligner's kernel route
+           against its plain route on every sentence of the examples (1e-4;
+           alignments equal where the argmax leads by more than 1e-4); MAP
+           and NDCG%20 beside a random ranking's MAP (reported, not held);
+           then K2 and K3 in f32 at the aligner's shapes.
 
 Any failed check raises: the run then prints {"ok": false, ...} and exits
 with code 1.  Without CUDA it exits with code 1 before printing any result.
@@ -88,6 +105,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -110,6 +128,8 @@ PEAK_F32_PRODUCT = max(PEAK_FP32, PEAK_TF32 / 3)
 # exp/log go through the special-function units: 16 an SM against 128 FP32
 # lanes, each of which counts 2 FLOP in PEAK_FP32 -> PEAK_FP32 / 2 / 8 calls/s.
 PEAK_SFU = PEAK_FP32 / 2 / 8
+
+REPO = pathlib.Path(__file__).resolve().parent
 
 REPEATS, WARMUP, INNER = 20, 3, 5
 
@@ -2434,6 +2454,255 @@ def phase_eval(dev) -> tuple:
     return cases, main
 
 
+# ---------------------------------------------------------------------- chain
+CHAIN_STEPS = 4          # optimizer steps of each of the chain's two trainings
+CHAIN_PROCESSES = 4      # the gorc pipeline's worker processes (spawn)
+
+
+class AlignerSpy:
+    """Host-clock time, sentences and shapes of each sentence-encoder call
+    (TrainedSentSimilarityModel.encode) while entered: the aligner's encodes.
+    Each call ends on the host (its reps come back as numpy arrays)."""
+
+    def __enter__(self):
+        from aspire_tpu_torch.evaluation import models
+        self.owner = models.TrainedSentSimilarityModel
+        self.saved = self.owner.encode
+        self.calls, self.seconds = [], 0.0
+        encode, spy = self.saved, self
+
+        def timed(model, papers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(model, papers)
+            spy.seconds += time.perf_counter() - t0
+            spy.calls.append(sum(len(p["ABSTRACT"]) for p in papers))
+            return out
+
+        self.owner.encode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.encode = self.saved
+
+
+def _load_chain_script():
+    """scripts/torch_e2e_chain.py: the corpus synthesiser and the stages."""
+    import importlib.util
+    path = REPO / "scripts" / "torch_e2e_chain.py"
+    spec = importlib.util.spec_from_file_location("torch_e2e_chain", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _argmax_margin(m: np.ndarray) -> tuple:
+    """(row, column) of the largest entry and its lead over the next."""
+    flat = np.sort(m.reshape(-1))
+    lead = float(flat[-1] - flat[-2]) if flat.size > 1 else math.inf
+    return np.unravel_index(m.argmax(), m.shape), lead
+
+
+def check_alignments(paths, reps: dict, margin: float) -> dict:
+    """cc_align / abs_align of each positive, as generate_examples_cocitabs
+    computes them, from `reps` (sentence -> unit vector); an alignment is
+    compared where its argmax leads the runner-up by more than `margin`."""
+    compared = skipped = 0
+    for path in paths:
+        for ex in _jsonl(path):
+            pos = ex["pos_context"]
+            q = np.stack([reps[s] for s in ex["query"]["ABSTRACT"]])
+            p = np.stack([reps[s] for s in pos["ABSTRACT"]])
+            c = np.stack([reps[s] for s in ex["citing_contexts"]])
+            (qi, _), lead_q = _argmax_margin(q @ c.T)
+            (pi, _), lead_p = _argmax_margin(p @ c.T)
+            (ai, aj), lead_a = _argmax_margin(q @ p.T)
+            for got, want, lead in ((pos["cc_align"][0], qi, lead_q),
+                                    (pos["cc_align"][1], pi, lead_p),
+                                    (pos["abs_align"], [ai, aj], lead_a)):
+                if lead <= margin:
+                    skipped += 1
+                    continue
+                compared += 1
+                if np.any(np.asarray(got) != np.asarray(want)):
+                    raise AssertionError(
+                        f"chain: {path}: alignment {got} where the plain route "
+                        f"gives {want} (lead {lead})")
+    if not compared:
+        raise AssertionError("chain: no alignment led by more than the margin")
+    return {"compared": compared, "skipped_within_margin": skipped,
+            "margin": margin}
+
+
+def phase_chain(dev) -> tuple:
+    """The two-model supervision chain through aspire_tpu_torch.cli.main, at
+    BERT-base width: gorc -> cosentbert -> aligned triples -> sbalisentbienc
+    -> build-index -> rank.  The counts are set to 0 before each stage and
+    read after it; their sum is the path's.  Then the aligner's kernel route
+    against its plain route, and K2 / K3 in f32 at the aligner's shapes."""
+    import os
+    import tempfile
+    from aspire_tpu_torch.data.align import trained_sent_aligner
+    f32 = torch.float32
+    chain = _load_chain_script()
+    # the pilot corpus at BERT-base width: 12 layers, hidden 768, 64 tokens
+    # a sentence, 128 a document
+    sc = dict(chain.SCALES["pilot"], tiny=False, seq_len=128, lr=1e-4)
+    layers = 12
+    main = dict.fromkeys(read_counts(), 0)
+    stages, stage_counts = {}, {}
+
+    def stage(name, argv):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, _ = _cli(argv)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        got = read_counts()
+        stage_counts[name] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            main[k] += v
+        return out, got
+
+    def require(name, got, kernels):
+        idle = [k for k in kernels if got[k] < 1]
+        if idle:
+            raise AssertionError(f"chain: stage {name} launched no {idle} "
+                                 f"({got})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        data = chain.write_data(root, sc)
+        stages["write_data"] = time.perf_counter() - t0
+        # 1. the gorc pipeline, in this process (a spawn pool of 4) ...
+        summary, got = stage("1_preprocess_gorc",
+                             chain.gorc_argv(root, CHAIN_PROCESSES, dev.type))
+        if any(got.values()):
+            raise AssertionError(f"chain: preprocess gorc launched {got}")
+        tri = root / "triples"
+        outputs = ["train-cocitabs.jsonl", "dev-cocitabs.jsonl",
+                   "train-coppsent.jsonl", "dev-coppsent.jsonl",
+                   "gorc-summary.json", "cocitpids2contexts-all.pickle"]
+        for name in outputs:
+            if not (tri / name).stat().st_size:
+                raise AssertionError(f"chain: preprocess gorc wrote no {name}")
+        # ... and once as a user runs it: the same files
+        sub_root = root / "sub"
+        sub_argv = chain.gorc_argv(root, CHAIN_PROCESSES, dev.type)
+        sub_argv[sub_argv.index("--out-path") + 1] = str(sub_root)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "aspire_tpu_torch", *sub_argv],
+                       check=True, cwd=tmp, capture_output=True,
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+        stages["1_preprocess_gorc_subprocess"] = time.perf_counter() - t0
+        partials = sorted(p.name for p in tri.glob("*-*.jsonl"))
+        for name in outputs[:-1] + partials:
+            if (tri / name).read_bytes() != (sub_root / name).read_bytes():
+                raise AssertionError(f"chain: {name} differs between the "
+                                     "in-process and the subprocess run")
+        chain.write_configs(root, sc, summary["sent_examples"],
+                            summary["examples"], CHAIN_STEPS)
+        # 2. the sentence encoder (cosentbert, bf16 training)
+        _, got = stage("2_train_cosentbert", chain.sentenc_argv(root, sc, dev.type))
+        require("2", got, ("attention_dropout", "attention_bwd", "dropout"))
+        # 3. the aligned triples, the aligner on the card in f32
+        with AlignerSpy() as spy:
+            _, got = stage("3_preprocess_regen_examples",
+                           chain.align_argv(root, dev.type))
+        calls = len(spy.calls)
+        want = {"attention": layers * calls, "ffn": ffn_launches(f32) * layers * calls}
+        if not calls or any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"chain: the aligner's {calls} calls launched "
+                                 f"{got}, expected {want}")
+        enc = root / "triples_enc"
+        examples = [enc / "train-cocitabsalign.jsonl", enc / "dev-cocitabsalign.jsonl"]
+        sents = {}
+        for path in examples:
+            for ex in _jsonl(path):
+                sides = [ex["pos_context"]] + ([ex["neg_context"]]
+                                               if "neg_context" in ex else [])
+                for side in sides:
+                    if not {"cc_align", "abs_align"} <= set(side):
+                        raise AssertionError(f"chain: {path.name}: an example "
+                                             "without cc_align / abs_align")
+                for s in (ex["query"]["ABSTRACT"] + ex["pos_context"]["ABSTRACT"]
+                          + ex["citing_contexts"]):
+                    sents[s] = None
+        sents = list(sents)
+        # the same aligner through the plain route (naive attention and FFN)
+        aligners = {}
+        for route in ("kernel", "plain"):
+            aligner = trained_sent_aligner(str(root / "run-sentenc"),
+                                           str(root / "tokenizer"), device=dev)
+            if route == "plain":
+                for m in aligner.model.bert.modules():
+                    for attr in ("attention_impl", "ffn_impl"):
+                        if hasattr(m, attr):
+                            setattr(m, attr, "naive")
+            reset_counts()
+            aligners[route] = aligner(sents)
+            aligners[route + "_launches"] = {k: v for k, v in read_counts().items() if v}
+        if aligners["plain_launches"] or not aligners["kernel_launches"]:
+            raise AssertionError(f"chain: aligner launches {aligners}")
+        align_err = check_close("chain aligner, kernel against plain route",
+                                torch.from_numpy(aligners["kernel"]),
+                                torch.from_numpy(aligners["plain"]),
+                                atol=_tol(f32))
+        alignments = check_alignments(
+            examples, dict(zip(sents, aligners["plain"])), margin=1e-4)
+        # 4. the doc model on the aligned triples (bf16 training, OT loss)
+        _, got = stage("4_train_sbalisentbienc", chain.train_argv(root, sc, dev.type))
+        require("4", got, ("attention_dropout", "attention_bwd", "dropout",
+                           "sinkhorn"))
+        losses = {}
+        for run in ("run-sentenc", "run"):
+            losses[run] = chain.train_losses(root / run)
+            if not losses[run] or not all(math.isfinite(v) for _, v in losses[run]):
+                raise AssertionError(f"chain: {run} losses {losses[run]}")
+        # 5. index the held-out corpus, rank the pools with an OT rerank
+        _, got = stage("5_build_index", chain.index_argv(root, dev.type))
+        require("5 build-index", got, ("attention", "ffn", "pool"))
+        _, got = stage("5_rank", chain.rank_argv(root, sc, dev.type))
+        require("5 rank", got, ("sinkhorn",))
+        ranking = chain.score_ranking(root)
+        for v in list(ranking["map"].values()) + list(ranking["ndcg%20"].values()):
+            if not math.isfinite(v):
+                raise AssertionError(f"chain: ranking {ranking}")
+    # K2 and K3 in f32 at the aligner's shapes: its median and largest call
+    # here, and a call of 16 sentences (a co-citation's ten contexts and an
+    # abstract, as a full-size corpus gives them)
+    rows = sorted(spy.calls)
+    shapes = sorted({max(2, rows[len(rows) // 2]), max(2, rows[-1]), 16})
+    t = 64                                  # sentences pad to 64 tokens
+    cases = {"attention": [case_attention(n, 12, t, 64, f32, dev) for n in shapes],
+             "ffn": [case_ffn(n * t, f32, dev) for n in shapes]}
+    for name, kernel_rows in cases.items():
+        emit("kernel_cases", kernel=name, path="chain", cases=kernel_rows)
+    sents_per_s = sum(spy.calls) / spy.seconds
+    emit("chain", card=CARD, scale="pilot", layers=layers, hidden=768,
+         seq_len={"sentence": 64, "document": sc["seq_len"]},
+         steps_each_training=CHAIN_STEPS, processes=CHAIN_PROCESSES,
+         data=data, gorc=summary, stage_s=stages, stage_launches=stage_counts,
+         aligner={"calls": calls, "sentences": sum(spy.calls),
+                  "sentences_a_call": {"median": rows[len(rows) // 2],
+                                       "max": rows[-1], "min": rows[0]},
+                  "encode_s": spy.seconds, "sentences_per_s": sents_per_s,
+                  "launches_a_call": {k: got_a / calls for k, got_a in
+                                      stage_counts["3_preprocess_regen_examples"].items()},
+                  "kernel_vs_plain": {"sentences": len(sents),
+                                      "max_abs_err": align_err["max_abs_err"],
+                                      "atol": _tol(f32), **alignments}},
+         losses=losses, ranking=ranking, launches=main)
+    return cases, main
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -2475,6 +2744,8 @@ PATH_KERNELS = {
               "scan_int8_wide"),
     "eval": ("sinkhorn", "attention", "ffn", "pool", "attention_dropout",
              "attention_bwd", "dropout"),
+    "chain": ("sinkhorn", "attention", "ffn", "pool", "attention_dropout",
+              "attention_bwd", "dropout"),
 }
 
 
@@ -2501,6 +2772,10 @@ def run(args) -> dict:
     if args.phases in ("all", "eval"):
         eval_cases, launches["eval"] = phase_eval(dev)
         for name, rows in eval_cases.items():
+            cases.setdefault(name, []).extend(rows)
+    if args.phases in ("all", "chain"):
+        chain_cases, launches["chain"] = phase_chain(dev)
+        for name, rows in chain_cases.items():
             cases.setdefault(name, []).extend(rows)
     for path, counts in launches.items():
         idle = [name for name in PATH_KERNELS[path] if counts[name] < 1]
@@ -2546,12 +2821,13 @@ def main() -> int:
     parser.add_argument("--index-docs", type=int, default=125_000,
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
-                        choices=("all", "index", "kernels", "eval"),
+                        choices=("all", "index", "kernels", "eval", "chain"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
                              "plain versions and drives no path; 'eval' drives "
-                             "the CLI's evaluate and train alone")
+                             "the CLI's evaluate and train alone; 'chain' the "
+                             "data pipeline's two-model chain alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

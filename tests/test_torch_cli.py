@@ -262,8 +262,10 @@ def test_jax_only_flags_are_refused(argv, tmp_path):
 
 
 def test_preprocess_and_ner_are_not_registered():
+    """Every subcommand of the JAX parser is registered, preprocess and ner
+    among them (their flags: tests/test_torch_cli_preprocess.py)."""
     from aspire_tpu_torch.cli import build_parser
     sub = next(a for a in build_parser()._actions
                if getattr(a, "choices", None) and "train" in a.choices)
     assert set(sub.choices) == {"train", "evaluate", "build-index", "rank",
-                                "compare"}
+                                "compare", "preprocess", "ner"}

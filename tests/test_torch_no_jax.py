@@ -1,7 +1,8 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
 pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, pandas, h5py,
 safetensors or aspire_tpu module, and needs neither nvcc nor triton;
-`chip_smoke.py` and the port's benchmark scripts import none of them either
+`chip_smoke.py`, the port's benchmark scripts and its chain script
+(scripts/torch_e2e_chain.py) import none of them either
 (h5py only inside `SimilarityModel.set_encodings_cache`, which the card's
 machine never calls: it has no h5py)."""
 import ast
@@ -50,7 +51,10 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.evaluation.ranking_eval",
         "aspire_tpu_torch.evaluation.models", "aspire_tpu_torch.evaluation.evaluate",
         "aspire_tpu_torch.evaluation.diagnostics", "aspire_tpu_torch.cli",
-        "aspire_tpu_torch.__main__"}
+        "aspire_tpu_torch.__main__", "aspire_tpu_torch.data.preprocess",
+        "aspire_tpu_torch.data.gorc", "aspire_tpu_torch.data.corpus",
+        "aspire_tpu_torch.data.mix", "aspire_tpu_torch.data.ner",
+        "aspire_tpu_torch.data.align", "aspire_tpu_torch.utils.profiling"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
@@ -78,7 +82,7 @@ def _imports(path: pathlib.Path):
 
 
 SOURCES = (sorted((REPO / "aspire_tpu_torch").rglob("*.py"))
-           + [REPO / "chip_smoke.py"]
+           + [REPO / "chip_smoke.py", REPO / "scripts" / "torch_e2e_chain.py"]
            + sorted((REPO / "benchmarks").glob("torch_*.py")))
 
 
