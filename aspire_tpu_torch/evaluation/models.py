@@ -552,9 +552,12 @@ class SbertSimilarityModel(SimilarityModel):
     utils/models.py:379-410): per-sentence masked mean pooling over final
     hidden states, cosine max-sim scoring.
 
-    Loads a local BERT-family HF checkpoint directory.  The JAX package runs
-    other families (RoBERTa, MPNet) through `transformers` on the CPU; the
-    port has no encoder for them and refuses them by their model_type.
+    Loads a local HF checkpoint directory of the BERT, RoBERTa or MPNet
+    family (models/convert.load_hf_dir; the JAX package runs the last two
+    through `transformers` on the CPU) and encodes in f32 on `device`: BERT
+    and RoBERTa through K2 and K3, MPNet through K3 and its own attention
+    (models/mpnet.py).  attention_impl / ffn_impl: the encoder's routes
+    ('naive' is the plain route).
     """
 
     # reference hub ids for the paper's three sbert baselines; pass a local
@@ -566,20 +569,15 @@ class SbertSimilarityModel(SimilarityModel):
     }
 
     def __init__(self, name: str, weights_dir: str, batch_size: int = 8,
-                 max_toks: int = 512, device="cuda"):
+                 max_toks: int = 512, device="cuda",
+                 attention_impl: str = "auto", ffn_impl: str = "auto"):
         super().__init__(name=name, encoding_type="sentence",
                          batch_size=batch_size, device=device)
-        from ..models.convert import load_hf_dir, read_hf_config
-        model_type = read_hf_config(weights_dir).get("model_type")
-        if model_type != "bert":
-            raise ValueError(
-                f"{name}: {weights_dir} holds a {model_type!r} model; the port "
-                "encodes BERT checkpoints only (the JAX package runs this "
-                "family through transformers)")
+        from ..models.convert import load_hf_dir
         ckpt = load_hf_dir(weights_dir, device)
         self.tokenizer = ckpt.tokenizer
         self.max_toks = max_toks  # multiple of 64 (rows pad to 64 below)
-        self.bert = ckpt.bert_model()
+        self.bert = ckpt.encoder_model(attention_impl, ffn_impl)
 
     def _mean_pool(self, ids: np.ndarray, attn: np.ndarray) -> np.ndarray:
         with torch.no_grad():

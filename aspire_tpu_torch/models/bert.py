@@ -201,17 +201,16 @@ class BertEmbeddings(_Base):
             cfg.type_vocab_size, cfg.hidden_size, **kw)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
 
-    def forward(self, input_ids, token_type_ids, seed=None):
+    def forward(self, input_ids, token_type_ids, seed=None, position_ids=None):
+        """position_ids: int[b, t], or None for BERT's 0..t-1."""
         cfg = self.config
-        seq_len = input_ids.shape[1]
-        if seq_len > cfg.max_position_embeddings:
-            raise ValueError(
-                f"seq_len {seq_len} exceeds max_position_embeddings "
-                f"{cfg.max_position_embeddings}")
-        pos_ids = torch.arange(seq_len, device=input_ids.device)[None, :]
+        if position_ids is None:
+            check_positions(input_ids.shape[1], cfg.max_position_embeddings)
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None, :]
         # each embedding is rounded to the compute dtype before the sum
         word = self.word_embeddings(input_ids).to(self.dtype)
-        pos = self.position_embeddings(pos_ids).to(self.dtype)
+        pos = self.position_embeddings(position_ids).to(self.dtype)
         typ = self.token_type_embeddings(token_type_ids).to(self.dtype)
         ln = self.LayerNorm
         x = F.layer_norm((word + pos + typ).float(), ln.normalized_shape,
@@ -327,7 +326,8 @@ class BertLayer(_Base):
 class BertModel(nn.Module):
     """BERT encoder returning all hidden states (embeddings + each layer).
 
-    forward(input_ids, attention_mask, token_type_ids=None, seed=None)
+    forward(input_ids, attention_mask, token_type_ids=None, seed=None,
+            position_ids=None)
       -> (last_hidden_state f32[b, t, h],
           hidden_states: tuple of layer_count+1 f32 tensors).
     `seed` is the encode's 64-bit dropout seed: needed in train() mode when a
@@ -348,17 +348,52 @@ class BertModel(nn.Module):
                 hidden_dropout_impl, layer_idx=i))
 
     def forward(self, input_ids, attention_mask, token_type_ids=None,
-                seed=None):
+                seed=None, position_ids=None):
         cfg = self.config
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids, seed)
+        x = self.embeddings(input_ids, token_type_ids, seed, position_ids)
         attn_bias = torch.where(attention_mask > 0, 0.0, -1e9).float()
         hidden_states = [x.float()]
         for i in range(cfg.num_hidden_layers):
             x = getattr(self, f"layer_{i}")(x, attn_bias, seed)
             hidden_states.append(x.float())
         return hidden_states[-1], tuple(hidden_states)
+
+
+def check_positions(last: int, max_position_embeddings: int) -> None:
+    """Raise on a position past the table, before a lookup would read out
+    of range on the card."""
+    if last > max_position_embeddings:
+        raise ValueError(f"positions up to {last} exceed "
+                         f"max_position_embeddings {max_position_embeddings}")
+
+
+def position_ids_past_padding(input_ids: torch.Tensor, padding_idx: int,
+                              max_position_embeddings: int) -> torch.Tensor:
+    """RoBERTa's and MPNet's position ids (HF's
+    ``create_position_ids_from_input_ids``): a token's position is
+    padding_idx + its count of non-pad tokens so far, a pad's is padding_idx."""
+    check_positions(input_ids.shape[1] + padding_idx + 1, max_position_embeddings)
+    keep = (input_ids != padding_idx).int()
+    return torch.cumsum(keep, dim=1).int() * keep + padding_idx
+
+
+class RobertaModel(BertModel):
+    """RoBERTa: BERT's layers and names (``type_vocab_size`` 1, LayerNorm eps
+    1e-5 in its config), with the position ids counted past the padding id.
+    The same forward and outputs as BertModel; the encode runs K2 and K3."""
+
+    def __init__(self, config: BertConfig, padding_idx: int = 1, **kw):
+        super().__init__(config, **kw)
+        self.padding_idx = padding_idx
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                seed=None):
+        pos = position_ids_past_padding(input_ids, self.padding_idx,
+                                        self.config.max_position_embeddings)
+        return super().forward(input_ids, attention_mask, token_type_ids, seed,
+                               pos.long())
 
 
 class BertPooler(_Base):

@@ -266,47 +266,107 @@ def _hf_weights(path: pathlib.Path) -> dict:
     return out
 
 
+# model_type -> what the port builds from such a directory
+HF_FAMILIES = ("bert", "roberta", "mpnet")
+
+
 @dataclasses.dataclass
 class HFDir:
-    """A local HF BERT model directory, read without `transformers`."""
+    """A local HF model directory (BERT, RoBERTa or MPNet), read without
+    `transformers`."""
 
-    config: BertConfig
+    config: object               # BertConfig; mpnet.MPNetConfig for MPNet
     hf_state_dict: dict          # the file's tensors, HF names, on the CPU
-    tokenizer: object            # text.fast.FastWordPiece
+    tokenizer: object            # text.fast.FastWordPiece; text.bpe.ByteLevelBPE
     device: torch.device
+    model_type: str = "bert"
+    padding_idx: int = 1         # RoBERTa's position ids count past it
 
     def bert_state_dict(self, prefix: str = "") -> dict:
         """The port's BertModel state_dict (`prefix` before every name:
         "bert." for the encoders that hold the model as ``self.bert``)."""
+        if self.model_type == "mpnet":
+            raise ValueError("an MPNet directory has no BertModel weights: "
+                             "use encoder_model()")
         return state_dict_from_hf_state_dict(self.hf_state_dict, self.config,
                                              prefix)
 
     def pooler_state_dict(self) -> dict | None:
         return pooler_state_dict_from_hf_state_dict(self.hf_state_dict)
 
-    def bert_model(self) -> BertModel:
-        """An f32 BertModel on the directory's device in eval mode, its
-        weights loaded."""
-        model = BertModel(self.config, device=self.device)
+    def encoder_model(self, attention_impl: str = "auto",
+                      ffn_impl: str = "auto"):
+        """The directory's encoder in f32 on its device, in eval mode, its
+        weights loaded: a BertModel, a RobertaModel (position ids past the
+        padding id) or an MPNetModel.  Each returns (last hidden state,
+        hidden states).  MPNet's attention is its own (no attention_impl)."""
+        if self.model_type == "mpnet":
+            from .mpnet import MPNetModel
+            model = MPNetModel(self.config, ffn_impl=ffn_impl,
+                               device=self.device)
+            model.load_state_dict(mpnet_state_dict_from_hf_state_dict(
+                self.hf_state_dict))
+            return model.eval()
+        kw = dict(attention_impl=attention_impl, ffn_impl=ffn_impl,
+                  device=self.device)
+        if self.model_type == "roberta":
+            from .bert import RobertaModel
+            model = RobertaModel(self.config, padding_idx=self.padding_idx, **kw)
+        else:
+            model = BertModel(self.config, **kw)
         model.load_state_dict(self.bert_state_dict())
         return model.eval()
 
 
+def mpnet_state_dict_from_hf_state_dict(state_dict: dict) -> dict:
+    """An HF MPNetModel state_dict (with or without the "mpnet." prefix) ->
+    the port's MPNetModel state_dict: the same names, without the pooler and
+    the position_ids buffer."""
+    out = {}
+    for k, v in state_dict.items():
+        k = k.removeprefix("mpnet.")
+        if k.startswith(("embeddings.", "encoder.")) and not k.endswith("position_ids"):
+            out[k] = _tensor(_t(v))
+    return out
+
+
 def load_hf_dir(path, device="cuda") -> HFDir:
-    """Read a local HF BERT directory as AutoModel / AutoTokenizer
-    `from_pretrained` would: config.json -> BertConfig, the weights from
-    model.safetensors or pytorch_model.bin (with or without a "bert."
-    prefix, with or without a pooler), vocab.txt + tokenizer_config.json ->
-    the port's FastWordPiece.  `device`: where the modules built from it go
-    (a CUDA request without CUDA raises here)."""
+    """Read a local HF directory as AutoModel / AutoTokenizer
+    `from_pretrained` would, for the model types of HF_FAMILIES:
+
+    * ``bert``: config.json -> BertConfig, vocab.txt + tokenizer_config.json
+      -> the port's FastWordPiece;
+    * ``roberta``: BertConfig (type_vocab_size 1, LayerNorm eps 1e-5 from
+      its config), vocab.json + merges.txt -> text.bpe.ByteLevelBPE;
+    * ``mpnet``: mpnet.MPNetConfig, a WordPiece vocab.txt with <s> </s>
+      <pad> <mask> as its special tokens;
+
+    the weights from model.safetensors or pytorch_model.bin (with or without
+    a "bert." / "roberta." / "mpnet." prefix, with or without a pooler).
+    Other model types are refused by name.  `device`: where the modules
+    built from it go (a CUDA request without CUDA raises here)."""
     from ..text.fast import FastWordPiece
     dev = require_device(device)
     path = pathlib.Path(path)
     raw = read_hf_config(path)
-    if raw.get("model_type", "bert") != "bert":
-        raise ValueError(f"{path} holds a {raw['model_type']!r} model; the "
-                         "port encodes BERT checkpoints only")
+    model_type = raw.get("model_type", "bert")
+    if model_type not in HF_FAMILIES:
+        raise ValueError(f"{path} holds a {model_type!r} model; the port "
+                         f"encodes the families {HF_FAMILIES} only")
+    weights = _hf_weights(path)
+    if model_type == "mpnet":
+        from .mpnet import MPNetConfig
+        return HFDir(config=MPNetConfig.from_hf(raw), hf_state_dict=weights,
+                     tokenizer=FastWordPiece.from_dir(str(path)), device=dev,
+                     model_type=model_type)
+    if model_type == "roberta":
+        from ..text.bpe import ByteLevelBPE
+        tokenizer = ByteLevelBPE.from_dir(str(path))
+        weights = {k.removeprefix("roberta."): v for k, v in weights.items()}
+    else:
+        tokenizer = FastWordPiece.from_dir(str(path))
     config = config_from_hf(types.SimpleNamespace(**{
         "type_vocab_size": 2, "layer_norm_eps": 1e-12, **raw}))
-    return HFDir(config=config, hf_state_dict=_hf_weights(path),
-                 tokenizer=FastWordPiece.from_dir(str(path)), device=dev)
+    return HFDir(config=config, hf_state_dict=weights, tokenizer=tokenizer,
+                 device=dev, model_type=model_type,
+                 padding_idx=raw.get("pad_token_id", 1))

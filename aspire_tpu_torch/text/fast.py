@@ -7,9 +7,10 @@ package, named after a hash of those sources and the flags, and written under
 a temporary name first so that processes building it at once never load a
 half-written file.  Nothing is ever written into ``native/``.
 
-`FastWordPiece` is the port's only tokenizer: BERT's BasicTokenizer +
-WordPiece, with the ids of Hugging Face's ``BertTokenizer`` (exact on ASCII;
-the generated unicode tables carry the rest).
+`FastWordPiece` is the port's WordPiece tokenizer (BERT's and MPNet's):
+BERT's BasicTokenizer + WordPiece, with the ids of Hugging Face's
+``BertTokenizer`` (exact on ASCII; the generated unicode tables carry the
+rest).  RoBERTa's byte-level BPE is text/bpe.py.
 """
 from __future__ import annotations
 
@@ -85,6 +86,19 @@ def _load():
     return lib
 
 
+def special_tokens(cfg: dict, keys) -> dict:
+    """The special tokens a tokenizer_config.json names: a string, or (newer
+    files) an AddedToken dict whose ``content`` is the string."""
+    out = {}
+    for k in keys:
+        v = cfg.get(k)
+        if isinstance(v, dict):
+            v = v.get("content")
+        if isinstance(v, str):
+            out[k] = v
+    return out
+
+
 class FastWordPiece:
     """Native BERT tokenizer: BasicTokenizer + WordPiece, ids as HF's.
 
@@ -127,7 +141,9 @@ class FastWordPiece:
     def from_dir(cls, path: str) -> "FastWordPiece":
         """The tokenizer of a local HF model directory: its vocab.txt, and
         do_lower_case and the special tokens from tokenizer_config.json
-        when that file exists (HF's BertTokenizer lowercases by default)."""
+        when that file exists (HF's BertTokenizer lowercases by default).
+        MPNet's config names <s> </s> <pad> <mask>; a special token the
+        config names and the vocab lacks raises."""
         path = pathlib.Path(path)
         vocab = path / "vocab.txt"
         if not vocab.exists():
@@ -145,9 +161,14 @@ class FastWordPiece:
                 f"{path}: strip_accents={cfg.get('strip_accents')!r} / "
                 f"tokenize_chinese_chars={cfg.get('tokenize_chinese_chars')!r} "
                 "are not BERT's defaults, which the native tokenizer follows")
-        names = {k: cfg[k] for k in ("unk_token", "cls_token", "sep_token",
-                                     "pad_token", "mask_token")
-                 if isinstance(cfg.get(k), str)}
+        names = special_tokens(cfg, ("unk_token", "cls_token", "sep_token",
+                                     "pad_token", "mask_token"))
+        with open(vocab, encoding="utf-8") as f:
+            known = {ln.rstrip("\n") for ln in f}
+        missing = {k: v for k, v in names.items() if v not in known}
+        if missing:
+            raise ValueError(f"{path}: tokenizer_config.json names special "
+                             f"tokens that {vocab.name} lacks: {missing}")
         return cls(str(vocab), lowercase=lowercase, **names)
 
     def __del__(self):

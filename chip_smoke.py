@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving, training, index, evaluation and data-pipeline paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving, training, index, evaluation, data-pipeline, baseline-family and check paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
     python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
@@ -7,9 +7,11 @@
     python3 chip_smoke.py --phases kernels   # every kernel against its plain version, alone
     python3 chip_smoke.py --phases eval      # the CLI's evaluate and train alone
     python3 chip_smoke.py --phases chain     # the data pipeline's two-model chain alone
+    python3 chip_smoke.py --phases families  # the examples and the RoBERTa / MPNet baselines alone
+    python3 chip_smoke.py --phases checks    # the convergence and int8 checks alone
 
 Phases run in the order device, build, kernels, serve, train, index, eval,
-chain.
+chain, families, checks; each prints its seconds (a `phase_seconds` line).
 
 Phases, one JSON object a line:
 
@@ -94,7 +96,24 @@ Phases, one JSON object a line:
            against its plain route on every sentence of the examples (1e-4;
            alignments equal where the argmax leads by more than 1e-4); MAP
            and NDCG%20 beside a random ranking's MAP (reported, not held);
-           then K2 and K3 in f32 at the aligner's shapes.
+           then K2 and K3 in f32 at the aligner's shapes;
+  families the examples (examples/*_torch.py), each as a subprocess on the
+           card, the three side by side, against the same script's
+           --device cpu run (scores within 1e-4, the OT similarity and plan
+           within 1e-3), then once more in this process with the counts set
+           to 0 before and read after; then `evaluate` with sbrobertanli and
+           sbmpnet1B on one facet of the eval phase's dataset, each from a
+           directory written from a numpy seed at its published widths
+           (RoBERTa-base with a 50,265-entry byte-level BPE, MPNet-base with
+           a 30,527-entry WordPiece and 32 relative buckets): abstracts a
+           second, launches (12 K2 f32 + 36 K3 f32 a RoBERTa batch, 36 K3
+           f32 a MPNet batch), the kernel encode against the plain route on
+           64 abstracts (1e-4); then K2 f32 and K3 f32 at the families'
+           sentence shapes;
+  checks   benchmarks/torch_convergence_check.py at full size (160 steps,
+           its descent asserted, each step's launches counted), then
+           scripts/torch_int8_validation.py --random-bert on 4,000 + 50
+           abstracts of the chain's synthesiser (reported, not gated).
 
 Any failed check raises: the run then prints {"ok": false, ...} and exits
 with code 1.  Without CUDA it exits with code 1 before printing any result.
@@ -2194,21 +2213,27 @@ def write_triples(path: str, vocab: list, seed: int, n: int) -> None:
 
 
 class EvalSpy:
-    """Host-clock time and calls of AspireSimilarityModel.encode and
-    .get_similarities while it is entered (each call ends on the host: its
-    results come back as numpy arrays), and the summed micro-batch losses of
-    each training step."""
+    """Host-clock time and calls of an evaluation model's encode and
+    get_similarities (AspireSimilarityModel's unless `model` names another
+    class) while it is entered (each call ends on the host: its results come
+    back as numpy arrays), and the summed micro-batch losses of each training
+    step."""
+
+    def __init__(self, model=None):
+        self.model = model
 
     def __enter__(self):
-        from aspire_tpu_torch.evaluation.models import AspireSimilarityModel as M
+        from aspire_tpu_torch.evaluation.models import AspireSimilarityModel
         from aspire_tpu_torch.train.trainer import Trainer
+        M = self.model or AspireSimilarityModel
         self.encode_s = self.score_s = 0.0
         self.docs = self.batches = self.queries = 0
         self.step_losses = []
-        self._saved = [(M, "encode", M.encode),
-                       (M, "get_similarities", M.get_similarities),
+        # (owner, name, the owner's own attribute or None when inherited)
+        self._saved = [(M, "encode", M.__dict__.get("encode")),
+                       (M, "get_similarities", M.__dict__.get("get_similarities")),
                        (Trainer, "train_step", Trainer.train_step)]
-        encode, score, step = (fn for _, _, fn in self._saved)
+        encode, score, step = M.encode, M.get_similarities, Trainer.train_step
         spy = self
 
         def timed_encode(model, papers):
@@ -2239,7 +2264,10 @@ class EvalSpy:
 
     def __exit__(self, *exc):
         for owner, name, fn in self._saved:
-            setattr(owner, name, fn)
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
 
 
 def _cli(argv: list):
@@ -2703,6 +2731,408 @@ def phase_chain(dev) -> tuple:
     return cases, main
 
 
+# ------------------------------------------------------------------- families
+EXAMPLES = ("consent", "multimatch", "bienc")
+NUMBER = re.compile(r"-?\d+\.\d*(?:e-?\d+)?")
+
+
+def parse_example(text: str) -> dict:
+    """An example's printed lines: shape lines and the best pair as text, the
+    reps-derived score, the OT similarity and the transport plan as numbers."""
+    out = {"lines": [ln for ln in text.splitlines()
+                     if ln.startswith(("doc CLS reps:", "CLS reps:", "best-matching"))]}
+    for key, prefix in (("score", "tsAspire similarity:"),
+                        ("score", "bi-encoder similarity (-L2):"),
+                        ("ot", "otAspire similarity:")):
+        if prefix in text:
+            out[key] = float(text.split(prefix)[1].split()[0])
+    if "(query sents x cand sents):" in text:
+        out["plan"] = [float(x) for x in NUMBER.findall(
+            text.split("(query sents x cand sents):")[1])]
+    return out
+
+
+def run_example(name: str, argv: list) -> str:
+    """examples/ex_{name}_torch.py's main in this process; its stdout."""
+    import contextlib
+    import importlib
+    import io
+    sys.path.insert(0, str(REPO / "examples"))
+    try:
+        module = importlib.import_module(f"ex_{name}_torch")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+    finally:
+        sys.path.remove(str(REPO / "examples"))
+    return buf.getvalue()
+
+
+def phase_examples(dev) -> tuple:
+    """Each example as a user runs it (a subprocess on the card, the three
+    side by side) against the same script's --device cpu run: lines equal,
+    reps-derived scores within 1e-4, the OT similarity and the plan within
+    1e-3 (the plan's printed entries are rounded to 4 places).  Then each
+    once more in this process on the card, with the counts set to 0 before
+    it and read after it."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, f"ex_{name}_torch.py"], cwd=REPO / "examples", env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    results, launches = {}, {}
+    total = dict.fromkeys(read_counts(), 0)
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"families: ex_{name}_torch.py exited "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+        card, cpu = parse_example(stdout), parse_example(
+            run_example(name, ["--device", "cpu"]))
+        if card["lines"] != cpu["lines"] or set(card) != set(cpu):
+            raise AssertionError(f"families: ex_{name}_torch.py printed {card} "
+                                 f"on the card, {cpu} on the CPU")
+        errs = {}
+        for key, atol in (("score", 1e-4), ("ot", 1e-3), ("plan", 1e-3 + 1e-4)):
+            if key in card:
+                errs[key] = check_close(
+                    f"ex_{name}_torch {key}, card against CPU",
+                    torch.tensor(card[key], dtype=torch.float64),
+                    torch.tensor(cpu[key], dtype=torch.float64), atol=atol)["max_abs_err"]
+        results[name] = {"subprocess_s": time.perf_counter() - t0, **card,
+                         "max_abs_err_vs_cpu": errs}
+    for name in EXAMPLES:
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        run_example(name, [])
+        torch.cuda.synchronize()
+        results[name]["in_process_s"] = time.perf_counter() - t1
+        got = read_counts()
+        launches[name] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            total[k] += v
+    # BertConfig.tiny(): 2 layers, f32 (three K3 launches a call), one pool
+    # a ConSent encode, one K1 loop a distance
+    want = {"consent": {"attention": 2, "ffn": 6, "pool": 1},
+            "multimatch": {"attention": 2, "ffn": 6, "pool": 1, "sinkhorn": 1},
+            "bienc": {"attention": 2, "ffn": 6}}
+    if launches != want:
+        raise AssertionError(f"families: the examples launched {launches}, "
+                             f"expected {want}")
+    return results, launches, total
+
+
+def random_mpnet_state_dict(cfg, seed: int) -> dict:
+    """MPNetModel weights under Hugging Face's names (pooler included), from
+    a numpy seed: N(0, 0.02), LayerNorm scales 1 + N(0, 0.02)."""
+    rng = np.random.default_rng(seed)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+
+    def t(*shape, base=0.0):
+        return torch.from_numpy(
+            (base + rng.standard_normal(shape) * 0.02).astype(np.float32))
+
+    sd = {"embeddings.word_embeddings.weight": t(cfg.vocab_size, h),
+          "embeddings.position_embeddings.weight": t(cfg.max_position_embeddings, h),
+          "embeddings.LayerNorm.weight": t(h, base=1.0),
+          "embeddings.LayerNorm.bias": t(h),
+          "encoder.relative_attention_bias.weight": t(
+              cfg.relative_attention_num_buckets, cfg.num_attention_heads)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (("attention.attn.q", (h, h)),
+                                    ("attention.attn.k", (h, h)),
+                                    ("attention.attn.v", (h, h)),
+                                    ("attention.attn.o", (h, h)),
+                                    ("intermediate.dense", (f, h)),
+                                    ("output.dense", (h, f))):
+            sd[p + name + ".weight"] = t(n_out, n_in)
+            sd[p + name + ".bias"] = t(n_out)
+        for name in ("attention.LayerNorm", "output.LayerNorm"):
+            sd[p + name + ".weight"] = t(h, base=1.0)
+            sd[p + name + ".bias"] = t(h)
+    sd["pooler.dense.weight"] = t(h, h)
+    sd["pooler.dense.bias"] = t(h)
+    return sd
+
+
+def bpe_files(texts: list, size: int) -> tuple:
+    """A byte-level BPE of `size` entries: <s> <pad> </s> <unk>, the 256 byte
+    symbols, merges that spell the texts' words, most frequent first (each
+    word's byte symbols joined left to right), filler entries, <mask> last.
+    Returns (vocab dict, merges)."""
+    import collections
+    from aspire_tpu_torch.text.bpe import bytes_to_unicode, pre_tokenize
+    table = bytes_to_unicode()
+    vocab = {tok: i for i, tok in enumerate(("<s>", "<pad>", "</s>", "<unk>"))}
+    for ch in table.values():
+        vocab[ch] = len(vocab)
+    merges = []
+    words = collections.Counter(w for text in texts for w in pre_tokenize(text))
+    for word, _ in words.most_common():
+        chars = "".join(table[b] for b in word.encode("utf-8"))
+        for i in range(2, len(chars) + 1):
+            if len(vocab) == size - 1:
+                break
+            if chars[:i] not in vocab:
+                merges.append((chars[:i - 1], chars[i - 1]))
+                vocab[chars[:i]] = len(vocab)
+    while len(vocab) < size - 1:
+        vocab[f"<filler{len(vocab)}>"] = len(vocab)
+    vocab["<mask>"] = size - 1
+    return vocab, merges
+
+
+FAMILY_CONFIG = {"num_hidden_layers": 12, "hidden_size": 768,
+                 "num_attention_heads": 12, "intermediate_size": 3072,
+                 "max_position_embeddings": 514, "layer_norm_eps": 1e-5,
+                 "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+                 "attention_probs_dropout_prob": 0.1, "pad_token_id": 1,
+                 "bos_token_id": 0, "eos_token_id": 2}
+
+
+def write_roberta_dir(path: str, texts: list, seed: int) -> None:
+    """nli-roberta-base-v2's config at random weights ("roberta."-prefixed
+    names), a byte-level BPE of 50,265 entries learned from `texts`."""
+    import os
+    from aspire_tpu_torch.models.bert import BertConfig
+    os.makedirs(path, exist_ok=True)
+    vocab, merges = bpe_files(texts, 50265)
+    cfg = BertConfig(vocab_size=50265, type_vocab_size=1, layer_norm_eps=1e-5,
+                     max_position_embeddings=514)
+    with open(f"{path}/config.json", "w") as f:
+        json.dump({"architectures": ["RobertaModel"], "model_type": "roberta",
+                   "vocab_size": 50265, "type_vocab_size": 1, **FAMILY_CONFIG}, f)
+    with open(f"{path}/vocab.json", "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(f"{path}/merges.txt", "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(f"{path}/tokenizer_config.json", "w") as f:
+        json.dump({"tokenizer_class": "RobertaTokenizer", "add_prefix_space": False,
+                   "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+                   "sep_token": "</s>", "cls_token": "<s>", "pad_token": "<pad>",
+                   "mask_token": "<mask>"}, f)
+    torch.save({"roberta." + k: v for k, v in random_hf_state_dict(cfg, seed).items()},
+               f"{path}/pytorch_model.bin")
+
+
+def write_mpnet_dir(path: str, words: list, seed: int) -> None:
+    """all-mpnet-base-v2's config at random weights, a WordPiece vocab of
+    30,527 entries (<s> <pad> </s> <unk>, `words`, <mask>) and a
+    tokenizer_config.json with its special tokens as AddedToken dicts."""
+    import os
+    from aspire_tpu_torch.models.mpnet import MPNetConfig
+    os.makedirs(path, exist_ok=True)
+    vocab = ["<s>", "<pad>", "</s>", "<unk>"] + words + ["<mask>"]
+    raw = {"architectures": ["MPNetModel"], "model_type": "mpnet",
+           "vocab_size": len(vocab), "relative_attention_num_buckets": 32,
+           **FAMILY_CONFIG}
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(raw, f)
+    with open(f"{path}/vocab.txt", "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    added = lambda tok: {"content": tok, "lstrip": tok == "<mask>",  # noqa: E731
+                         "normalized": False, "rstrip": False,
+                         "single_word": False, "__type": "AddedToken"}
+    with open(f"{path}/tokenizer_config.json", "w") as f:
+        json.dump({"tokenizer_class": "MPNetTokenizer", "do_lower_case": True,
+                   **{k: added(v) for k, v in (
+                       ("bos_token", "<s>"), ("eos_token", "</s>"),
+                       ("cls_token", "<s>"), ("sep_token", "</s>"),
+                       ("pad_token", "<pad>"), ("unk_token", "[UNK]"),
+                       ("mask_token", "<mask>"))}}, f)
+    torch.save(random_mpnet_state_dict(MPNetConfig.from_hf(raw), seed),
+               f"{path}/pytorch_model.bin")
+
+
+FAMILIES = {"sbrobertanli": "roberta", "sbmpnet1B": "mpnet"}
+FAMILY_FACET = "background"
+
+
+def phase_families(dev) -> tuple:
+    """The examples (phase_examples), then `evaluate` with sbrobertanli and
+    sbmpnet1B through aspire_tpu_torch.cli.main on one facet of the eval
+    phase's CSFCube-layout dataset, each from a random-weight directory at
+    its published widths; the counts set to 0 before each run and read after
+    it.  Then each family's kernel route against its plain route on 64
+    abstracts, and K2 / K3 in f32 at the families' sentence shapes."""
+    import tempfile
+    from aspire_tpu_torch.evaluation.datasets import EvalDataset
+    from aspire_tpu_torch.evaluation.models import SbertSimilarityModel as Sbert
+    f32 = torch.float32
+    examples, example_launches, main = phase_examples(dev)
+    emit("examples", card=CARD, examples=examples, launches=example_launches)
+    layers = FAMILY_CONFIG["num_hidden_layers"]
+    vocab = eval_vocab(30522)
+    out, shapes = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_csfcube(f"{tmp}/data", vocab, seed=22, n_docs=EVAL_DOCS)
+        ds = EvalDataset("csfcube", f"{tmp}/data")
+        papers = [ds.get(pid) for pid, _ in list(ds)[:64]]
+        texts = [s for p in papers for s in [p["TITLE"]] + p["ABSTRACT"]]
+        write_roberta_dir(f"{tmp}/roberta", texts, seed=31)
+        write_mpnet_dir(f"{tmp}/mpnet", vocab, seed=32)
+        setup_s = time.perf_counter() - t0
+        for name, family in FAMILIES.items():
+            rows = shapes[name] = []
+            pool = Sbert._mean_pool
+
+            def recorded(model, ids, attn, pool=pool, rows=rows):
+                rows.append(tuple(ids.shape))
+                return pool(model, ids, attn)
+
+            Sbert._mean_pool = recorded
+            torch.cuda.synchronize()
+            reset_counts()
+            try:
+                with EvalSpy(Sbert) as spy:
+                    agg, _ = _cli(["evaluate", "--model", name, "--weights-dir",
+                                   f"{tmp}/{family}", "--dataset", "csfcube",
+                                   "--dataset-dir", f"{tmp}/data", "--facet",
+                                   FAMILY_FACET, "--results", f"{tmp}/res_{name}",
+                                   "--device", dev.type])
+            finally:
+                Sbert._mean_pool = pool
+            got = read_counts()
+            want = dict.fromkeys(got, 0)
+            want["ffn"] = ffn_launches(f32) * layers * spy.batches
+            if family == "roberta":           # MPNet's attention is its own
+                want["attention"] = layers * spy.batches
+            if got != want:
+                raise AssertionError(f"families: {name} launched {got}, "
+                                     f"expected {want}")
+            for k, v in got.items():
+                main[k] += v
+            vals = [v for split in agg[FAMILY_FACET].values() for v in split.values()]
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"families: {name} aggregates {agg}")
+            # the kernel route against the plain route on 64 abstracts
+            routes = {}
+            for impl in ("auto", "naive"):
+                m = Sbert(name, f"{tmp}/{family}", device=dev,
+                          attention_impl=impl, ffn_impl=impl)
+                reset_counts()
+                routes[impl] = [r for i in range(0, 64, 8)
+                                for r in m.encode(papers[i:i + 8])]
+                routes[impl + "_launches"] = {k: v for k, v in read_counts().items() if v}
+                del m
+            if routes["naive_launches"]:
+                raise AssertionError(f"families: the plain route of {name} "
+                                     f"launched {routes['naive_launches']}")
+            err = check_close(f"families {name} encode, kernel against plain route",
+                              torch.from_numpy(np.concatenate(routes["auto"])),
+                              torch.from_numpy(np.concatenate(routes["naive"])),
+                              atol=_tol(f32))
+            rows.sort()
+            out[name] = {
+                "family": family, "docs_encoded": spy.docs,
+                "encode_batches": spy.batches, "docs_per_s": spy.docs / spy.encode_s,
+                "encode_s": spy.encode_s, "queries": spy.queries,
+                "score_ms_per_query": spy.score_s / spy.queries * 1e3,
+                "metrics": {"map": agg[FAMILY_FACET]["test"]["mean_av_precision"],
+                            "ndcg%20": agg[FAMILY_FACET]["test"]["ndcg%20"]},
+                "launches": {k: v for k, v in got.items() if v},
+                "launches_per_batch": {k: v / spy.batches for k, v in got.items() if v},
+                "sentence_rows": {"median": rows[len(rows) // 2], "max": rows[-1]},
+                "kernel_vs_plain": {"docs": 64, "max_abs_err": err["max_abs_err"],
+                                    "atol": _tol(f32)}}
+            torch.cuda.empty_cache()
+    # K2 and K3 in f32 at a median batch's shape of each family (sentences x
+    # tokens): K2 runs RoBERTa's, K3 both
+    rob = out["sbrobertanli"]["sentence_rows"]["median"]
+    mpn = out["sbmpnet1B"]["sentence_rows"]["median"]
+    cases = {"attention": [case_attention(rob[0], 12, rob[1], 64, f32, dev)],
+             "ffn": [case_ffn(rob[0] * rob[1], f32, dev),
+                     case_ffn(mpn[0] * mpn[1], f32, dev)]}
+    for name, kernel_rows in cases.items():
+        emit("kernel_cases", kernel=name, path="families", cases=kernel_rows)
+    emit("families", card=CARD, dataset=data, facet=FAMILY_FACET, layers=layers,
+         hidden=768, dtype="float32", setup_s=setup_s, models=out, launches=main)
+    return cases, main
+
+
+# --------------------------------------------------------------------- checks
+INT8_DOCS, INT8_QUERIES = 4000, 50
+
+
+def _load_script(path: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(pathlib.Path(path).stem,
+                                                  REPO / path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_int8_corpus(root: pathlib.Path, n_docs: int, seed: int = 0) -> None:
+    """Abstracts of the chain phase's synthesiser at its full scale (50
+    topics, 4-6 sentences of 6-10 words) and a vocab of their words."""
+    import random
+    chain = _load_chain_script()
+    sc = chain.SCALES["full"]
+    rng = random.Random(seed)
+    lex = chain.make_lexicon(sc["topics"])
+    chain.write_tokenizer(root / "tokenizer", lex)
+    with open(root / "abstracts.jsonl", "w") as f:
+        for i in range(n_docs):
+            t = i % sc["topics"]
+            f.write(json.dumps({
+                "paper_id": f"d{i}", "title": f"paper about {chain.topic_word(t, 0)} methods",
+                "abstract": chain.make_abstract_sents(rng, lex[t], sc)}) + "\n")
+
+
+def phase_checks(dev) -> tuple:
+    """benchmarks/torch_convergence_check.py at full size (160 steps,
+    asserted), then scripts/torch_int8_validation.py --random-bert on 4,000 +
+    50 abstracts (reported, not gated); the counts set to 0 before each and
+    read after it."""
+    import tempfile
+    layers = 12
+    main = dict.fromkeys(read_counts(), 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    conv = _load_script("benchmarks/torch_convergence_check.py").main([])
+    got = read_counts()
+    steps = conv["steps"]
+    # a step: two wide encodes (query, positive), a bf16 backward of three
+    # launches a layer each, 1 + 2 * layers dropout sites a side forward and
+    # backward, two K1 annealing loops
+    want = dict.fromkeys(got, 0)
+    want.update(attention_dropout=steps * 2 * layers,
+                attention_bwd=steps * 2 * 3 * layers,
+                dropout=steps * 2 * 2 * (1 + 2 * layers), sinkhorn=steps * 2)
+    if got != want:
+        raise AssertionError(f"checks: the convergence check launched {got}, "
+                             f"expected {want}")
+    for k, v in got.items():
+        main[k] += v
+    emit("convergence", card=CARD, **conv, ms_per_step=conv["seconds"] / steps * 1e3,
+         launches={k: v for k, v in got.items() if v})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_int8_corpus(root, INT8_DOCS + INT8_QUERIES)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = _load_script("scripts/torch_int8_validation.py").main([
+            "--abstracts", str(root / "abstracts.jsonl"), "--random-bert",
+            "--tokenizer", str(root / "tokenizer"), "--n-docs", str(INT8_DOCS),
+            "--n-queries", str(INT8_QUERIES), "--seq-len", "128"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = read_counts()
+    for k, v in got.items():
+        main[k] += v
+    emit("int8_validation", card=CARD, seconds=seconds, summary=summary,
+         launches={k: v for k, v in got.items() if v})
+    return main
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -2746,7 +3176,18 @@ PATH_KERNELS = {
              "attention_bwd", "dropout"),
     "chain": ("sinkhorn", "attention", "ffn", "pool", "attention_dropout",
               "attention_bwd", "dropout"),
+    "families": ("sinkhorn", "attention", "ffn", "pool"),
+    "checks": ("attention_dropout", "attention_bwd", "dropout", "sinkhorn",
+               "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
 }
+
+
+def timed(phase: str, fn, *args):
+    """fn(*args), its seconds on the host's clock printed as a line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("phase_seconds", of=phase, seconds=time.perf_counter() - t0)
+    return out
 
 
 def run(args) -> dict:
@@ -2755,28 +3196,38 @@ def run(args) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
-    phase_build()
+    timed("build", phase_build)
     cases, launches = {}, {}
+
+    def add(found: dict) -> None:
+        for name, rows in found.items():
+            cases.setdefault(name, []).extend(rows)
+
     if args.phases in ("all", "kernels"):
-        cases = phase_kernels(dev)
+        cases = timed("kernels", phase_kernels, dev)
     if args.phases in ("all", "index"):
         cases["pool"] = phase_pool_kernel(dev)
     if args.phases == "all":
-        launches["serve"] = phase_serve(dev, args.layers)
-        launches["train"] = phase_train(dev, args.train_layers)
-        launches["train_f32"] = phase_train_f32(dev, args.train_layers)
+        launches["serve"] = timed("serve", phase_serve, dev, args.layers)
+        launches["train"] = timed("train", phase_train, dev, args.train_layers)
+        launches["train_f32"] = timed("train_f32", phase_train_f32, dev,
+                                      args.train_layers)
     if args.phases in ("all", "index"):
-        scan_cases, launches["index"] = phase_index(
-            dev, args.layers, args.encode_docs, args.index_docs)
+        scan_cases, launches["index"] = timed(
+            "index", phase_index, dev, args.layers, args.encode_docs,
+            args.index_docs)
         cases.update(scan_cases)
     if args.phases in ("all", "eval"):
-        eval_cases, launches["eval"] = phase_eval(dev)
-        for name, rows in eval_cases.items():
-            cases.setdefault(name, []).extend(rows)
+        found, launches["eval"] = timed("eval", phase_eval, dev)
+        add(found)
     if args.phases in ("all", "chain"):
-        chain_cases, launches["chain"] = phase_chain(dev)
-        for name, rows in chain_cases.items():
-            cases.setdefault(name, []).extend(rows)
+        found, launches["chain"] = timed("chain", phase_chain, dev)
+        add(found)
+    if args.phases in ("all", "families"):
+        found, launches["families"] = timed("families", phase_families, dev)
+        add(found)
+    if args.phases in ("all", "checks"):
+        launches["checks"] = timed("checks", phase_checks, dev)
     for path, counts in launches.items():
         idle = [name for name in PATH_KERNELS[path] if counts[name] < 1]
         if idle:
@@ -2821,13 +3272,17 @@ def main() -> int:
     parser.add_argument("--index-docs", type=int, default=125_000,
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
-                        choices=("all", "index", "kernels", "eval", "chain"),
+                        choices=("all", "index", "kernels", "eval", "chain",
+                                 "families", "checks"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
                              "plain versions and drives no path; 'eval' drives "
                              "the CLI's evaluate and train alone; 'chain' the "
-                             "data pipeline's two-model chain alone")
+                             "data pipeline's two-model chain alone; "
+                             "'families' the examples and the RoBERTa / MPNet "
+                             "baselines alone; 'checks' the convergence and "
+                             "int8 checks alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

@@ -123,6 +123,19 @@ def citing_paper(rng, pid, t, lex, bib: list[str], sc=None):
     }
 
 
+def write_tokenizer(tok_dir: pathlib.Path, lex: dict) -> None:
+    """A local BertTokenizer directory whose vocab holds the corpus' words."""
+    tok_dir.mkdir(parents=True, exist_ok=True)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", "[", "]",
+             "1", "2"] + FUNCTION_WORDS + [
+        "paper", "about", "citing", "tasks", "systems", "build", "prior"]
+    for words in lex.values():
+        vocab.extend(words)
+    (tok_dir / "vocab.txt").write_text("\n".join(dict.fromkeys(vocab)) + "\n")
+    (tok_dir / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+
+
 def write_data(root: pathlib.Path, sc: dict, seed: int = 0) -> dict:
     """The S2ORC-shaped batch files (root/s2orc), a local BertTokenizer
     vocabulary (root/tokenizer) and the evaluation dataset (root/eval: 'syn',
@@ -155,17 +168,7 @@ def write_data(root: pathlib.Path, sc: dict, seed: int = 0) -> dict:
             for p in papers[b::nb]:
                 f.write(json.dumps(p) + "\n")
 
-    # ---- local tokenizer dir ----
-    tok_dir = root / "tokenizer"
-    tok_dir.mkdir(exist_ok=True)
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", "[", "]",
-             "1", "2"] + FUNCTION_WORDS + [
-        "paper", "about", "citing", "tasks", "systems", "build", "prior"]
-    for t in range(sc["topics"]):
-        vocab.extend(lex[t])
-    (tok_dir / "vocab.txt").write_text("\n".join(dict.fromkeys(vocab)) + "\n")
-    (tok_dir / "tokenizer_config.json").write_text(json.dumps(
-        {"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+    write_tokenizer(root / "tokenizer", lex)
 
     # ---- eval corpus + query pools (gold relevance = topic identity) ----
     eval_dir = root / "eval"

@@ -87,7 +87,7 @@ def test_load_hf_dir_encodes_like_hf(tmp_path, rng, layout):
     with torch.no_grad():
         want = hf(input_ids=torch.from_numpy(ids),
                   attention_mask=torch.from_numpy(mask)).last_hidden_state
-        got, _ = ckpt.bert_model()(torch.from_numpy(ids), torch.from_numpy(mask))
+        got, _ = ckpt.encoder_model()(torch.from_numpy(ids), torch.from_numpy(mask))
         pooler = BertPooler(ckpt.config, device="cpu")
         pooler.load_state_dict(ckpt.pooler_state_dict())
         pooled = pooler(got)
@@ -125,16 +125,18 @@ def test_pooler_head_matches_jax(tmp_path):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
 
 
-def test_non_bert_directory_is_refused(tmp_path):
-    write_hf_dir(tmp_path / "r", "bin")
-    cfg = json.loads((tmp_path / "r" / "config.json").read_text())
-    cfg["model_type"] = "roberta"
-    (tmp_path / "r" / "config.json").write_text(json.dumps(cfg))
-    with pytest.raises(ValueError, match="roberta"):
-        load_hf_dir(tmp_path / "r", "cpu")
+def test_unsupported_model_type_is_refused(tmp_path):
+    """BERT, RoBERTa and MPNet load (tests/test_torch_families.py); any other
+    model type is refused by name, in load_hf_dir and in the sbert model."""
+    write_hf_dir(tmp_path / "x", "bin")
+    cfg = json.loads((tmp_path / "x" / "config.json").read_text())
+    cfg["model_type"] = "xlnet"
+    (tmp_path / "x" / "config.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="xlnet"):
+        load_hf_dir(tmp_path / "x", "cpu")
     from aspire_tpu_torch.evaluation.models import SbertSimilarityModel
-    with pytest.raises(ValueError, match="roberta"):
-        SbertSimilarityModel("sbrobertanli", str(tmp_path / "r"), device="cpu")
+    with pytest.raises(ValueError, match="xlnet"):
+        SbertSimilarityModel("sbrobertanli", str(tmp_path / "x"), device="cpu")
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):

@@ -1,8 +1,9 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
-pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, pandas, h5py,
-safetensors or aspire_tpu module, and needs neither nvcc nor triton;
-`chip_smoke.py`, the port's benchmark scripts and its chain script
-(scripts/torch_e2e_chain.py) import none of them either
+pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, tokenizers,
+regex, pandas, h5py, safetensors or aspire_tpu module, and needs neither nvcc
+nor triton; `chip_smoke.py`, the port's benchmark scripts, its chain and
+int8 scripts (scripts/torch_*.py) and examples (examples/*_torch.py) import
+none of them either
 (h5py only inside `SimilarityModel.set_encodings_cache`, which the card's
 machine never calls: it has no h5py)."""
 import ast
@@ -15,7 +16,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "aspire_tpu", "ml_dtypes",
-          "transformers", "pandas", "safetensors")
+          "transformers", "tokenizers", "regex", "pandas", "safetensors")
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -28,7 +29,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "aspire_tpu", "ml_dtypes", "transformers",
-                                    "pandas", "h5py", "safetensors"))
+                                    "tokenizers", "regex", "pandas", "h5py",
+                                    "safetensors"))
 assert not bad, bad
 assert "triton" not in sys.modules
 must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
@@ -54,7 +56,8 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.__main__", "aspire_tpu_torch.data.preprocess",
         "aspire_tpu_torch.data.gorc", "aspire_tpu_torch.data.corpus",
         "aspire_tpu_torch.data.mix", "aspire_tpu_torch.data.ner",
-        "aspire_tpu_torch.data.align", "aspire_tpu_torch.utils.profiling"}
+        "aspire_tpu_torch.data.align", "aspire_tpu_torch.utils.profiling",
+        "aspire_tpu_torch.text.bpe", "aspire_tpu_torch.models.mpnet"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
@@ -82,8 +85,10 @@ def _imports(path: pathlib.Path):
 
 
 SOURCES = (sorted((REPO / "aspire_tpu_torch").rglob("*.py"))
-           + [REPO / "chip_smoke.py", REPO / "scripts" / "torch_e2e_chain.py"]
-           + sorted((REPO / "benchmarks").glob("torch_*.py")))
+           + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "scripts").glob("torch_*.py"))
+           + sorted((REPO / "benchmarks").glob("torch_*.py"))
+           + sorted((REPO / "examples").glob("*_torch.py")))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -136,7 +141,8 @@ for path in sys.argv[1:]:
     spec.loader.exec_module(module)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                    "aspire_tpu", "ml_dtypes", "transformers"))
+                                    "aspire_tpu", "ml_dtypes", "transformers",
+                                    "tokenizers", "regex"))
 assert not bad, bad
 assert "triton" not in sys.modules
 print("IMPORTED", len(sys.argv) - 1)
