@@ -1,5 +1,5 @@
 """Command-line interface of the port (counterpart of aspire_tpu/cli.py): the
-same subcommands, flags, defaults and files in and out, on one CUDA device.
+same subcommands, flags, defaults and files in and out, on CUDA devices.
 
   python -m aspire_tpu_torch train        --config cfg.json --train t.jsonl --dev d.jsonl --out run/
   python -m aspire_tpu_torch build-index  --run-dir run/ --corpus abstracts.jsonl --out idx/
@@ -16,10 +16,16 @@ encodes, on that device.  Tokenizers are the port's own
 (text/fast.FastWordPiece over a local vocab.txt) and HF weights are read from
 local directories without `transformers` (models/convert.load_hf_dir).
 
-The JAX package's several-device flags (`--num-processes`, `--coordinator`,
-`--process-id`, `--num-devices` above 1, `--n-shards` above 1) and
-`--fast-rng` are accepted and refused when set; `--fast-tokenizer` is
-accepted and changes nothing (the native tokenizer is the only one).
+Several cards (parallel/mesh.py: one process a rank): `train --num-devices N`
+spawns N data-parallel ranks and `rank --n-shards N` N index-shard ranks, one
+a card over NCCL (`--device cpu`: gloo ranks on the CPU).  `--num-processes P
+--coordinator HOST:PORT --process-id I` joins P machines, each running the
+same command with its own id and its N ranks (N = 1 without the flags above).
+Every rank reads the same inputs; rank 0 alone writes (the run directory, the
+rankings, an h5 `--cache`).  `build-index --n-shards N` packs the index for N
+shard ranks.  `--fast-rng` (the TPU's hardware bit generator) is refused;
+`--fast-tokenizer` is accepted and changes nothing (the native tokenizer is
+the only one).
 """
 from __future__ import annotations
 
@@ -42,21 +48,44 @@ def _device(args):
     return require_device(args.device)
 
 
-def _refuse_jax_only(args) -> None:
-    """Flags of the JAX CLI that have no meaning on one card (yet)."""
+def _refuse_fast_rng(args) -> None:
     if getattr(args, "fast_rng", False):
         raise SystemExit("--fast-rng (the TPU's hardware bit generator) is "
                          "dropped in the port: dropout masks are Philox words "
                          "keyed on position")
-    for flag in ("num_processes", "coordinator", "process_id"):
-        if getattr(args, flag, None) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')}: several hosts or "
-                             "cards are not ported yet (one card only)")
-    for flag in ("num_devices", "n_shards"):
-        if (getattr(args, flag, None) or 1) > 1:
-            raise SystemExit(f"--{flag.replace('_', '-')} "
-                             f"{getattr(args, flag)}: several cards are not "
-                             "ported yet (one card only)")
+
+
+def _on_ranks(args, body, n_local: int, mesh_of):
+    """body(args, None) in this process, or body(args, mesh) on the ranks the
+    flags ask for: `n_local` ranks on this machine (one a card over NCCL;
+    gloo ranks on the CPU with --device cpu), on each of --num-processes
+    machines met at --coordinator.  Returns what body returns in this
+    process; None after ranks (their files are the result)."""
+    from .parallel.mesh import run_ranks
+    hosts = 1 if args.num_processes is None else args.num_processes
+    if n_local < 1 or hosts < 1:
+        raise SystemExit("--num-devices, --n-shards and --num-processes count "
+                         "ranks and machines: at least 1")
+    if hosts == 1 and (args.coordinator is not None
+                       or args.process_id is not None):
+        raise SystemExit("--coordinator and --process-id join several "
+                         "machines: they need --num-processes above 1")
+    if hosts > 1 and (args.coordinator is None or args.process_id is None):
+        raise SystemExit("--num-processes needs --coordinator (rank 0's "
+                         "host:port) and this machine's --process-id")
+    if hosts * n_local == 1:
+        return body(args, None)
+    run_ranks(_rank_body, n_local, body, mesh_of, args, device=args.device,
+              coordinator=args.coordinator if hosts > 1 else None,
+              num_processes=hosts, process_id=args.process_id or 0)
+    return None
+
+
+def _rank_body(body, mesh_of, args) -> None:
+    _setup_logging(args)
+    mesh = mesh_of()
+    args.device = str(mesh.device)
+    body(args, mesh)
 
 
 def _tokenizer(path: str):
@@ -73,6 +102,16 @@ def _bert_modules(model):
 
 
 def cmd_train(args):
+    """train: in this process, or on --num-devices data ranks (times
+    --num-processes machines)."""
+    from .parallel.mesh import make_mesh
+    _refuse_fast_rng(args)
+    return _on_ranks(args, _train,
+                     1 if args.num_devices is None else args.num_devices,
+                     make_mesh)
+
+
+def _train(args, mesh):
     import dataclasses
 
     import torch
@@ -83,7 +122,6 @@ def cmd_train(args):
     from .models.doc_models import build_model
     from .train.trainer import Trainer
 
-    _refuse_jax_only(args)
     device = _device(args)
     cfg = RunConfig.from_json(args.config)
     tok_src = args.tokenizer or cfg.model.base_pt_layer
@@ -137,7 +175,8 @@ def cmd_train(args):
     if ckpt is not None:
         for bert in _bert_modules(model):
             bert.load_state_dict(ckpt.bert_state_dict())
-    trainer = Trainer(model, cfg, args.out, fused_accum=args.fused_accum)
+    trainer = Trainer(model, cfg, args.out, fused_accum=args.fused_accum,
+                      mesh=mesh)
     state = trainer.init_state()
     micro = cfg.train.batch_size
     n_micro = max(1, (cfg.train.accumulated_batch_size or micro) // micro)
@@ -160,6 +199,11 @@ def cmd_train(args):
     # per-epoch shuffle, and best-dev tracking stays global across epochs
     state = trainer.train(state, stream, devfn, seed=args.seed,
                           epochs=cfg.train.num_epochs)
+    if mesh is not None:
+        if trainer.is_writer:
+            print(f"trained {state.step} steps on {mesh.world_size} data "
+                  f"ranks ({mesh.backend}) -> {args.out}")
+        return None
     print(f"trained {state.step} steps -> {args.out}")
     return trainer
 
@@ -228,7 +272,8 @@ def cmd_build_index(args):
     from .evaluation.models import AspireSimilarityModel
     from .index.dense import build_dense_index, build_dense_index_prequantized
 
-    _refuse_jax_only(args)
+    if args.n_shards < 1:
+        raise SystemExit("--n-shards counts shard ranks: at least 1")
     device = _device(args)
     if args.family == "cls":
         _build_cls_index_cmd(args)
@@ -439,7 +484,7 @@ def _refuse_cls_options(args) -> None:
 
 
 def _rank_pools(args, dataset, model, device, solver: str,
-                index_type: str) -> None:
+                index_type: str, mesh=None) -> None:
     """POOL protocol: score each query against exactly its candidate pool.
 
     This is the reference's primary ranking protocol
@@ -448,7 +493,8 @@ def _rank_pools(args, dataset, model, device, solver: str,
     eval_pool_ranking` reproduces the paper's evaluation.  Candidate reps are
     gathered on the device from the index and scored with the model's own
     aggregation (OT with the trained hyperparameters / l2max / jointsm /
-    cosine max-sim / CLS -L2) in one call over all queries.
+    cosine max-sim / CLS -L2) in one call over all queries (on a serving
+    mesh: each rank the pool members it holds, merged by one all_reduce).
     """
     import numpy as np
     import torch
@@ -471,9 +517,9 @@ def _rank_pools(args, dataset, model, device, solver: str,
         cand_ids = _pool_id_matrix(pool, pid2row, qpids)
         q_arr = np.stack([np.asarray(q_encs[q], np.float32).reshape(-1)
                           for q in qpids])
-        reps, norms = idx.device_arrays(device)
-        sims = make_cls_pool_rank_batched()(dev(q_arr), dev(cand_ids), reps,
-                                            norms).cpu().numpy()
+        reps, norms = idx.device_arrays(device, mesh)
+        sims = make_cls_pool_rank_batched(mesh)(dev(q_arr), dev(cand_ids),
+                                                reps, norms).cpu().numpy()
     else:
         idx = DenseBucketIndex.load(args.index)
         if idx.score_type == "cosine":
@@ -499,22 +545,22 @@ def _rank_pools(args, dataset, model, device, solver: str,
         q_arr, q_lens = _pack_queries(q_list, idx.dim, len(q_list))
         ot_temp, ot_blur, ot_scaling = _resolve_ot_params(args, model)
         from .index.serve import make_pool_rank_batched
-        buckets = idx.device_arrays(device)
+        buckets = idx.device_arrays(device, mesh)
         fn = make_pool_rank_batched(
             len(buckets), pool_size=cand_ids.shape[1],
             max_sents=args.max_sents, agg=agg, int8=idx.is_int8,
             blur=ot_blur, scaling=ot_scaling, temp=ot_temp,
-            solver=solver, score_type=idx.score_type)
+            solver=solver, score_type=idx.score_type, mesh=mesh)
         sims = fn(dev(q_arr), dev(q_lens), dev(cand_ids),
                   *flatten_device_buckets(buckets),
-                  *idx.device_pos_arrays(device)).cpu().numpy()
+                  *idx.device_pos_arrays(device, mesh)).cpu().numpy()
     ranked = {}
     for i, qpid in enumerate(qpids):
         cands = pool[qpid]["cands"]
         s = sims[i, : len(cands)]
         order = np.argsort(-s, kind="stable")   # stable: ties keep pool order
         ranked[qpid] = [[cands[j], float(s[j])] for j in order]
-    _write_rank_outputs(args, dataset, ranked)
+    _write_rank_outputs(args, dataset, ranked, mesh)
 
 
 def cmd_rank(args):
@@ -527,7 +573,16 @@ def cmd_rank(args):
     --q-chunk), then an optional OT rerank.  Mirrors
     pp_gen_nearest.py:207-363 ranking + :575-635 readable neighbour dumps +
     :125-129 rep caching.
+
+    --n-shards N: N serving ranks (times --num-processes machines), each
+    holding 1/N of the index; every rank encodes the queries, the searches
+    merge over the ranks, rank 0 writes.
     """
+    from .parallel.mesh import make_serving_mesh
+    return _on_ranks(args, _rank, args.n_shards, make_serving_mesh)
+
+
+def _rank(args, mesh):
     import numpy as np
     import torch
 
@@ -536,7 +591,6 @@ def cmd_rank(args):
     from .index.dense import (DenseBucketIndex, flatten_device_buckets,
                               make_dense_search_batched)
 
-    _refuse_jax_only(args)
     device = _device(args)
     # 'auto': K1 on a CUDA device, the plain loop on the CPU
     solver = resolve_ot_solver(args.ot_solver, device)
@@ -544,14 +598,15 @@ def cmd_rank(args):
         index_type = json.load(f).get("index_type", "multivec")
     dataset = EvalDataset(args.dataset, args.dataset_dir)
     model = _load_eval_model(args)
-    if args.cache:
+    if args.cache and (mesh is None or mesh.rank == 0):
+        # one writer: h5 has no several-writer mode; the other ranks encode
         model.set_encodings_cache(args.cache)
 
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     if args.protocol == "pool":
-        _rank_pools(args, dataset, model, device, solver, index_type)
+        _rank_pools(args, dataset, model, device, solver, index_type, mesh)
         return
 
     if index_type == "cls":
@@ -566,9 +621,9 @@ def cmd_rank(args):
         q_encs = model.get_encoding(qpids, dataset)
         q_arr = np.stack([np.asarray(q_encs[q], np.float32).reshape(-1)
                           for q in qpids])
-        reps, norms = idx.device_arrays(device)
+        reps, norms = idx.device_arrays(device, mesh)
         q_chunk = max(1, min(args.q_chunk, len(q_arr)))
-        search = make_cls_search_batched(k=args.k, q_chunk=q_chunk)
+        search = make_cls_search_batched(k=args.k, q_chunk=q_chunk, mesh=mesh)
         scores, docs = search(dev(q_arr), reps, norms)
         scores, docs = scores.cpu().numpy(), docs.cpu().numpy()
         ranked = {}
@@ -576,14 +631,14 @@ def cmd_rank(args):
             real = docs[i] >= 0
             ranked[qpid] = [[idx.pids[d], float(s)]
                             for d, s in zip(docs[i][real], scores[i][real])]
-        _write_rank_outputs(args, dataset, ranked)
+        _write_rank_outputs(args, dataset, ranked, mesh)
         return
 
     idx = DenseBucketIndex.load(args.index)
     if idx.score_type == "cosine" and args.rerank == "ot":
         raise ValueError("OT rerank applies to aspire (l2) indexes; a "
                          "--family sent index ranks by cosine max-sim")
-    buckets = idx.device_arrays(device)
+    buckets = idx.device_arrays(device, mesh)
     flat = flatten_device_buckets(buckets)
     pool = dataset.get_test_pool(facet=args.facet)
     qpids = list(pool)
@@ -603,9 +658,9 @@ def cmd_rank(args):
         fused = make_fused_query_batched(
             len(buckets), k=args.k, max_sents=args.max_sents,
             int8=idx.is_int8, q_chunk=q_chunk, temp=ot_temp, blur=ot_blur,
-            scaling=ot_scaling, solver=solver)
+            scaling=ot_scaling, solver=solver, mesh=mesh)
         _, docs, sims = fused(dev(q_arr), dev(q_lens), *flat,
-                              *idx.device_pos_arrays(device))
+                              *idx.device_pos_arrays(device, mesh))
         docs, sims = docs.cpu().numpy(), sims.cpu().numpy()
         for i, qpid in enumerate(qpids):
             real = docs[i] >= 0
@@ -617,7 +672,7 @@ def cmd_rank(args):
         # --rerank none: the scan is the final ranking for every score_type
         search = make_dense_search_batched(len(buckets), k=args.k,
                                            int8=idx.is_int8, q_chunk=q_chunk,
-                                           exact=True)
+                                           exact=True, mesh=mesh)
         scores, docs = search(dev(q_arr), dev(q_lens), *flat)
         scores, docs = scores.cpu().numpy(), docs.cpu().numpy()
         for i, qpid in enumerate(qpids):
@@ -630,12 +685,16 @@ def cmd_rank(args):
                 scores_i = 1.0 - scores_i * scores_i / 2.0
             ranked[qpid] = [[idx.pids[d], float(s)]
                             for d, s in zip(docs_i, scores_i)]
-    _write_rank_outputs(args, dataset, ranked)
+    _write_rank_outputs(args, dataset, ranked, mesh)
 
 
-def _write_rank_outputs(args, dataset, ranked: dict) -> None:
-    """Ranked-pool json + readable neighbour dumps (pp_gen_nearest.py:575-635)."""
+def _write_rank_outputs(args, dataset, ranked: dict, mesh=None) -> None:
+    """Ranked-pool json + readable neighbour dumps (pp_gen_nearest.py:575-635),
+    written by rank 0 alone on a serving mesh (every rank holds the same
+    `ranked`)."""
     from .evaluation.ranking_eval import print_pool_neighbours
+    if mesh is not None and mesh.rank != 0:
+        return
     os.makedirs(args.out, exist_ok=True)
     suffix = f"-{args.facet}" if args.facet else ""
     fname = os.path.join(
@@ -720,13 +779,15 @@ def build_parser():
     t.add_argument("--init-hf-dir", help="local HF dir for encoder init")
     t.add_argument("--seq-len", type=int, default=512)
     t.add_argument("--num-devices", type=int, default=None,
-                   help="JAX package only: refused above 1")
+                   help="data-parallel ranks on this machine, one a card "
+                        "(nccl; gloo ranks with --device cpu)")
     t.add_argument("--coordinator", default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: rank 0's host:port; run the same "
+                        "command on every machine with its own --process-id")
     t.add_argument("--num-processes", type=int, default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: how many")
     t.add_argument("--process-id", type=int, default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: this one's index (0-based)")
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--tiny", action="store_true", help="tiny BERT (smoke test)")
     t.add_argument("--bf16-compute", default=True,
@@ -803,7 +864,7 @@ def build_parser():
                         "ictsentbert (--run-dir) or sbtinybertsota "
                         "(--weights-dir)")
     b.add_argument("--n-shards", type=int, default=1,
-                   help="JAX package only: refused above 1")
+                   help="pack the index for this many shard ranks")
     b.add_argument("--batch-size", type=int, default=32)
     b.add_argument("--bf16", action="store_true")
     b.add_argument("--int8", action="store_true",
@@ -852,13 +913,15 @@ def build_parser():
     r.add_argument("--cache", help="h5 query-encoding cache (reference "
                                    "joblib rep cache, pp_gen_nearest.py:125)")
     r.add_argument("--n-shards", type=int, default=1,
-                   help="JAX package only: refused above 1")
+                   help="index-shard ranks on this machine, one a card "
+                        "(nccl; gloo ranks with --device cpu)")
     r.add_argument("--coordinator", default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: rank 0's host:port; run the same "
+                        "command on every machine with its own --process-id")
     r.add_argument("--num-processes", type=int, default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: how many")
     r.add_argument("--process-id", type=int, default=None,
-                   help="JAX package only (several hosts): refused")
+                   help="several machines: this one's index (0-based)")
     r.add_argument("--q-chunk", type=int, default=8,
                    help="query-batch chunk bounding the scan intermediate")
     r.add_argument("--no-dumps", action="store_true",

@@ -731,6 +731,7 @@ bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65
 }  // namespace
 
 // mode: 0 no dropout, 1 Philox bits from (seed, c0), 2 bits from the operand;
+// plane0: the place of plane 0 in the whole batch (its Philox counter);
 // keep_div: 1 - p rounded to the compute type; stats: null, or a [2 or more,
 // b * nh, t] f32 array that receives each row's max (plane 0) and sum (plane
 // 1) for the backward
@@ -740,7 +741,8 @@ extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v
                                      long long vsb, long long vsh, long long vst, long long osb,
                                      long long osh, long long ost, float sm_scale, int mode,
                                      unsigned long long seed, unsigned c0, unsigned thresh,
-                                     float keep_div, const void* bits, void* stats, void* stream) {
+                                     unsigned plane0, float keep_div, const void* bits,
+                                     void* stats, void* stream) {
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.q = (const bf16*)q; a.k = (const bf16*)k; a.v = (const bf16*)v;
@@ -748,7 +750,7 @@ extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v
   a.qs = {qsb, qsh, qst}; a.ks = {ksb, ksh, kst}; a.vs = {vsb, vsh, vst}; a.os = {osb, osh, ost};
   a.sm_scale = sm_scale;
   a.inv_keep = 1.f / keep_div;            // as the backward takes it (attention_bwd.cu)
-  a.drop = Drop{seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
+  a.drop = Drop{seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits, plane0, 0u};
   if (mode == 0) return launch_bf16<0>(a, b, nh, stream);
   if (mode == 1) return launch_bf16<1>(a, b, nh, stream);
   if (mode == 2 && bits != nullptr) return launch_bf16<2>(a, b, nh, stream);
@@ -761,10 +763,11 @@ extern "C" int aspire_attention_f32(const void* q, const void* k, const void* v,
                                     long long vsb, long long vsh, long long vst, long long osb,
                                     long long osh, long long ost, float sm_scale, int mode,
                                     unsigned long long seed, unsigned c0, unsigned thresh,
-                                    float keep_div, const void* bits, void* stats, void* stream) {
+                                    unsigned plane0, float keep_div, const void* bits,
+                                    void* stats, void* stream) {
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
-  const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits};
+  const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits, plane0, 0u};
   // the inference forward (no row statistics wanted) walks the keys once;
   // the forward that leaves m and l for the backward, and every forward with
   // dropout, twice

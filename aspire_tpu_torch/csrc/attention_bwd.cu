@@ -723,7 +723,8 @@ int launch_f32(void (*rows)(BwdArgs), void (*keys)(BwdArgs), const BwdArgs& a, i
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* bias, const void* g,
                   const void* out, void* dq, void* dk, void* dv, void* stats, void* scratch, int t,
                   const long long* strides, float sm_scale, unsigned long long seed, unsigned c0,
-                  unsigned thresh, float keep_div, float keep_div32, const void* bits) {
+                  unsigned thresh, unsigned plane0, float keep_div, float keep_div32,
+                  const void* bits) {
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.g = g; a.out = out; a.bias = (const float*)bias;
   a.dq = dq; a.dk = dk; a.dv = dv; a.stats = (float*)stats; a.scratch = (bf16*)scratch; a.t = t;
@@ -733,7 +734,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* bias,
   a.sm_scale = sm_scale;
   a.inv_keep = 1.f / keep_div;
   a.inv_keep32 = 1.f / keep_div32;
-  a.drop = Drop{seed, c0, thresh, keep_div, keep_div32, (const unsigned*)bits};
+  a.drop = Drop{seed, c0, thresh, keep_div, keep_div32, (const unsigned*)bits, plane0, 0u};
   return a;
 }
 
@@ -744,18 +745,19 @@ bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65
 // strides: (batch, head, token) of q, k, v, g, out, dq, dk, dv; stats: the
 // [3, b * nh, t] f32 array whose planes 0 and 1 the forward filled (plane 2
 // receives delta); scratch: bf16 [b * nh, tp, tp] with tp = t rounded up to 64
-// (ds^T, bf16 only); mode as in the forward.  bf16 launches three kernels
-// (delta, keys, dq), f32 two (rows, keys).
+// (ds^T, bf16 only); mode and plane0 as in the forward.  bf16 launches three
+// kernels (delta, keys, dq), f32 two (rows, keys).
 extern "C" int aspire_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                          const void* bias, const void* g, const void* out,
                                          void* dq, void* dk, void* dv, void* stats, void* scratch,
                                          int b, int nh, int t, const long long* strides,
                                          float sm_scale, int mode, unsigned long long seed,
-                                         unsigned c0, unsigned thresh, float keep_div,
-                                         float keep_div32, const void* bits, void* stream) {
+                                         unsigned c0, unsigned thresh, unsigned plane0,
+                                         float keep_div, float keep_div32, const void* bits,
+                                         void* stream) {
   if (bad_grid(b, nh, t) || scratch == nullptr) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, scratch, t, strides,
-                              sm_scale, seed, c0, thresh, keep_div, keep_div32, bits);
+                              sm_scale, seed, c0, thresh, plane0, keep_div, keep_div32, bits);
   if (mode == 0) return launch_bf16<0>(a, b, nh, stream);
   if (mode == 1) return launch_bf16<1>(a, b, nh, stream);
   if (mode == 2 && bits != nullptr) return launch_bf16<2>(a, b, nh, stream);
@@ -767,11 +769,11 @@ extern "C" int aspire_attention_bwd_f32(const void* q, const void* k, const void
                                         void* dk, void* dv, void* stats, int b, int nh, int t,
                                         const long long* strides, float sm_scale, int mode,
                                         unsigned long long seed, unsigned c0, unsigned thresh,
-                                        float keep_div, float keep_div32, const void* bits,
-                                        void* stream) {
+                                        unsigned plane0, float keep_div, float keep_div32,
+                                        const void* bits, void* stream) {
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, nullptr, t, strides,
-                              sm_scale, seed, c0, thresh, keep_div, keep_div32, bits);
+                              sm_scale, seed, c0, thresh, plane0, keep_div, keep_div32, bits);
   if (mode == 0)
     return launch_f32(bwd_rows_tf32x3_kernel<0>, bwd_keys_tf32x3_kernel<0>, a, b, nh, stream);
   if (mode == 1)

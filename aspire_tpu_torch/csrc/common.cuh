@@ -333,7 +333,10 @@ __device__ __forceinline__ unsigned frag_addr(const __nv_bfloat16* base, int ld,
 // with kind 0 for hidden dropout (second word 0) and 1 for attention, so the
 // two never share a counter.  Word (column % 4) belongs to the column.  An
 // element is kept when its word >= round(p * 2^32), compared unsigned.
-// ops/philox.py computes the same words in plain PyTorch.
+// plane0 and row0 are added to a kernel's own plane and row, so that a data
+// rank that holds rows of a larger batch draws the words of their place in
+// it (0 and 0 on one process).  ops/philox.py computes the same words in
+// plain PyTorch.
 struct Drop {
   unsigned long long seed;
   unsigned c0;            // kind << 24 | site
@@ -341,6 +344,8 @@ struct Drop {
   float keep_div;         // 1 - p rounded to the compute type (forward divides by it)
   float keep_div32;       // 1 - p in f32 (the backward's division)
   const unsigned* bits;   // explicit bits operand (mode 2), else null
+  unsigned plane0;        // the first plane's place in the whole batch (attention)
+  unsigned row0;          // the first row's place in the whole batch (hidden dropout)
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(unsigned c0, unsigned c1, unsigned c2, unsigned c3,
@@ -358,7 +363,8 @@ __device__ __forceinline__ uint4 philox4x32_10(unsigned c0, unsigned c1, unsigne
 
 __device__ __forceinline__ uint4 drop_words(const Drop& d, unsigned plane, unsigned row,
                                             unsigned col4) {
-  return philox4x32_10(d.c0, plane, row, col4, (unsigned)d.seed, (unsigned)(d.seed >> 32));
+  return philox4x32_10(d.c0, plane + d.plane0, row + d.row0, col4, (unsigned)d.seed,
+                       (unsigned)(d.seed >> 32));
 }
 
 // The rounds of a row's calls that do not depend on the column: with the
@@ -375,6 +381,8 @@ struct PhiloxRow {
 
 __device__ __forceinline__ PhiloxRow philox_row(const Drop& d, unsigned plane, unsigned row) {
   const unsigned k0 = (unsigned)d.seed, k1 = (unsigned)(d.seed >> 32);
+  plane += d.plane0;
+  row += d.row0;
   const unsigned hi0 = __umulhi(0xD2511F53u, d.c0), lo0 = 0xD2511F53u * d.c0;
   const unsigned c0 = __umulhi(0xCD9E8D57u, row) ^ plane ^ k0;
   const unsigned c2 = __umulhi(0xD2511F53u, c0) ^ lo0 ^ (k1 + 0xBB67AE85u);

@@ -58,7 +58,8 @@ template <typename T>
 int launch(const void* x, void* out, long long rows, int h, int mode, float scale,
            const Drop& drop, void* stream) {
   constexpr int n = Vec<T>::n;
-  if (rows < 1 || h < 1 || h % n != 0 || rows >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || h < 1 || h % n != 0 || rows + drop.row0 > (1ll << 32))
+    return (int)cudaErrorInvalidValue;
   const long long n_vec = rows * (h / n);
   const long long want = (n_vec + 255) / 256;
   const int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
@@ -75,12 +76,13 @@ int launch(const void* x, void* out, long long rows, int h, int mode, float scal
 
 }  // namespace
 
-// mode: 1 Philox bits from (seed, c0), 2 bits from the operand ([rows, h] uint32)
+// mode: 1 Philox bits from (seed, c0), 2 bits from the operand ([rows, h] uint32);
+// row0: the place of row 0 in the whole batch (its Philox counter)
 #define ASPIRE_DROPOUT(NAME, T)                                                                \
   extern "C" int NAME(const void* x, void* out, const void* bits, long long rows, int h,       \
                       int mode, unsigned long long seed, unsigned c0, unsigned thresh,         \
-                      float scale, void* stream) {                                             \
-    const Drop drop = {seed, c0, thresh, 0.f, 0.f, (const unsigned*)bits};                     \
+                      unsigned row0, float scale, void* stream) {                              \
+    const Drop drop = {seed, c0, thresh, 0.f, 0.f, (const unsigned*)bits, 0u, row0};           \
     return launch<T>(x, out, rows, h, mode, scale, drop, stream);                              \
   }
 

@@ -5,8 +5,9 @@ aspire_tpu/index/build.py).
   [n_shards, shard_len] doc-id labels and per-doc lengths.  Documents are
   partitioned contiguously into `n_shards` shards balanced by sentence count
   (sentences of one doc never straddle shards), each padded to a common size.
-  The port searches an index of any shard count on one card: `l2max_search`
-  flattens the shards (index/serve.py).
+  One card searches an index of any shard count (`l2max_search` flattens the
+  shards, index/serve.py); a serving mesh of n_shards ranks gives rank r
+  shard r (`device_arrays(mesh=)`, `make_sharded_search`).
 
 The files are the ones the JAX package writes and reads (sents.npy,
 doc_ids.npy, doc_lens.npy, meta.json, pids.json, pid2idx.json): an index saved
@@ -49,8 +50,9 @@ def is_bf16(dtype) -> bool:
 
 def host_rows_to_device(arr: np.ndarray, bf16: bool, device) -> torch.Tensor:
     """A host row array (float32, int8, or uint16 bits of bfloat16) as a
-    tensor on `device`."""
-    arr = np.ascontiguousarray(arr)
+    tensor on `device` (a read-only array, such as a mapped file's slice,
+    is copied first)."""
+    arr = np.require(arr, requirements=("C_CONTIGUOUS", "WRITEABLE"))
     if bf16:
         return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.bfloat16)
     return torch.from_numpy(arr).to(device)
@@ -137,11 +139,20 @@ class MultiVecIndex:
                    doc_lens=np.load(path / "doc_lens.npy"),
                    pids=load_pids(path), dtype=dtype)
 
-    def device_arrays(self, device="cuda"):
-        """(sents, doc_ids) as tensors on one device."""
-        dev = require_device(device)
-        return (host_rows_to_device(self.sents, self.dtype == BF16, dev),
-                torch.from_numpy(self.doc_ids).to(dev))
+    def device_arrays(self, device="cuda", mesh=None):
+        """(sents, doc_ids) as tensors on one device ([n_shards, L, ...]), or
+        under a serving mesh shard r ([L, ...]) on rank r's device."""
+        if mesh is None:
+            dev = require_device(device)
+            return (host_rows_to_device(self.sents, self.dtype == BF16, dev),
+                    torch.from_numpy(self.doc_ids).to(dev))
+        if mesh.size("shard") != self.n_shards:
+            raise ValueError(f"the index has {self.n_shards} shards, the mesh "
+                             f"{mesh.size('shard')} shard ranks")
+        r = mesh.index("shard")
+        return (host_rows_to_device(self.sents[r], self.dtype == BF16,
+                                    mesh.device),
+                torch.from_numpy(self.doc_ids[r]).to(mesh.device))
 
 
 def build_index_from_reps(doc_reps: list[np.ndarray], pids: list,

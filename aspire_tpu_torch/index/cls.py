@@ -1,11 +1,12 @@
 """Whole-abstract (CLS) dense retrieval (counterpart of
-aspire_tpu/index/cls.py), on one card.
+aspire_tpu/index/cls.py).
 
 The bi-encoder models (cospecter/specter) rank with a single CLS vector per
 document; the reference does this with sklearn brute NearestNeighbors on
 host numpy (pp_gen_nearest.py:638-726).  Here: one [B, d] x [d, n] product in
-true float32 + top-k on the device.  No kernel of the TPU package sits on this
-path, so none is written for it.
+true float32 + top-k on the device, or on each rank of a serving mesh over its
+rows with one all_gather merge (index/dense._merge_sharded_topk).  No kernel
+of the TPU package sits on this path, so none is written for it.
 
 `ClsIndex` persists a corpus of CLS reps with the same file contract as the
 multi-vector indexes (cls_reps.npy, cls_norms.npy, meta.json, pids.json,
@@ -23,9 +24,10 @@ import torch
 
 from ..core.types import require_device
 from ..ops.cdist import require_fp32_matmul
+from ..parallel.mesh import local_slice
 from .build import (BF16, bf16_bits_to_f32, f32_to_bf16_bits,
                     host_rows_to_device, is_bf16, load_pids, save_pids)
-from .dense import _topk_padded
+from .dense import _merge_sharded_topk, _topk_padded
 
 
 def pack_cls_index(cls_reps: np.ndarray, n_shards: int = 1, dtype=None):
@@ -69,30 +71,54 @@ def _finish(v, i):
     return -torch.sqrt(torch.clamp_min(-v, 0.0)), idx
 
 
-def make_cls_search_batched(k: int, q_chunk: int | None = None):
+def make_cls_search_batched(k: int, q_chunk: int | None = None, mesh=None):
     """Batched CLS search: fn(q [B, d], reps [n_pad, d], norms [n_pad]) ->
     (scores [B, k], doc idx [B, k]; -1 at pad slots).
 
-    The ONE CLS search implementation -- `cls_search` is its B=1 case.  Pad
-    slots are dedicated +inf-norm ROWS and short pools pad with -1
-    (`_topk_padded`), so ANY k is safe -- k larger than the whole corpus
-    returns -1 fillers, never a duplicate or phantom doc.
+    The ONE CLS search implementation -- `cls_search` and
+    `make_sharded_cls_search` are its B=1 cases.  Pad slots are dedicated
+    +inf-norm ROWS and short shards or pools pad with -1 (`_topk_padded`), so
+    ANY k is safe -- k larger than a rank's rows or the whole corpus returns
+    -1 fillers, never a duplicate or phantom doc.
 
     q_chunk: bound the [c, rows] f32 score intermediate by scanning the
     query batch in chunks of c (must divide B).
+    mesh: reps and norms are this rank's contiguous rows
+    (ClsIndex.device_arrays(mesh=)); each rank's top-k, its row ids made
+    global, merges with the others' by one all_gather of [B, k] blocks.
     """
+    def chunk(qc, reps, norms):
+        v, i = _local_topk(qc, reps, norms, k)
+        if mesh is not None:
+            first = mesh.index("shard") * reps.shape[0]
+            i = torch.where(i >= 0, i + first, torch.full_like(i, -1))
+            v, i = _merge_sharded_topk(v, i, k, mesh)
+        return v, i
+
     def search(q, reps, norms):
         with torch.no_grad():
             bsz = q.shape[0]
             if q_chunk is None or q_chunk >= bsz:
-                return _finish(*_local_topk(q, reps, norms, k))
+                return _finish(*chunk(q, reps, norms))
             assert bsz % q_chunk == 0, (
                 f"q_chunk={q_chunk} must divide the query batch {bsz}")
-            parts = [_local_topk(q[i:i + q_chunk], reps, norms, k)
+            parts = [chunk(q[i:i + q_chunk], reps, norms)
                      for i in range(0, bsz, q_chunk)]
             return _finish(torch.cat([p[0] for p in parts]),
                            torch.cat([p[1] for p in parts]))
     return search
+
+
+def make_sharded_cls_search(mesh, k: int):
+    """Single-query sharded CLS search (B=1 of make_cls_search_batched):
+    fn(q [d], reps, norms) -> (scores [k], doc idx [k])."""
+    search = make_cls_search_batched(k, mesh=mesh)
+
+    def fn(q, reps, norms):
+        v, i = search(q[None], reps, norms)
+        return v[0], i[0]
+
+    return fn
 
 
 def cls_search(q, reps, norms, k: int):
@@ -144,11 +170,16 @@ class ClsIndex:
                    pids=load_pids(path),
                    rep_dtype=BF16 if bf16 else str(np.dtype(reps.dtype)))
 
-    def device_arrays(self, device="cuda"):
-        """(reps, norms) as tensors on one device."""
-        dev = require_device(device)
-        return (host_rows_to_device(self.reps, self.rep_dtype == BF16, dev),
-                torch.from_numpy(self.norms).to(dev))
+    def device_arrays(self, device="cuda", mesh=None):
+        """(reps, norms) as tensors on one device, or this rank's contiguous
+        rows of them on its device under a serving mesh (the 128-row padding
+        splits over any shard count that divides it)."""
+        dev = require_device(device) if mesh is None else mesh.device
+        rows = (slice(None) if mesh is None
+                else local_slice(len(self.norms), mesh, "shard"))
+        return (host_rows_to_device(self.reps[rows], self.rep_dtype == BF16,
+                                    dev),
+                torch.from_numpy(self.norms[rows]).to(dev))
 
 
 def build_cls_index(cls_reps: np.ndarray, pids: list, dtype=None) -> ClsIndex:

@@ -32,9 +32,14 @@ Where the scan runs (`scan=` of score_buckets / score_buckets_batched):
     name, through the wrappers' plain versions.
 
 Doc padding (doc_idx < 0 -> NEG), top-k, the bucket merge and the final
--sqrt(max(-v, 0)) are plain tensor code outside the kernels.  One card: the
-sharded searches wait for the several-cards slice; an index built with
-n_shards > 1 differs only in its padding and is searched as it is.
+-sqrt(max(-v, 0)) are plain tensor code outside the kernels.
+
+Several ranks (a `parallel.mesh.Mesh` with a "shard" axis): each rank holds a
+contiguous slice of every bucket's doc axis (`device_arrays(mesh=)`), scans it
+with the same kernels, and the per-rank top-k blocks merge by one all_gather
+of [B, k] scores and ids and a second top-k (`_merge_sharded_topk`).  The
+doc -> (bucket, row) maps stay whole on every rank.  An index built with
+n_shards = S pads each bucket to a multiple of 8 S rows, so S ranks split it.
 
 Squared-L2 ordering == L2 ordering; exposed scores are sqrt'd to match the
 reference's -cdist values (pp_gen_nearest.py:729-985).  The files are the JAX
@@ -52,6 +57,7 @@ import torch
 
 from ..core.types import MultiVec, require_device
 from ..ops.cdist import require_fp32_matmul
+from ..parallel.mesh import local_slice
 from ..ops.scan_kernel import (fused_l2max_scan,
                                fused_l2max_scan_int8_batched)
 from .build import (BF16, bf16_bits_to_f32, f32_to_bf16_bits,
@@ -123,20 +129,23 @@ class DenseBucketIndex:
                        "score_type": self.score_type}, f)
 
     @classmethod
-    def load(cls, path) -> "DenseBucketIndex":
+    def load(cls, path, mmap: bool = False) -> "DenseBucketIndex":
+        """mmap: map the bucket files instead of reading them, so that a
+        shard rank reads only its slice (`device_arrays(mesh=)`)."""
         path = pathlib.Path(path)
         with open(path / "meta.json") as f:
             meta = json.load(f)
+        mode = "r" if mmap else None
         buckets = []
         for i in range(meta["n_buckets"]):
             b = {
-                "sents": np.load(path / f"bucket{i}_sents.npy"),
-                "norms": np.load(path / f"bucket{i}_norms.npy"),
+                "sents": np.load(path / f"bucket{i}_sents.npy", mmap_mode=mode),
+                "norms": np.load(path / f"bucket{i}_norms.npy", mmap_mode=mode),
                 "doc_idx": np.load(path / f"bucket{i}_docidx.npy"),
             }
             scales_path = path / f"bucket{i}_scales.npy"
             if scales_path.exists():
-                b["scales"] = np.load(scales_path)
+                b["scales"] = np.load(scales_path, mmap_mode=mode)
             buckets.append(b)
         idx = cls(buckets=buckets, doc_lens=np.load(path / "doc_lens.npy"),
                   pids=load_pids(path), score_type=meta.get("score_type", "l2"),
@@ -144,27 +153,33 @@ class DenseBucketIndex:
         idx._ensure_doc_pos()
         return idx
 
-    def device_arrays(self, device="cuda") -> list[dict]:
-        """The bucket arrays as tensors on one device."""
-        dev = require_device(device)
+    def device_arrays(self, device="cuda", mesh=None) -> list[dict]:
+        """The bucket arrays as tensors on one device, or under a serving
+        mesh this rank's contiguous slice of every bucket's doc axis on the
+        rank's device."""
+        dev = require_device(device) if mesh is None else mesh.device
         bf16 = self.sent_dtype == BF16
         out = []
         for b in self.buckets:
-            d = {"sents": host_rows_to_device(b["sents"], bf16, dev),
-                 "norms": torch.from_numpy(b["norms"]).to(dev),
-                 "doc_idx": torch.from_numpy(b["doc_idx"]).to(dev)}
+            rows = (slice(None) if mesh is None
+                    else local_slice(len(b["doc_idx"]), mesh, "shard"))
+            d = {"sents": host_rows_to_device(b["sents"][rows], bf16, dev),
+                 "norms": host_rows_to_device(b["norms"][rows], False, dev),
+                 "doc_idx": host_rows_to_device(b["doc_idx"][rows], False, dev)}
             if "scales" in b:
-                d["scales"] = torch.from_numpy(b["scales"]).to(dev)
+                d["scales"] = host_rows_to_device(b["scales"][rows], False, dev)
             out.append(d)
         return out
 
-    def device_pos_arrays(self, device="cuda") -> tuple:
-        """Device copies of the doc->(bucket, row) inverse map + doc lens.
+    def device_pos_arrays(self, device="cuda", mesh=None) -> tuple:
+        """Device copies of the doc->(bucket, row) inverse map + doc lens,
+        whole on every rank of a serving mesh (the buckets are the sharded
+        part).
 
         Feeds the FUSED query path (index.serve.make_fused_query): candidate
         gathering happens on device, so serving pays no host round trip
         between search and rerank."""
-        dev = require_device(device)
+        dev = require_device(device) if mesh is None else mesh.device
         self._ensure_doc_pos()
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                      for a in (self._doc_bucket, self._doc_row,
@@ -446,6 +461,22 @@ def _bucket_topk(q, q_norms, q_len, bucket, k: int, exact: bool = False,
     return _mask_and_topk(scores3.amax(dim=(1, 2)), doc_idx, k)
 
 
+def _merge_sharded_topk(v, d, k: int, mesh, axis: str = "shard"):
+    """Merge the ranks' top-k blocks: v, d [B, k] on each rank -> the same
+    [B, k] on every rank.  One all_gather of the k-sized blocks over `axis`,
+    then a top-k of the n_shards * k pool a query (the ranks' blocks side by
+    side in rank order, as the JAX package's merge lays them)."""
+    import torch.distributed as dist
+    group, n = mesh.group(axis), mesh.size(axis)
+    v, d = v.contiguous(), d.contiguous()
+    vs = [torch.empty_like(v) for _ in range(n)]
+    ds = [torch.empty_like(d) for _ in range(n)]
+    dist.all_gather(vs, v, group=group)
+    dist.all_gather(ds, d, group=group)
+    vk, pos = torch.topk(torch.cat(vs, dim=-1), k, dim=-1)
+    return vk, torch.gather(torch.cat(ds, dim=-1), -1, pos)
+
+
 def _topk_padded(v, d, k: int):
     """top_k over the last axis, padding the candidate pool with NEG/-1 when
     it holds fewer than k entries (tiny shards/buckets)."""
@@ -490,18 +521,24 @@ def _finish(v, d):
 
 
 def make_dense_search(n_buckets: int, k: int, int8: bool = False,
-                      exact: bool = False, scan: str = "kernel"):
+                      exact: bool = False, scan: str = "kernel", mesh=None):
     """Build the search fn over device bucket arrays.
 
     Returns fn(q [qmax, d], q_len, *bucket_arrays) -> (scores [k], doc_idx [k])
     with scores = -sqrt(max(-sq_score, 0)) matching reference -L2 values.
     int8=True for an index built with dtype="int8" (4 arrays per bucket).
     exact=True for indexes whose scan IS the final ranking (score_type
-    "cosine").  scan: see `score_buckets`.
+    "cosine").  scan: see `score_buckets`.  mesh: the bucket arrays are this
+    rank's slices (`device_arrays(mesh=)`); every rank calls fn with the same
+    query and gets the same merged top-k.
     """
     def search(q, q_len, *flat):
         buckets = _unflatten_buckets(flat, n_buckets, int8)
-        return _finish(*score_buckets(buckets, q, q_len, k, exact, scan))
+        v, d = score_buckets(buckets, q, q_len, k, exact, scan)
+        if mesh is not None:
+            v, d = _merge_sharded_topk(v[None], d[None], k, mesh)
+            v, d = v[0], d[0]
+        return _finish(v, d)
     return search
 
 
@@ -579,16 +616,22 @@ def score_buckets_batched(buckets: list[dict], q, q_lens, k: int,
 
 def make_dense_search_batched(n_buckets: int, k: int, int8: bool = False,
                               q_chunk: int | None = None,
-                              exact: bool = False, scan: str = "kernel"):
+                              exact: bool = False, scan: str = "kernel",
+                              mesh=None):
     """Batched-query variant: amortizes the corpus read over a whole query
     batch -- the production serving shape.
 
     Returns fn(q [B, Qmax, d], q_lens [B] int, *bucket_arrays)
       -> (scores [B, k], doc_idx [B, k]), identical per-query results to
       make_dense_search.  q_chunk, scan: see `score_buckets_batched`.
+    mesh: each rank scans its slices and the [B, k] blocks merge by one
+      all_gather (`_merge_sharded_topk`); queries are the same on every rank.
     """
     def search(q, q_lens, *flat):
         buckets = _unflatten_buckets(flat, n_buckets, int8)
-        return _finish(*score_buckets_batched(buckets, q, q_lens, k, q_chunk,
-                                              exact, scan))
+        v, d = score_buckets_batched(buckets, q, q_lens, k, q_chunk, exact,
+                                     scan)
+        if mesh is not None:
+            v, d = _merge_sharded_topk(v, d, k, mesh)
+        return _finish(v, d)
     return search

@@ -16,7 +16,9 @@ it applies hidden dropout at 25 sites an encode (site 0 on the float32
 embedding LayerNorm output before the cast, sites 1 + 2i and 2 + 2i in layer
 i on the compute dtype before each residual add) and attention-probability
 dropout (site = layer index), all keyed on one 64-bit ``seed`` per encode that
-the caller passes to ``forward`` (ops/philox.py).  Under grad, reduced-dtype
+the caller passes to ``forward`` (ops/philox.py); a data rank passes a
+``philox.Seed`` that also names its first example's place in the whole batch,
+so that its masks are those rows of the one-process masks.  Under grad, reduced-dtype
 copies of the float32 parameters are made inside the graph, so the parameters
 receive float32 gradients.
 """
@@ -33,6 +35,7 @@ from ..core.types import require_device
 from ..ops.attention_kernel import (attention_keep_mask, fused_attention,
                                     fused_attention_plain)
 from ..ops.dropout_kernel import dropout_plain, fused_dropout, keep_mask
+from ..ops.philox import split_seed
 from ..ops.ffn_kernel import fused_ffn_linear
 
 
@@ -118,15 +121,20 @@ def _select_hidden_dropout(hidden_dropout_impl: str, on_cuda: bool = True) -> st
 
 
 def _hidden_dropout(x, p: float, training: bool, impl: str, seed, site: int):
-    """One hidden/embedding dropout site; identity in eval mode or at p = 0."""
+    """One hidden/embedding dropout site of x [b, ..., h]; identity in eval
+    mode or at p = 0.  seed: a 64-bit int or a philox.Seed, whose first
+    example's place offsets the Philox rows by that many examples' rows."""
     if not training or p == 0.0:
         return x
+    seed, example0 = split_seed(seed)
     if seed is None:
         raise ValueError("a training pass with dropout needs the encode's "
                          "seed: forward(..., seed=<64-bit int>)")
+    row0 = example0 * (x[0].numel() // x.shape[-1])
     if _select_hidden_dropout(impl, on_cuda=x.is_cuda) == "fused":
-        return fused_dropout(x, p, seed=seed, site=site)
-    keep = keep_mask(x.shape, p, seed=seed, site=site, device=x.device)
+        return fused_dropout(x, p, seed=seed, site=site, row0=row0)
+    keep = keep_mask(x.shape, p, seed=seed, site=site, device=x.device,
+                     row0=row0)
     return dropout_plain(x, keep, p)
 
 
@@ -242,7 +250,8 @@ class BertSelfAttention(_Base):
 
     def forward(self, x, attn_bias, seed=None):
         """x: [b, t, h]; attn_bias: f32[b, t] additive key mask; seed: the
-        encode's 64-bit seed (training passes with dropout)."""
+        encode's 64-bit seed or a philox.Seed (training passes with
+        dropout)."""
         cfg = self.config
         nh = cfg.num_attention_heads
         hd = cfg.hidden_size // nh
@@ -251,6 +260,7 @@ class BertSelfAttention(_Base):
                             cfg.attention_probs_dropout_prob,
                             on_cuda=x.is_cuda)
         p = cfg.attention_probs_dropout_prob if self.training else 0.0
+        seed, example0 = split_seed(seed)
         if p > 0.0 and seed is None:
             raise ValueError("a training pass with dropout needs the encode's "
                              "seed: forward(..., seed=<64-bit int>)")
@@ -262,12 +272,13 @@ class BertSelfAttention(_Base):
             ctx = fused_attention(q, k, v, attn_bias, sm_scale)
         elif impl == "fused":
             ctx = fused_attention(q, k, v, attn_bias, sm_scale, p, seed=seed,
-                                  site=self.layer_idx)
+                                  site=self.layer_idx, plane0=example0 * nh)
         else:
             keep = None
             if p > 0.0:
                 keep = attention_keep_mask(q.shape, p, seed=seed,
-                                           site=self.layer_idx, device=x.device)
+                                           site=self.layer_idx, device=x.device,
+                                           plane0=example0 * nh)
             ctx = fused_attention_plain(q, k, v, attn_bias, sm_scale, p, keep)
         return ctx.permute(0, 2, 1, 3).reshape(b, t, cfg.hidden_size)
 

@@ -25,17 +25,32 @@ holds them), `rng` is a host `torch.Generator` from which a call draws one
 reference: TripletMarginWithDistanceLoss(margin=1, reduction='sum') over
 distances, torch TripletMarginLoss(margin=1, p=2) for CLS reps, in-batch
 negatives via permutation of positives (disent_models.py:447-467,802-837).
+
+Data parallel (`mesh=`, a parallel.mesh.Mesh with a "data" axis): a rank
+holds a contiguous run of the whole batch's rows and computes the loss terms
+of those rows, so that the sum over ranks is the one-process loss.  Every rank
+draws the same seeds and permutation for the WHOLE batch from a generator
+seeded alike; its dropout masks are those rows' (philox.Seed), its in-batch
+negatives come from every rank's positives through a differentiable
+all_gather (parallel.mesh.gather_rows), and the OT distance anneals from the
+whole batch's (or micro batch's) diameter, its box assembled by a MIN and a
+MAX all_reduce.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..core.config import ModelHParams
 from ..core.types import MultiVec, require_device
 from ..ops.cdist import pairwise_l2
 from ..ops.distances import get_dist_function, l2sup_dist, l2sup_weighted_dist
+from ..ops.philox import Seed
 from ..ops.sinkhorn import grouped_max_diameter
+from ..parallel.mesh import all_reduce, gather_rows
 from .bert import BertConfig
 from .encoders import BiEncoder, ConSentEncoder
 
@@ -87,6 +102,57 @@ def draw_step_rng(rng: torch.Generator | None, batch_size: int,
     return tuple(seeds), perm
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where this process's rows sit in the batch whose loss is taken: the
+    whole batch has `rows` rows in `groups` equal contiguous micro batches;
+    this process holds rows [row0, row0 + local) of it; `mesh` spreads it
+    over data ranks (None: one process holds it all)."""
+
+    groups: int = 1
+    mesh: object = None
+    row0: int = 0
+    rows: int = 0
+
+    @classmethod
+    def of(cls, local: int, mesh=None, groups: int = 1) -> "Layout":
+        if mesh is None:
+            return cls(groups, None, 0, local)
+        return cls(groups, mesh, mesh.index("data") * local,
+                   local * mesh.size("data"))
+
+    def seed(self, seed):
+        """A bare seed on one process; with the first row's place on a rank."""
+        return seed if self.mesh is None else Seed(seed, self.row0)
+
+    def group_of(self, local: int, device) -> torch.Tensor:
+        """The micro batch of each of this process's rows."""
+        return torch.arange(self.row0, self.row0 + local,
+                            device=device) // (self.rows // self.groups)
+
+    def diameter(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Each row's OT annealing diameter: that of the box over ALL points
+        of both clouds of its micro batch (`grouped_max_diameter`), the box
+        assembled over the ranks.  f32[local]."""
+        if self.mesh is None:
+            return grouped_max_diameter(x, y, self.groups)
+        d, big = x.shape[-1], torch.finfo(x.dtype).max
+        gid = self.group_of(x.shape[0], x.device)
+        rows_lo = torch.minimum(x.amin(dim=1), y.amin(dim=1))      # [local, d]
+        rows_hi = torch.maximum(x.amax(dim=1), y.amax(dim=1))
+        lo = torch.full((self.groups, d), big, dtype=x.dtype, device=x.device)
+        hi = torch.full_like(lo, -big)
+        idx = gid[:, None].expand(-1, d)
+        lo = lo.scatter_reduce(0, idx, rows_lo, "amin")
+        hi = hi.scatter_reduce(0, idx, rows_hi, "amax")
+        lo = all_reduce(lo, self.mesh, op=dist.ReduceOp.MIN)
+        hi = all_reduce(hi, self.mesh, op=dist.ReduceOp.MAX)
+        return torch.linalg.vector_norm(hi - lo, dim=-1)[gid]
+
+
+ONE = Layout()
+
+
 def _flatten(tree, n: int):
     """[n_micro, gb, ...] leaves -> [n_micro * gb, ...]."""
     if isinstance(tree, dict):
@@ -94,10 +160,14 @@ def _flatten(tree, n: int):
     return tree.reshape((n,) + tuple(tree.shape[2:]))
 
 
-def _leading_shape(tree):
+def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return tuple(tree.shape[:2])
+    return tree
+
+
+def _leading_shape(tree):
+    return tuple(_first_leaf(tree).shape[:2])
 
 
 class _DocModelBase(nn.Module):
@@ -106,23 +176,27 @@ class _DocModelBase(nn.Module):
     family's per-example loss terms (`_example_losses`)."""
 
     def train_loss(self, batch: dict, rng: torch.Generator | None = None,
-                   train: bool = True) -> torch.Tensor:
+                   train: bool = True, mesh=None) -> torch.Tensor:
         """Triplet loss over (query, pos, neg-or-in-batch-negatives).
 
         batch: {'query': feats, 'pos': feats [+ 'align' int[b,2]],
                 optional 'neg': feats} (dev sets carry explicit negatives).
+        mesh: a data mesh; `batch` is then this rank's contiguous share of
+        the batch (parallel.mesh.shard_batch) and the loss its share of the
+        one-process loss (see the module docstring).
         """
         self.train(train)
         has_neg = "neg" in batch
-        b = batch["query"]["token_ids"].shape[0]
+        layout = Layout.of(batch["query"]["token_ids"].shape[0], mesh)
         seeds, perm = draw_step_rng(rng if (train or not has_neg) else None,
-                                    b, not has_neg)
-        reps = self._encode_triple(batch, seeds, has_neg)
-        return self._group_loss(batch, reps, perm).sum()
+                                    layout.rows, not has_neg)
+        reps = self._encode_triple(batch, seeds, has_neg, layout)
+        return self._group_loss(batch, reps, perm, layout).sum()
 
     def train_loss_grouped(self, superbatch: dict,
                            rng: torch.Generator | None = None,
-                           train: bool = True):
+                           train: bool = True, mesh=None,
+                           n_micro: int | None = None):
         """Fused gradient accumulation: one wide encode + per-group losses.
 
         superbatch: nested dict whose tensors lead with [n_micro, micro_batch,
@@ -138,67 +212,104 @@ class _DocModelBase(nn.Module):
         from its own diameter (`grouped_max_diameter`), on the card in one
         Sinkhorn kernel launch a distance -- and summed group by group.
 
-        Returns (summed loss, per-group losses [n_micro]).
+        mesh: a data mesh.  `superbatch` is then this rank's contiguous run of
+        the rows of the window laid end to end ([rows, ...] leaves: rank r of
+        R holds rows [r n / R, (r + 1) n / R) of the n = n_micro * micro), so
+        that its one wide encode draws the one-process wide encode's masks,
+        and `n_micro` says how many micro batches the window holds.
+
+        Returns (summed loss, per-group losses [n_micro]); on a rank, the
+        shares of its rows.
         """
         self.train(train)
-        n_micro, gb = _leading_shape(superbatch)
         has_neg = "neg" in superbatch
+        if mesh is None:
+            n_micro, gb = _leading_shape(superbatch)
+            flat = _flatten(superbatch, n_micro * gb)
+            layout = Layout(n_micro, None, 0, n_micro * gb)
+        else:
+            flat = superbatch
+            layout = Layout.of(_first_leaf(flat).shape[0], mesh, n_micro)
+            gb = layout.rows // n_micro
         draws = [draw_step_rng(rng if (train or not has_neg) else None, gb,
                                not has_neg) for _ in range(n_micro)]
-        flat = _flatten(superbatch, n_micro * gb)
-        reps = self._encode_triple(flat, draws[0][0], has_neg)
+        reps = self._encode_triple(flat, draws[0][0], has_neg, layout)
         perm = None
         if not has_neg:
             # group-local permutations as one index into the wide batch
             perm = torch.cat([g * gb + draws[g][1] for g in range(n_micro)])
-        terms = self._group_loss(flat, reps, perm, groups=n_micro)
-        losses = terms.reshape(n_micro, gb).sum(dim=1)
+        terms = self._group_loss(flat, reps, perm, layout)
+        if mesh is None:
+            losses = terms.reshape(n_micro, gb).sum(dim=1)
+        else:
+            gid = layout.group_of(terms.shape[0], terms.device)
+            losses = terms.new_zeros(n_micro).index_add(0, gid, terms)
         return losses.sum(), losses
 
-    def _encode_triple(self, batch, seeds, has_neg):
+    def _encode_triple(self, batch, seeds, has_neg, layout: Layout = ONE):
         """-> [q_cls, q_sents, p_cls, p_sents, n_cls, n_sents]; the negative
         entries are None when the batch carries none."""
-        q_cls, q_sents = self.encode(batch["query"], seed=seeds[0])
-        p_cls, p_sents = self.encode(batch["pos"], seed=seeds[1])
+        q_cls, q_sents = self.encode(batch["query"], seed=layout.seed(seeds[0]))
+        p_cls, p_sents = self.encode(batch["pos"], seed=layout.seed(seeds[1]))
         n_cls = n_sents = None
         if has_neg:
-            n_cls, n_sents = self.encode(batch["neg"], seed=seeds[2])
+            n_cls, n_sents = self.encode(batch["neg"],
+                                         seed=layout.seed(seeds[2]))
         return [q_cls, q_sents, p_cls, p_sents, n_cls, n_sents]
 
-    def _group_loss(self, batch, reps, perm, groups: int = 1):
-        """Per-example loss terms [b] of a batch that holds `groups` micro
-        batches one after the other; `perm` indexes the whole batch."""
+    def _group_loss(self, batch, reps, perm, layout: Layout = ONE):
+        """Per-example loss terms of this process's rows of a batch laid out
+        as `layout` says; `perm` indexes the whole batch.  The negatives
+        carry the permuted positives' alignments when the batch has them."""
         q_cls, q_sents, p_cls, p_sents, n_cls, n_sents = reps
         if perm is not None:
             perm = perm.to(p_cls.device)
-            n_cls = p_cls[perm]
+            align = batch["pos"].get("align")
+            # the positives of the whole batch: every rank's, on a data mesh
+            all_cls, all_sents = p_cls, p_sents
+            if layout.mesh is not None:
+                perm = perm[layout.row0:layout.row0 + p_cls.shape[0]]
+                all_cls = gather_rows(p_cls, layout.mesh)
+                if p_sents is not None:
+                    all_sents = MultiVec(
+                        embed=gather_rows(p_sents.embed, layout.mesh),
+                        lens=gather_rows(p_sents.lens, layout.mesh))
+                if align is not None:
+                    align = gather_rows(align, layout.mesh)
+            n_cls = all_cls[perm]
             if p_sents is not None:
-                n_sents = MultiVec(embed=p_sents.embed[perm],
-                                   lens=p_sents.lens[perm])
+                n_sents = MultiVec(embed=all_sents.embed[perm],
+                                   lens=all_sents.lens[perm],
+                                   align=None if align is None else align[perm])
         return self._example_losses(batch, q_cls, q_sents, p_cls, p_sents,
-                                    n_cls, n_sents, perm, groups)
+                                    n_cls, n_sents, perm, layout)
 
     def _combine_losses(self, batch, q_cls, q_sents, p_cls, p_sents,
                         n_cls, n_sents, perm):
         """The batch's loss, as the JAX package's method of this name."""
+        align = batch["pos"].get("align")
+        if (perm is not None and n_sents is not None and n_sents.align is None
+                and align is not None):
+            n_sents = MultiVec(embed=n_sents.embed, lens=n_sents.lens,
+                               align=align[perm.to(align.device)])
         return self._example_losses(batch, q_cls, q_sents, p_cls, p_sents,
                                     n_cls, n_sents, perm).sum()
 
-    def _dist(self, query, cand, groups: int = 1):
+    def _dist(self, query, cand, layout: Layout = ONE):
         """The model's distance.  OT anneals from a batch-wide diameter, the
         one distance that couples a batch's examples: over several micro
-        batches it is given each group's own, as the per-pair diameters of
-        the solver's one call (on CUDA tensors one launch of the Sinkhorn
-        kernel's annealing loop, each pair its own trip count; see
-        `ops.distances.wasserstein_dist`)."""
-        if groups > 1 and self.ot_dist:
-            return self.dist_fn(query, cand, diameter_value=grouped_max_diameter(
-                query.embed, cand.embed, groups))
+        batches it is given each group's own, and on a data rank the whole
+        batch's, as the per-pair diameters of the solver's one call (on CUDA
+        tensors one launch of the Sinkhorn kernel's annealing loop, each pair
+        its own trip count; see `ops.distances.wasserstein_dist`)."""
+        if self.ot_dist and (layout.groups > 1 or layout.mesh is not None):
+            return self.dist_fn(query, cand, diameter_value=layout.diameter(
+                query.embed, cand.embed))
         return self.dist_fn(query, cand)
 
-    def _sent_triplet(self, q_sents, p_sents, n_sents, groups):
-        return _triplet_margin(self._dist(q_sents, p_sents, groups),
-                               self._dist(q_sents, n_sents, groups),
+    def _sent_triplet(self, q_sents, p_sents, n_sents, layout):
+        return _triplet_margin(self._dist(q_sents, p_sents, layout),
+                               self._dist(q_sents, n_sents, layout),
                                per_example=True)
 
 
@@ -262,8 +373,8 @@ class ConSentDocModel(_DocModelBase):
 
     # ---- training ----
     def _example_losses(self, batch, q_cls, q_sents, p_cls, p_sents,
-                        n_cls, n_sents, perm, groups: int = 1):
-        loss = self._sent_triplet(q_sents, p_sents, n_sents, groups)
+                        n_cls, n_sents, perm, layout: Layout = ONE):
+        loss = self._sent_triplet(q_sents, p_sents, n_sents, layout)
         if self.cd_svalue_l1_prop > 0 and perm is not None:
             loss = loss + self.cd_svalue_l1_prop * _svalue_l1(q_sents, p_sents, True)
         return loss
@@ -287,9 +398,9 @@ class WordSentAbsAlignModel(ConSentDocModel):
         self.score_abs_prop = float(hp.abs_loss_prop)
 
     def _example_losses(self, batch, q_cls, q_sents, p_cls, p_sents,
-                        n_cls, n_sents, perm, groups: int = 1):
+                        n_cls, n_sents, perm, layout: Layout = ONE):
         loss = self.sent_loss_prop * self._sent_triplet(q_sents, p_sents,
-                                                        n_sents, groups)
+                                                        n_sents, layout)
         loss = loss + self.abs_loss_prop * _cls_l2_triplet(
             q_cls, p_cls, n_cls, per_example=True)
         cd_l1 = float(self.hp.cd_l1_prop)
@@ -315,25 +426,23 @@ class WordSentAbsSupAlignModel(ConSentDocModel):
         self.score_abs_prop = float(hp.abs_loss_prop)
 
     def _example_losses(self, batch, q_cls, q_sents, p_cls, p_sents,
-                        n_cls, n_sents, perm, groups: int = 1):
+                        n_cls, n_sents, perm, layout: Layout = ONE):
         cls_triplet = lambda: self.abs_loss_prop * _cls_l2_triplet(
             q_cls, p_cls, n_cls, per_example=True)
         if perm is None:
             # Dev set: "predictions" not pre-alignments (disent_models.py:796-801).
-            loss = self._sent_triplet(q_sents, p_sents, n_sents, groups)
+            loss = self._sent_triplet(q_sents, p_sents, n_sents, layout)
             if self.abs_loss_prop > 0:
                 loss = loss + cls_triplet()
             return loss
-        pos_align = batch["pos"]["align"]
-        neg_align = pos_align[perm]
-        p_ali = MultiVec(embed=p_sents.embed, lens=p_sents.lens, align=pos_align)
-        n_ali = MultiVec(embed=n_sents.embed, lens=n_sents.lens, align=neg_align)
+        p_ali = MultiVec(embed=p_sents.embed, lens=p_sents.lens,
+                         align=batch["pos"]["align"])
         loss = self.sentsup_loss_prop * _triplet_margin(
-            self.sup_fn(q_sents, p_ali), self.sup_fn(q_sents, n_ali),
+            self.sup_fn(q_sents, p_ali), self.sup_fn(q_sents, n_sents),
             per_example=True)
         if self.sent_loss_prop > 0:
             loss = loss + self.sent_loss_prop * self._sent_triplet(
-                q_sents, p_sents, n_sents, groups)
+                q_sents, p_sents, n_sents, layout)
         if self.abs_loss_prop > 0:
             loss = loss + cls_triplet()
         if self.cd_svalue_l1_prop > 0:
@@ -364,7 +473,7 @@ class SpecterDocModel(_DocModelBase):
         return scores, scores
 
     def _example_losses(self, batch, q_cls, q_sents, p_cls, p_sents,
-                        n_cls, n_sents, perm, groups: int = 1):
+                        n_cls, n_sents, perm, layout: Layout = ONE):
         return _cls_l2_triplet(q_cls, p_cls, n_cls, per_example=True)
 
 

@@ -8,6 +8,9 @@ of aspire_tpu/models/sent_models.py
     over the in-batch dot-product similarity matrix.
 
 Both consume the same feature dicts as the doc models (sent_ids unused).
+On a data mesh (`mesh=`) a rank takes the loss terms of its rows of the batch,
+as the doc models do (doc_models.Layout): the in-batch negatives and the ICT
+similarity columns are every rank's positives, gathered differentiably.
 """
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ import torch.nn as nn
 
 from ..core.config import ModelHParams
 from ..core.types import require_device
+from ..parallel.mesh import gather_rows
 from .bert import BertConfig, BertModel
-from .doc_models import _cls_l2_triplet, draw_step_rng
+from .doc_models import Layout, _cls_l2_triplet, draw_step_rng
 
 
 def _tower(hp: ModelHParams, bert_config: BertConfig, dtype, device):
@@ -46,18 +50,20 @@ class SentTripleModel(nn.Module):
         return _cls(self.encoder, feats, seed), None
 
     def train_loss(self, batch, rng: torch.Generator | None = None,
-                   train: bool = True) -> torch.Tensor:
+                   train: bool = True, mesh=None) -> torch.Tensor:
         self.train(train)
         has_neg = "neg" in batch
         b = batch["query"]["token_ids"].shape[0]
+        layout = Layout.of(b, mesh)
         seeds, perm = draw_step_rng(rng if (train or not has_neg) else None,
-                                    b, not has_neg)
-        q = _cls(self.encoder, batch["query"], seeds[0])
-        p = _cls(self.encoder, batch["pos"], seeds[1])
+                                    layout.rows, not has_neg)
+        q = _cls(self.encoder, batch["query"], layout.seed(seeds[0]))
+        p = _cls(self.encoder, batch["pos"], layout.seed(seeds[1]))
         if has_neg:
-            n = _cls(self.encoder, batch["neg"], seeds[2])
+            n = _cls(self.encoder, batch["neg"], layout.seed(seeds[2]))
         else:
-            n = p[perm.to(p.device)]
+            perm = perm.to(p.device)[layout.row0:layout.row0 + b]
+            n = (p if mesh is None else gather_rows(p, mesh))[perm]
         return _cls_l2_triplet(q, p, n)
 
 
@@ -76,12 +82,16 @@ class ICTModel(nn.Module):
         return _cls(self.sent_encoder, feats, seed), None
 
     def train_loss(self, batch, rng: torch.Generator | None = None,
-                   train: bool = True) -> torch.Tensor:
+                   train: bool = True, mesh=None) -> torch.Tensor:
         self.train(train)
+        layout = Layout.of(batch["query"]["token_ids"].shape[0], mesh)
         seeds, _ = draw_step_rng(rng if train else None, 0, False)
-        q = _cls(self.sent_encoder, batch["query"], seeds[0])
-        p = _cls(self.context_encoder, batch["pos"], seeds[1])
+        q = _cls(self.sent_encoder, batch["query"], layout.seed(seeds[0]))
+        p = _cls(self.context_encoder, batch["pos"], layout.seed(seeds[1]))
+        if mesh is not None:
+            p = gather_rows(p, mesh)
         sims = torch.matmul(q.float(), p.float().t())
-        # cross-entropy, reduction='sum', targets = diagonal
+        # cross-entropy, reduction='sum', targets = diagonal (this rank's rows
+        # of the whole batch's similarity matrix)
         logp = torch.log_softmax(sims, dim=1)
-        return -torch.diagonal(logp).sum()
+        return -torch.diagonal(logp, offset=layout.row0).sum()

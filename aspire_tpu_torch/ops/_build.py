@@ -5,11 +5,14 @@ work on the files side by side) into a library with a plain C interface, which
 is loaded with ctypes: the sources include none of PyTorch's headers, so the
 build takes seconds.  The library lands in ``build/aspire_tpu_torch/`` beside
 the package, named after a hash of the sources, and is built at the first
-kernel call -- importing this module needs neither nvcc nor a GPU.
+kernel call -- importing this module needs neither nvcc nor a GPU.  Ranks that
+start together (parallel/mesh.py) build it once: the first to take the
+directory's lock builds, the others wait for it and load its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -25,8 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL, _U64, _U32 = ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_uint
 # dropout mode and bits: mode (0 none, 1 Philox, 2 operand), seed, counter
-# word 0, keep threshold
-_DROP = [_I, _U64, _U32, _U32]
+# word 0, keep threshold, the place of the first plane (attention) or row
+# (hidden dropout) in the whole batch
+_DROP = [_I, _U64, _U32, _U32, _U32]
 
 # name -> argtypes; every function returns the cudaError_t of its launch.
 # Without argtypes ctypes would pass each pointer as a 32-bit int.
@@ -46,9 +50,9 @@ SIGNATURES = {
                                  + [_F, _F, _P, _P],
     "aspire_attention_bwd_f32": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
                                 + [_F, _F, _P, _P],
-    # x, out, bits, rows, h, mode, seed, counter word 0, threshold, scale, stream
-    "aspire_dropout_bf16": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
-    "aspire_dropout_f32": [_P] * 3 + [_LL, _I, _I, _U64, _U32, _U32, _F, _P],
+    # x, out, bits, rows, h, dropout mode.., scale, stream
+    "aspire_dropout_bf16": [_P] * 3 + [_LL, _I] + _DROP + [_F, _P],
+    "aspire_dropout_f32": [_P] * 3 + [_LL, _I] + _DROP + [_F, _P],
     # x, w1 [inter, hidden], b1, w2 [hidden, inter], b2, activation scratch,
     # out, rows, hidden, inter, stream
     "aspire_ffn_bf16": [_P] * 7 + [_I] * 3 + [_P],
@@ -108,17 +112,21 @@ def load() -> ctypes.CDLL:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"libaspire_kernels_{_digest()}.so"
-    if not target.exists():
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "--threads", str(len(srcs)),
-               "-o", str(tmp), *map(str, srcs)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + build_log)
-        os.replace(tmp, target)
+    # an advisory lock, released when its holder exits however it exits
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "--threads", str(len(srcs)),
+                   "-o", str(tmp), *map(str, srcs)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + build_log)
+            os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -77,13 +77,16 @@ def fused_attention_plain(q, k, v, bias, sm_scale: float,
 
 
 def attention_keep_mask(shape, dropout_p: float, *, seed=None, site: int = 0,
-                        rng_bits=None, device="cpu") -> torch.Tensor:
-    """bool [b, nh, t, t]: the mask the kernels apply for q of `shape`."""
+                        rng_bits=None, device="cpu",
+                        plane0: int = 0) -> torch.Tensor:
+    """bool [b, nh, t, t]: the mask the kernels apply for q of `shape`, its
+    planes counted from plane0."""
     b, nh, t, _ = shape
     thresh = philox.keep_threshold(dropout_p)
     if rng_bits is not None:
         return philox.bits_to_int64(rng_bits).reshape(b, nh, t, t) >= thresh
-    return philox.attention_bits(seed, site, b, nh, t, device=device) >= thresh
+    return philox.attention_bits(seed, site, b, nh, t, device=device,
+                                 plane0=plane0) >= thresh
 
 
 def with_padded_heads(fn, q, k, v, *args, **kwargs):
@@ -118,26 +121,26 @@ def _kernel_constants(dropout_p: float, dtype: torch.dtype, site: int):
             float(torch.tensor(1.0 - dropout_p, dtype=torch.float32)))
 
 
-def _drop_args(q, dropout_p, seed, site, bits):
-    """(mode, seed, counter word 0, threshold, 1 - p in q's dtype, 1 - p in
-    f32, bits pointer) as the C functions take them."""
+def _drop_args(q, dropout_p, seed, site, bits, plane0):
+    """(mode, seed, counter word 0, threshold, first plane, 1 - p in q's
+    dtype, 1 - p in f32, bits pointer) as the C functions take them."""
     if dropout_p == 0.0:
-        return 0, 0, 0, 0, 1.0, 1.0, 0
+        return 0, 0, 0, 0, 0, 1.0, 1.0, 0
     c0, thresh, keep_div, keep_div32 = _kernel_constants(dropout_p, q.dtype, site)
     return (1 if bits is None else 2, int(seed or 0) & 0xFFFFFFFFFFFFFFFF,
-            c0, thresh, keep_div, keep_div32,
+            c0, thresh, plane0, keep_div, keep_div32,
             0 if bits is None else bits.data_ptr())
 
 
 def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
-                  stats=None):
+                  plane0, stats=None):
     """stats: None, or the [3, b * nh, t] f32 tensor that receives each row's
     softmax max and sum (planes 0 and 1) for the backward."""
     b, nh, t, _ = q.shape
     out = torch.empty_like(q)          # keeps a dense q's strides
     strides = [*_strides(q), *_strides(k), *_strides(v), *_strides(out)]
-    mode, seed, c0, thresh, keep_div, _, bits_ptr = _drop_args(
-        q, dropout_p, seed, site, bits)
+    mode, seed, c0, thresh, plane0, keep_div, _, bits_ptr = _drop_args(
+        q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
     name = ("aspire_attention_bf16" if q.dtype == torch.bfloat16
             else "aspire_attention_f32")
@@ -145,7 +148,7 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, nh, t, *strides, float(sm_scale), mode, seed,
-            c0, thresh, keep_div, bits_ptr,
+            c0, thresh, plane0, keep_div, bits_ptr,
             0 if stats is None else stats.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
@@ -159,7 +162,7 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
 
 
 def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
-                   site, bits):
+                   site, bits, plane0):
     """One backward.  bf16: three launches (delta, keys kernel for dk and dv,
     dq kernel), with ds^T handed between the last two through a bf16 scratch
     allocated here and freed on return.  f32: two launches (rows kernel for
@@ -174,8 +177,8 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
     strides = []
     for x in (q, k, v, g, out, dq, dk, dv):
         strides.extend(_strides(x))
-    mode, seed, c0, thresh, keep_div, keep_div32, bits_ptr = _drop_args(
-        q, dropout_p, seed, site, bits)
+    mode, seed, c0, thresh, plane0, keep_div, keep_div32, bits_ptr = \
+        _drop_args(q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
     bf16 = q.dtype == torch.bfloat16
     name = "aspire_attention_bwd_bf16" if bf16 else "aspire_attention_bwd_f32"
@@ -191,8 +194,8 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
             dv.data_ptr(), stats.data_ptr(),
             *(x.data_ptr() for x in scratch), b, nh, t,
             (ctypes.c_longlong * 24)(*strides),
-            float(sm_scale), mode, seed, c0, thresh, keep_div, keep_div32,
-            bits_ptr, torch.cuda.current_stream().cuda_stream)
+            float(sm_scale), mode, seed, c0, thresh, plane0, keep_div,
+            keep_div32, bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     if bf16:                            # what the C function launches
         fused_attention.bwd_launches += 3
@@ -208,25 +211,27 @@ class _Attention(torch.autograd.Function):
     between the two (the bf16 backward's ds scratch is its own, transient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seed, site, bits):
+    def forward(ctx, q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
+                plane0):
         b, nh, t, _ = q.shape
         stats = torch.empty((3, b * nh, t), dtype=torch.float32,
                             device=q.device)
         out = _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site,
-                            bits, stats)
+                            bits, plane0, stats)
         ctx.save_for_backward(q, k, v, bias, out, stats)
-        ctx.args = (sm_scale, dropout_p, seed, site, bits)
+        ctx.args = (sm_scale, dropout_p, seed, site, bits, plane0)
         return out
 
     @staticmethod
     def backward(ctx, g):
         dq, dk, dv = _backward_cuda(*ctx.saved_tensors, g, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
                     *, seed: int | None = None, site: int = 0,
-                    rng_bits: torch.Tensor | None = None) -> torch.Tensor:
+                    rng_bits: torch.Tensor | None = None,
+                    plane0: int = 0) -> torch.Tensor:
     """softmax(q.k^T * sm_scale + bias) [dropout] . v with nothing
     intermediate in device memory, differentiable in q, k, v.
 
@@ -236,7 +241,10 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
     additive key mask (0 at real tokens, -1e9 at pads; it gets no gradient).
     seed: the call's 64-bit seed as a Python int; site: the layer index;
     rng_bits: optional 32-bit integer [b, nh, t, t] bits drawn by the caller
-    (the route by which parity with the JAX package is tested).  Returns
+    (the route by which parity with the JAX package is tested); plane0: the
+    place of plane 0 (example 0, head 0) in the whole batch, a data rank's
+    first example times nh, so that the ranks of a data-parallel step drop
+    what one process would (ignored with rng_bits).  Returns
     [b, nh, t, hd] in q's dtype and, for a dense 64-wide q, q's memory
     layout.
     CUDA tensors launch the kernels; CPU tensors run the plain version under
@@ -261,7 +269,7 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
         if dropout_p > 0.0:
             keep = attention_keep_mask(q.shape, dropout_p, seed=seed,
                                        site=site, rng_bits=rng_bits,
-                                       device=q.device)
+                                       device=q.device, plane0=plane0)
         return fused_attention_plain(q, k, v, bias, sm_scale, dropout_p, keep)
     if hd > HEAD_DIM:
         raise ValueError(f"the attention kernels take head widths up to "
@@ -279,7 +287,8 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
                              "q's device")
         bits = rng_bits.contiguous()
     return with_padded_heads(_attention_cuda, q, k, v, bias, float(sm_scale),
-                             float(dropout_p), seed, int(site), bits)
+                             float(dropout_p), seed, int(site), bits,
+                             int(plane0))
 
 
 def _attention_cuda(q, k, v, *args):

@@ -48,9 +48,10 @@ def dropout_plain(x: torch.Tensor, keep: torch.Tensor,
 
 def keep_mask(shape, dropout_p: float, *, seed: int | None = None,
               site: int = 0, rng_bits: torch.Tensor | None = None,
-              device="cpu") -> torch.Tensor:
+              device="cpu", row0: int = 0) -> torch.Tensor:
     """The keep mask the kernel applies to a tensor of this shape: from
-    `rng_bits` when given, else from the Philox words of (seed, site)."""
+    `rng_bits` when given, else from the Philox words of (seed, site), its
+    rows counted from row0."""
     thresh = philox.keep_threshold(dropout_p)
     if rng_bits is not None:
         return philox.bits_to_int64(rng_bits).reshape(tuple(shape)) >= thresh
@@ -58,12 +59,12 @@ def keep_mask(shape, dropout_p: float, *, seed: int | None = None,
     rows = 1
     for d in shape[:-1]:
         rows *= d
-    bits = philox.hidden_bits(seed, site, rows, h, device=device)
+    bits = philox.hidden_bits(seed, site, rows, h, device=device, row0=row0)
     return (bits >= thresh).reshape(tuple(shape))
 
 
 def _launch(x2: torch.Tensor, dropout_p: float, seed: int, site: int,
-            bits: torch.Tensor | None) -> torch.Tensor:
+            bits: torch.Tensor | None, row0: int) -> torch.Tensor:
     """One pass of the kernel over a contiguous [rows, h] CUDA tensor."""
     rows, h = x2.shape
     vec = 8 if x2.dtype == torch.bfloat16 else 4
@@ -89,7 +90,8 @@ def _launch(x2: torch.Tensor, dropout_p: float, seed: int, site: int,
             x2.data_ptr(), out.data_ptr(),
             0 if bits is None else bits.data_ptr(), rows, h,
             1 if bits is None else 2, int(seed or 0) & 0xFFFFFFFFFFFFFFFF,
-            c0, thresh, scale, torch.cuda.current_stream(x2.device).cuda_stream)
+            c0, thresh, row0, scale,
+            torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, name)
     fused_dropout.launches += 1
     return out
@@ -100,23 +102,22 @@ class _Dropout(torch.autograd.Function):
     is saved unless the caller supplied the bits."""
 
     @staticmethod
-    def forward(ctx, x, dropout_p, seed, site, bits):
-        ctx.args = (dropout_p, seed, site, bits)
+    def forward(ctx, x, dropout_p, seed, site, bits, row0):
+        ctx.args = (dropout_p, seed, site, bits, row0)
         ctx.shape = x.shape
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        return _launch(x2, dropout_p, seed, site, bits).reshape(x.shape)
+        return _launch(x2, dropout_p, seed, site, bits, row0).reshape(x.shape)
 
     @staticmethod
     def backward(ctx, g):
-        dropout_p, seed, site, bits = ctx.args
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
-        dx = _launch(g2, dropout_p, seed, site, bits).reshape(ctx.shape)
-        return dx, None, None, None, None
+        dx = _launch(g2, *ctx.args).reshape(ctx.shape)
+        return dx, None, None, None, None, None
 
 
 def fused_dropout(x: torch.Tensor, dropout_p: float, *, seed: int | None = None,
-                  site: int = 0, rng_bits: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+                  site: int = 0, rng_bits: torch.Tensor | None = None,
+                  row0: int = 0) -> torch.Tensor:
     """Dropout whose mask never touches device memory.
 
     x:        [..., h] bf16 or f32; flattened to [rows, h].
@@ -126,6 +127,10 @@ def fused_dropout(x: torch.Tensor, dropout_p: float, *, seed: int | None = None,
               layer i) so that sites sharing a seed draw distinct masks.
     rng_bits: optional 32-bit integer tensor of x's shape -- bits drawn by the
               caller, the route by which parity with the JAX package is tested.
+    row0:     the place of x's first row in the whole batch (a data rank's
+              first example times the tokens an example): the Philox row of
+              x's row i is row0 + i, so that the ranks of a data-parallel
+              step drop what one process would.  Ignored with rng_bits.
     Differentiable in x.  p == 0 returns x without a launch.  CUDA tensors
     launch the kernel, CPU tensors run the plain version under autograd.
     """
@@ -140,12 +145,12 @@ def fused_dropout(x: torch.Tensor, dropout_p: float, *, seed: int | None = None,
                          f"{tuple(rng_bits.shape)}")
     if not x.is_cuda:
         keep = keep_mask(x.shape, dropout_p, seed=seed, site=site,
-                         rng_bits=rng_bits, device=x.device)
+                         rng_bits=rng_bits, device=x.device, row0=row0)
         return dropout_plain(x, keep, dropout_p)
     bits = None
     if rng_bits is not None:
         bits = rng_bits.reshape(-1, x.shape[-1]).contiguous()
-    return _Dropout.apply(x, float(dropout_p), seed, int(site), bits)
+    return _Dropout.apply(x, float(dropout_p), seed, int(site), bits, int(row0))
 
 
 fused_dropout.launches = 0

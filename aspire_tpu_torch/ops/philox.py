@@ -9,7 +9,11 @@ a mask is a function of the element's position, whatever kernel asks for it:
 
 ``kind`` is 0 for hidden dropout (plane 0) and 1 for attention probabilities
 (plane = batch * heads + head), so the two never share a counter even for
-equal site numbers.  One call gives four 32-bit words; word ``column % 4`` is
+equal site numbers.  Plane and row are places in the whole batch: a data
+rank that holds rows ``[r0, r0 + n)`` of it draws with its planes offset by
+``r0 * heads`` (attention) and its rows by ``r0 * tokens`` (hidden dropout),
+so that its masks are those rows of the one-process masks (``plane0``,
+``row0``; 0 on one process).  One call gives four 32-bit words; word ``column % 4`` is
 the column's.  An element is kept when its word >= round(p * 2**32), compared
 unsigned (``keep_threshold``).  ``csrc/common.cuh`` computes the same words on
 the card, so the kernels' plain versions reproduce their masks exactly, and a
@@ -20,6 +24,8 @@ product's low 63 bits are exact, the high word is assembled from 16-bit
 halves), on the CPU or the card.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -68,12 +74,16 @@ def counter_word0(kind: int, site: int) -> int:
 
 
 def _plane_bits(seed: int, c0: int, planes: int, rows: int, cols: int,
-                device) -> torch.Tensor:
-    """int64 [planes, rows, cols] of uint32 values."""
+                device, plane0: int = 0, row0: int = 0) -> torch.Tensor:
+    """int64 [planes, rows, cols] of uint32 values, planes and rows counted
+    from plane0 and row0."""
+    if plane0 + planes > 1 << 32 or row0 + rows > 1 << 32:
+        raise ValueError("planes and rows are 32-bit counter words")
     groups = -(-cols // 4)
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    ar = lambda n, at=0: torch.arange(at, at + n, dtype=torch.int64,
+                                      device=device)
     counter = (torch.full((1, 1, 1), c0, dtype=torch.int64, device=device),
-               ar(planes)[:, None, None], ar(rows)[None, :, None],
+               ar(planes, plane0)[:, None, None], ar(rows, row0)[None, :, None],
                ar(groups)[None, None, :])
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     words = philox4x32_10(counter, (seed & _MASK, seed >> 32))
@@ -81,17 +91,35 @@ def _plane_bits(seed: int, c0: int, planes: int, rows: int, cols: int,
 
 
 def hidden_bits(seed: int, site: int, rows: int, cols: int,
-                device="cpu") -> torch.Tensor:
-    """Bits of a [rows, cols] hidden-dropout site, as int64 holding uint32."""
+                device="cpu", row0: int = 0) -> torch.Tensor:
+    """Bits of a [rows, cols] hidden-dropout site whose first row is row0 of
+    the whole batch, as int64 holding uint32."""
     return _plane_bits(seed, counter_word0(KIND_HIDDEN, site), 1, rows, cols,
-                       device)[0]
+                       device, row0=row0)[0]
 
 
 def attention_bits(seed: int, site: int, b: int, nh: int, t: int,
-                   device="cpu") -> torch.Tensor:
-    """Bits of a [b, nh, t, t] attention-probability site (int64 of uint32)."""
+                   device="cpu", plane0: int = 0) -> torch.Tensor:
+    """Bits of a [b, nh, t, t] attention-probability site whose first plane
+    is plane0 of the whole batch (int64 of uint32)."""
     return _plane_bits(seed, counter_word0(KIND_ATTENTION, site), b * nh, t, t,
-                       device).reshape(b, nh, t, t)
+                       device, plane0=plane0).reshape(b, nh, t, t)
+
+
+class Seed(NamedTuple):
+    """An encode's dropout seed and the place of its first example in the
+    whole batch: what a data rank passes where one process passes the bare
+    64-bit seed (``models/bert.py`` takes either)."""
+
+    seed: int
+    example0: int = 0
+
+
+def split_seed(seed) -> tuple:
+    """(64-bit seed or None, first example's place) of a bare seed or a Seed."""
+    if isinstance(seed, Seed):
+        return seed.seed, seed.example0
+    return seed, 0
 
 
 def bits_to_int64(bits: torch.Tensor) -> torch.Tensor:

@@ -91,9 +91,10 @@ def build() -> dict:
 def _call(fn, q, k, v, bias, out, p, stats):
     b, nh, t, hd = q.shape
     strides = [*ak._strides(q), *ak._strides(k), *ak._strides(v), *ak._strides(out)]
-    mode, seed, c0, thresh, keep_div, _, bits = ak._drop_args(q, p, 7, 1, None)
+    mode, seed, c0, thresh, plane0, keep_div, _, bits = ak._drop_args(q, p, 7, 1, None, 0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             b, nh, t, *strides, 1.0 / math.sqrt(hd), mode, seed, c0, thresh, keep_div, bits,
+             b, nh, t, *strides, 1.0 / math.sqrt(hd), mode, seed, c0, thresh, plane0, keep_div,
+             bits,
              stats.data_ptr() if p else 0, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: error {err}")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving, training, index, evaluation, data-pipeline, baseline-family and check paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving, training, index, several-rank, evaluation, data-pipeline, baseline-family and check paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, needs one card and nvcc
     python3 chip_smoke.py --layers 2 --train-layers 2    # quicker, same widths
@@ -9,9 +9,11 @@
     python3 chip_smoke.py --phases chain     # the data pipeline's two-model chain alone
     python3 chip_smoke.py --phases families  # the examples and the RoBERTa / MPNet baselines alone
     python3 chip_smoke.py --phases checks    # the convergence and int8 checks alone
+    python3 chip_smoke.py --phases mesh      # the several-rank paths alone
 
-Phases run in the order device, build, kernels, serve, train, index, eval,
-chain, families, checks; each prints its seconds (a `phase_seconds` line).
+Phases run in the order device, build, kernels, serve, train, index, mesh,
+eval, chain, families, checks; each prints its seconds (a `phase_seconds`
+line).
 
 Phases, one JSON object a line:
 
@@ -25,7 +27,8 @@ Phases, one JSON object a line:
            training loss takes them -- heads of 32 and 8 columns padded to
            64, FFN widths other than 768 padded to multiples of 64), with
            times; the dropout kernels with the bits given and with the bits
-           made in the kernel (masks equal to ops/philox.py's); then
+           made in the kernel (masks equal to ops/philox.py's, also with a
+           data rank's row and plane offsets); then
            BertConfig.tiny() encoding on the card under 'auto' against 'naive';
   serve    full-width BERT-base ConSent encode (bf16, 12 layers, weights from
            a numpy seed) of 16 abstracts x 256 tokens, then an OT rerank of
@@ -49,6 +52,27 @@ Phases, one JSON object a line:
            (scan='torch', solver='torch'), compared, and the stages timed;
            then a float32 index of 20,000 documents queried through the scan
            kernel's f32 instantiation and through the plain product;
+  mesh     several ranks, each a process, all on the one card (a `mesh` line
+           says so): (a) 4 serving ranks over gloo map the index phase's
+           bf16 and int8 indexes (saved by it; built here when the phase
+           runs alone) and each puts its quarter of every bucket on cuda:0;
+           with each rank's counts at 0, a single bf16 fused query (k=50:
+           K8 on the rank's slices, the top-k merged by an all_gather, K1 on
+           the candidates the rank owns, each pair with its query's pool
+           diameter from a MIN and a MAX all_reduce, the scores merged by a
+           SUM all_reduce), a batch of 32 on int8 (k=64: K7) and a pool
+           ranking of 8 x 512 ids (K1); held to the one-process answers on
+           the same index (ids where the scores are apart, first stage 1e-3
+           + 2e-4 relative, OT 1e-2 + 5e-3 relative); ms a query on rank 0's
+           host clock, scan, merge and rerank apart, the bytes each
+           collective carries; (b) 3 data ranks over gloo train the train
+           phase's flagship (BERT-base width, [10, 3, 512], bf16 over f32
+           parameters, Adam), each rank 10 of the window's 30 rows: the first
+           step's loss and gradient norms against one process (1e-2, 5%),
+           three steps through K5a, K5b, K6, K4, K1's loop-only mode and a
+           dev check (K2, K3), the ranks' parameters equal bit for bit after
+           them, step ms and peak memory a rank; (c) one step in this process
+           as a world of one over NCCL, held to the same first step;
   train    full-width BERT-base ts+otAspire model (sbalisentbienc, bf16 over
            f32 parameters, weights from a numpy seed): the first step's loss
            and gradient norms through the kernels against the plain path fed
@@ -516,6 +540,20 @@ def case_attention_dropout(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
         ..., :len(cols)] != 0                 # a probability can underflow bf16
     if not torch.equal(got_keep & probs_pos, want_keep & probs_pos):
         raise AssertionError("attention_dropout: kernel mask != philox mask")
+    # a data rank's planes: counted from plane0 (its first example x heads)
+    plane0 = b * nh
+    keep_o = ak.attention_keep_mask(q.shape, p, seed=seed, site=site,
+                                    device=dev, plane0=plane0)
+    probe_o = ak.fused_attention(q, k, eye, torch.zeros_like(bias), scale, p,
+                                 seed=seed, site=site, plane0=plane0)
+    if not torch.equal((probe_o[..., :len(cols)] != 0) & probs_pos,
+                       keep_o[..., :len(cols)] & probs_pos) \
+            or torch.equal(keep_o, keep):
+        raise AssertionError("attention_dropout: kernel mask != philox mask "
+                             "at plane0")
+    res_o = check_close("attention_dropout (plane0)", ak.fused_attention(
+        q, k, v, bias, scale, p, seed=seed, site=site, plane0=plane0),
+        ak.fused_attention_plain(q, k, v, bias, scale, p, keep_o), atol=tol)
     keep_rate = float(keep.float().mean())
     if keep.numel() >= 10 ** 7 and abs(keep_rate - (1 - p)) > 1e-3:
         raise AssertionError(f"attention_dropout: keep rate {keep_rate}")
@@ -530,7 +568,8 @@ def case_attention_dropout(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
     size = q.element_size()
     res.update(
         case=f"[{b},{nh},{t},{hd}] {str(dtype).split('.')[-1]} p={p}",
-        bits_max_abs_err=res_b["max_abs_err"], keep_rate=keep_rate,
+        bits_max_abs_err=res_b["max_abs_err"],
+        plane0_max_abs_err=res_o["max_abs_err"], keep_rate=keep_rate,
         masks_equal=True,
         kernel_ms=cuda_ms(lambda: ak.fused_attention(
             q, k, v, bias, scale, p, seed=seed, site=site)),
@@ -610,6 +649,13 @@ def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
         pad = (bias < 0)[:, None, :].expand_as(dropped)
         if not torch.equal(dv_zero | pad, dropped | pad):
             raise AssertionError("attention_bwd: backward mask != forward mask")
+        # a data rank's planes, counted from plane0
+        keep_o = ak.attention_keep_mask(q.shape, p, seed=seed, site=site,
+                                        device=dev, plane0=b * nh)
+        compare("philox plane0", grads(lambda q_, k_, v_: ak.fused_attention(
+            q_, k_, v_, bias, scale, p, seed=seed, site=site, plane0=b * nh)),
+            grads(lambda q_, k_, v_: ak.fused_attention_plain(
+                q_, k_, v_, bias, scale, p, keep_o)), grads_f32(keep_o))
         bits = _random_bits((b, nh, t, t), 31 + t, dev)
         keep_b = ak.attention_keep_mask(q.shape, p, rng_bits=bits)
         compare("bits", grads(lambda q_, k_, v_: ak.fused_attention(
@@ -725,6 +771,17 @@ def case_dropout(rows, h, dtype, dev, p=0.1, site=7) -> dict:
         raise AssertionError("dropout: same seed, different output")
     if torch.equal(out.detach(), dk.fused_dropout(x, p, seed=seed, site=site + 1)):
         raise AssertionError("dropout: other site, same mask")
+    # a data rank's rows: the Philox rows counted from row0, forward and back
+    row0 = 3 * rows
+    keep_o = dk.keep_mask(x.shape, p, seed=seed, site=site, device=dev,
+                          row0=row0)
+    xr = x.clone().requires_grad_(True)
+    out_o = dk.fused_dropout(xr, p, seed=seed, site=site, row0=row0)
+    out_o.backward(g)
+    if differs(out_o.detach(), dk.dropout_plain(x, keep_o, p)) \
+            or differs(xr.grad, dk.dropout_plain(g, keep_o, p)) \
+            or torch.equal(keep_o, keep):
+        raise AssertionError("dropout: kernel != plain version at row0")
     keep_rate = float(keep.float().mean())
     if keep.numel() >= 10 ** 7 and abs(keep_rate - (1 - p)) > 1e-3:
         raise AssertionError(f"dropout: keep rate {keep_rate}")
@@ -1811,7 +1868,7 @@ def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5) -> dict:
             t = time.perf_counter()
             _, d = score_buckets_batched(buckets, q, q_lens, k, scan=scan)
             t = lap("scan", t)
-            emb, cl, _ = _gather_candidates(buckets, *pos, d.reshape(-1), 20)
+            emb, cl, _, _ = _gather_candidates(buckets, *pos, d.reshape(-1), 20)
             t = lap("gather", t)
             qt = _tile_queries(q, q_lens, k)
             diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
@@ -1823,10 +1880,12 @@ def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5) -> dict:
 
 
 def build_large_index(dev, n_docs: int, buckets=(12, 24),
-                      storages=("bfloat16", "int8")) -> dict:
+                      storages=("bfloat16", "int8"), save_dir=None) -> dict:
     """A dense-bucket index in each of `storages` of n_docs documents of
     clip(poisson(9), 3, 20) sentences of 768-d reps, built by
-    build_dense_index from numpy reps (seed 0) and put on the card."""
+    build_dense_index from numpy reps (seed 0) and put on the card (dev
+    None: left on the host); save_dir: each also saved under
+    save_dir/<storage> (the mesh phase's ranks map those files)."""
     from aspire_tpu_torch.index.dense import build_dense_index
     rng = np.random.default_rng(0)
     d = 768
@@ -1841,8 +1900,13 @@ def build_large_index(dev, n_docs: int, buckets=(12, 24),
         t0 = time.perf_counter()
         idx = build_dense_index(doc_reps, pids, buckets=buckets, dtype=name)
         host_s[f"build_{name}"] = time.perf_counter() - t0
-        big["buckets"][name] = idx.device_arrays(dev)
-        big["pos"][name] = idx.device_pos_arrays(dev)
+        if dev is not None:
+            big["buckets"][name] = idx.device_arrays(dev)
+            big["pos"][name] = idx.device_pos_arrays(dev)
+        if save_dir is not None:
+            t0 = time.perf_counter()
+            idx.save(pathlib.Path(save_dir) / name)
+            host_s[f"save_{name}"] = time.perf_counter() - t0
         big["stored"][name] = sum(a.nbytes for b in idx.buckets
                                   for a in b.values())
         del idx
@@ -1874,6 +1938,20 @@ def scan_kernel_cases(big: dict, dev) -> dict:
     return cases
 
 
+def index_query_inputs(n_docs: int, d: int = 768):
+    """The index path's queries (numpy seed 1): 32 queries of 3-16 sentences
+    padded to 16 (the first of 10), and 8 pools of 512 ids, the last 12 of
+    each a pad slot."""
+    qrng = np.random.default_rng(1)
+    q_lens = qrng.integers(3, 17, 32)
+    q_lens[0] = 10
+    q = qrng.standard_normal((32, 16, d)).astype(np.float32) * 2
+    q *= (np.arange(16)[None, :] < q_lens[:, None])[:, :, None]
+    cand = qrng.integers(0, n_docs, (8, 512)).astype(np.int32)
+    cand[:, 500:] = -1
+    return q, q_lens, cand
+
+
 def index_queries(big: dict, dev):
     """Fused queries (single bf16 at k=50, single int8 at k=64, a batch of 32
     int8 at k=64) and one pool ranking (8 queries x 512 ids, OT) through the
@@ -1886,11 +1964,7 @@ def index_queries(big: dict, dev):
                                               make_pool_rank_batched)
     n_docs, d = big["docs"], big["dim"]
     nb = len(big["buckets"]["int8"])        # a bucket size no document has is left out
-    qrng = np.random.default_rng(1)
-    q_lens_np = qrng.integers(3, 17, 32)
-    q_lens_np[0] = 10
-    q_np = qrng.standard_normal((32, 16, d)).astype(np.float32) * 2
-    q_np *= (np.arange(16)[None, :] < q_lens_np[:, None])[:, :, None]
+    q_np, q_lens_np, cand_np = index_query_inputs(n_docs, d)
     q_all = torch.from_numpy(q_np).to(dev)
     q_lens = torch.from_numpy(q_lens_np).to(dev)
     rows, later = [], []
@@ -1943,9 +2017,7 @@ def index_queries(big: dict, dev):
     drive("single int8", "int8", 1, 64, {"scan_int8": nb, "sinkhorn": 1})
     drive("batch of 32 int8", "int8", 32, 64, {"scan_int8_wide": nb, "sinkhorn": 1})
 
-    cand = torch.from_numpy(qrng.integers(0, n_docs, (8, 512)).astype(np.int32))
-    cand[:, 500:] = -1
-    cand = cand.to(dev)
+    cand = torch.from_numpy(cand_np).to(dev)
     flat = flatten_device_buckets(big["buckets"]["bfloat16"])
     pool_args = (q_all[:8], q_lens[:8], cand, *flat, *big["pos"]["bfloat16"])
     pool_kw = dict(pool_size=512, max_sents=20, agg="ot", temp=5000.0)
@@ -2021,15 +2093,17 @@ def index_f32_query(dev, n_docs: int = 20_000) -> dict:
     return out
 
 
-def phase_index(dev, layers: int, encode_docs: int, index_docs: int) -> tuple:
+def phase_index(dev, layers: int, encode_docs: int, index_docs: int,
+                save_dir=None) -> tuple:
     """The path from a corpus to an answered query.  The large index is built
-    and the scan kernels are held against their plain versions first; then the
-    counts are set to 0, the path is driven (encode -> indexes -> queries) and
-    the counts are read; the plain route's runs and the float32 index's check
-    query come after that."""
+    (and saved under save_dir for the mesh phase) and the scan kernels are
+    held against their plain versions first; then the counts are set to 0,
+    the path is driven (encode -> indexes -> queries) and the counts are
+    read; the plain route's runs and the float32 index's check query come
+    after that."""
     from aspire_tpu_torch.models.bert import BertConfig
     torch.cuda.empty_cache()
-    big = build_large_index(dev, index_docs)
+    big = build_large_index(dev, index_docs, save_dir=save_dir)
     cases = scan_kernel_cases(big, dev)
     reset_counts()
     index_encode(BertConfig(num_hidden_layers=layers), dev, encode_docs)
@@ -3133,6 +3207,419 @@ def phase_checks(dev) -> tuple:
     return main
 
 
+# ----------------------------------------------------------------------- mesh
+MESH_SHARDS = 4        # serving ranks of the mesh phase, sharing cuda:0 over gloo
+MESH_DATA = 3          # data ranks: the flagship's micro batch of 3, one row a rank
+
+
+def _collective_bytes(bsz: int, k: int, d: int, shards: int) -> dict:
+    """What a sharded fused query's collectives carry, from its shapes: the
+    merge's all_gather of each rank's [B, k] f32 scores and int32 ids (the
+    gathered block), the pool diameter's MIN and MAX all_reduce of [B, d] f32
+    boxes, the scores' SUM all_reduce of [B, k] f32."""
+    return {"merge_all_gather": shards * bsz * k * 8,
+            "diameter_all_reduce": 2 * bsz * d * 4,
+            "scores_all_reduce": bsz * k * 4}
+
+
+def _mesh_stage_ms(mesh, buckets, pos, q, q_lens, k, calls: int = 5) -> dict:
+    """A sharded fused query's stages run apart on this rank, a synchronise
+    and a barrier after each: this rank's scan, the merge, then the gather,
+    pool diameter, K1 on the owned pairs and the scores' all_reduce."""
+    import torch.distributed as dist
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.index.dense import (_merge_sharded_topk,
+                                              score_buckets_batched)
+    from aspire_tpu_torch.index.serve import (_gather_candidates,
+                                              _mesh_pool_diameter, _on_owned,
+                                              _sum_over_shards, _tile_queries)
+    from aspire_tpu_torch.ops.distances import wasserstein_dist
+    marks = {"scan": [], "merge": [], "rerank": []}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        dist.barrier()
+        marks[name].append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    def ot(qt, cands, diam):
+        return wasserstein_dist(qt, cands, temp=5000.0, return_pair_sims=True,
+                                solver="kernel", diameter_value=diam)[0]
+
+    bsz = q.shape[0]
+    for _ in range(calls):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            v, d = score_buckets_batched(buckets, q, q_lens, k)
+            t = lap("scan", t)
+            v, d = _merge_sharded_topk(v, d, k, mesh)
+            t = lap("merge", t)
+            emb, cl, owned, valid = _gather_candidates(
+                buckets, *pos, d.reshape(-1), 20, mesh)
+            diam = _mesh_pool_diameter(q, emb.reshape(bsz, k, 20, -1),
+                                       owned.reshape(bsz, k),
+                                       valid.reshape(bsz, k), mesh)
+            s = _on_owned(ot, _tile_queries(q, q_lens, k), MultiVec(emb, cl),
+                          owned, diam.repeat_interleave(k))
+            _sum_over_shards(s.reshape(bsz, k), mesh)
+            lap("rerank", t)
+    return {f"{name}_ms": statistics.median(v) for name, v in marks.items()}
+
+
+def mesh_serve_rank(index_dir: str, n_docs: int) -> dict:
+    """One serving rank of the mesh phase: its slice of the index phase's
+    bf16 and int8 indexes on its device, then -- with the counts set to 0 --
+    a single bf16 fused query (k=50: K8, K1), a batch of 32 int8 (k=64: K7,
+    K1) and a pool ranking of 8 queries x 512 ids (K1), each sharded; then
+    the same timed, and the stages apart.  Returns answers, counts, times."""
+    import torch.distributed as dist
+    from aspire_tpu_torch.index.dense import (DenseBucketIndex,
+                                              flatten_device_buckets)
+    from aspire_tpu_torch.index.serve import (make_fused_query,
+                                              make_fused_query_batched,
+                                              make_pool_rank_batched)
+    from aspire_tpu_torch.parallel.mesh import make_serving_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(MESH_SHARDS)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    args = {}
+    for storage in ("bfloat16", "int8"):
+        idx = DenseBucketIndex.load(pathlib.Path(index_dir) / storage,
+                                    mmap=True)
+        args[storage] = (flatten_device_buckets(idx.device_arrays(mesh=mesh)),
+                         idx.device_pos_arrays(mesh=mesh))
+        nb = len(idx.buckets)
+        del idx
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    q_np, q_lens_np, cand_np = index_query_inputs(n_docs)
+    q, q_lens = (torch.from_numpy(x).to(dev) for x in (q_np, q_lens_np))
+    cand = torch.from_numpy(cand_np).to(dev)
+    kw = dict(max_sents=20, temp=5000.0, mesh=mesh)
+    calls = {
+        "single bf16": lambda: make_fused_query(nb, k=50, **kw)(
+            q[0], q_lens[0], *args["bfloat16"][0], *args["bfloat16"][1]),
+        "batch of 32 int8": lambda: make_fused_query_batched(
+            nb, k=64, int8=True, **kw)(q, q_lens, *args["int8"][0],
+                                       *args["int8"][1]),
+        "pool rank": lambda: make_pool_rank_batched(
+            nb, pool_size=512, agg="ot", **kw)(
+                q[:8], q_lens[:8], cand, *args["bfloat16"][0],
+                *args["bfloat16"][1])}
+    for fn in calls.values():                   # warm-up, not counted
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    answers = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dist.barrier()
+    times = {}
+    for name, fn in calls.items():
+        times[name], _ = _host_ms(fn)
+        dist.barrier()
+    stages = {"single bf16": _mesh_stage_ms(mesh, _unflat(args["bfloat16"][0], nb),
+                                            args["bfloat16"][1], q[:1],
+                                            q_lens[:1], 50),
+              "batch of 32 int8": _mesh_stage_ms(mesh, _unflat(args["int8"][0], nb,
+                                                               True),
+                                                 args["int8"][1], q, q_lens, 64)}
+    out = {name: tuple(x.cpu().numpy() for x in (a if isinstance(a, tuple)
+                                                  else (a,)))
+           for name, a in answers.items()}
+    return {"answers": out, "counts": counts, "ms": times, "stages": stages,
+            "load_s": load_s, "device": str(dev), "backend": mesh.backend,
+            "peak_memory_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+
+
+def _unflat(flat, nb: int, int8: bool = False):
+    from aspire_tpu_torch.index.dense import _unflatten_buckets
+    return _unflatten_buckets(flat, nb, int8)
+
+
+def _first_step_check(model, trainer, state, superbatch, seed: int, n_micro,
+                      mesh) -> tuple:
+    """The first step's loss and gradient norms as train_step computes them
+    (on a mesh: summed over the ranks), without taking the step."""
+    from aspire_tpu_torch.parallel.mesh import all_reduce
+    kw = {} if mesh is None else {"mesh": mesh, "n_micro": n_micro}
+    sb = trainer.place(superbatch)
+    loss, losses = model.train_loss_grouped(
+        sb, torch.Generator().manual_seed(seed), True, **kw)
+    loss.backward()
+    if mesh is not None:
+        trainer._sum_grads(state.optimizer)
+        losses = all_reduce(losses.detach(), mesh)
+    norms = _group_norms(model)
+    state.optimizer.zero_grad(set_to_none=True)
+    return float(losses.detach().sum()), norms
+
+
+def _param_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+MESH_TRAIN_SEED = 11
+
+
+def mesh_train_steps(layers: int):
+    """The flagship's superbatches [10, 3, 512] of three steps, its run
+    config (a dev check after the third step) and its dev batch of 3."""
+    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
+    from aspire_tpu_torch.models.bert import BertConfig
+    cfg = BertConfig(num_hidden_layers=layers)
+    steps = [synth_superbatch(300 + i, 10, 3, 512, 20, cfg.vocab_size)
+             for i in range(3)]
+    dev_sb = synth_superbatch(400, 1, 3, 512, 20, cfg.vocab_size, neg=True)
+    dev_batch = {k: {n: a[0] for n, a in v.items()} for k, v in dev_sb.items()}
+    tp = TrainHParams(batch_size=3, accumulated_batch_size=30,
+                      update_rule="adam", learning_rate=2e-5,
+                      lr_decay_method="warmuplin", num_warmup_steps=20,
+                      train_size=3000, es_check_every=30)
+    return cfg, steps, tp, dev_batch
+
+
+def mesh_train_rank(layers: int, run_dir: str) -> dict:
+    """One data rank of the mesh phase: the flagship model (weights from
+    seed 0) replicated from rank 0; the first step's loss and gradient
+    norms; then, with the counts set to 0, Trainer.train for three steps
+    (one wide encode of this rank's 10 of the window's 30 rows a side, a dev
+    check after the third), each step's host milliseconds and this rank's
+    peak memory.  Returns those and a digest of the parameters."""
+    from aspire_tpu_torch.core.config import RunConfig
+    from aspire_tpu_torch.parallel.mesh import make_mesh
+    from aspire_tpu_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MESH_DATA)
+    cfg, steps, tp, dev_batch = mesh_train_steps(layers)
+    hp, model = flagship(cfg, mesh.device)
+    trainer = Trainer(model, RunConfig(model=hp, train=tp), run_dir,
+                      fused_accum=True, mesh=mesh)
+    state = trainer.init_state()
+    first = _first_step_check(model, trainer, state, steps[0], MESH_TRAIN_SEED,
+                              10, mesh)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    marks, counts = [], []
+    reset_counts()
+    state = trainer.train(state, _timed(steps, marks, counts),
+                          dev_batches_fn=lambda: [dev_batch],
+                          seed=MESH_TRAIN_SEED)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts.append(read_counts())
+    return {"first_step": first, "counts": counts[-1],
+            "per_step": [{k: b[k] - a[k] for k in a if b[k] != a[k]}
+                         for a, b in zip(counts[:-1], counts[1:])],
+            "step_ms": [(b - a) * 1e3 for a, b in zip(marks[:-1], marks[1:])],
+            "losses": trainer.loss_history, "dev": trainer.dev_score_history,
+            "steps": state.step, "digest": _param_digest(model),
+            "peak_memory_mb": torch.cuda.max_memory_allocated(mesh.device)
+            / 2 ** 20, "device": str(mesh.device), "backend": mesh.backend,
+            "n_params": sum(p.numel() for p in model.parameters())}
+
+
+def phase_mesh(dev, index_dir, index_docs: int, layers: int) -> dict:
+    """Several ranks on the one card: (a) 4 serving ranks over gloo, sharing
+    cuda:0, on the index phase's 125,000-document indexes, held to the
+    one-process fused queries and pool ranking on the same index; (b) 3 data
+    ranks over gloo training the flagship at BERT-base width, held to the
+    one-process first step and to each other after three steps; (c) one
+    step in this process as a world of one over NCCL.  The launch counts of
+    (a) and (b) are each rank's (set to 0 before its run, read after) and
+    are summed here; (c)'s are this process's."""
+    import tempfile
+    import torch.distributed as dist
+    from aspire_tpu_torch.core.config import RunConfig
+    from aspire_tpu_torch.index.dense import (DenseBucketIndex,
+                                              flatten_device_buckets)
+    from aspire_tpu_torch.index.serve import (make_fused_query,
+                                              make_fused_query_batched,
+                                              make_pool_rank_batched)
+    from aspire_tpu_torch.parallel.mesh import (initialize_multihost,
+                                                make_mesh, run_ranks)
+    from aspire_tpu_torch.train.trainer import Trainer
+    emit("mesh", card=CARD, serve={"ranks": MESH_SHARDS, "backend": "gloo",
+                                   "devices": "cuda:0 for every rank"},
+         train={"ranks": MESH_DATA, "backend": "gloo",
+                "devices": "cuda:0 for every rank"},
+         nccl={"ranks": 1, "backend": "nccl", "devices": "cuda:0"},
+         note="the ranks share one card: NCCL across cards, P2P and NVLink "
+              "are not exercised")
+    launches = {name: 0 for name in counters()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        if index_dir is None:
+            index_dir = tmp
+            build_large_index(None, index_docs, save_dir=index_dir)
+        t0 = time.perf_counter()
+        served = run_ranks(mesh_serve_rank, MESH_SHARDS, str(index_dir),
+                           index_docs, device="cuda", backend="gloo",
+                           colocate=True)
+        serve_s = time.perf_counter() - t0
+        # the one-process answers on the same index, through the kernels
+        q_np, q_lens_np, cand_np = index_query_inputs(index_docs)
+        q, q_lens = (torch.from_numpy(x).to(dev) for x in (q_np, q_lens_np))
+        cand = torch.from_numpy(cand_np).to(dev)
+        single = {}
+        for storage in ("bfloat16", "int8"):
+            idx = DenseBucketIndex.load(pathlib.Path(index_dir) / storage,
+                                        mmap=True)
+            flat = flatten_device_buckets(idx.device_arrays(dev))
+            pos = idx.device_pos_arrays(dev)
+            nb = len(idx.buckets)
+            kw = dict(max_sents=20, temp=5000.0)
+            if storage == "bfloat16":
+                single["single bf16"] = tuple(
+                    x[None] for x in make_fused_query(nb, k=50, **kw)(
+                        q[0], q_lens[0], *flat, *pos))
+                single["pool rank"] = make_pool_rank_batched(
+                    nb, pool_size=512, agg="ot", **kw)(q[:8], q_lens[:8], cand,
+                                                        *flat, *pos)
+            else:
+                single["batch of 32 int8"] = make_fused_query_batched(
+                    nb, k=64, int8=True, **kw)(q, q_lens, *flat, *pos)
+            del idx, flat, pos
+        torch.cuda.empty_cache()
+    for r in served[1:]:
+        for name, got in r["answers"].items():
+            for a, b in zip(got, served[0]["answers"][name]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"mesh: ranks answer {name} apart")
+    check = {}
+    for name in ("single bf16", "batch of 32 int8"):
+        got = tuple(torch.from_numpy(np.atleast_2d(x))
+                    for x in served[0]["answers"][name])
+        want = tuple(x.cpu() for x in single[name])
+        check[name] = compare_answers(f"mesh {name}", got, want)
+    live = cand_np >= 0
+    got_pool = served[0]["answers"]["pool rank"][0]
+    check["pool rank"] = check_close(
+        "mesh pool rank", torch.from_numpy(got_pool[live]),
+        single["pool rank"].cpu()[torch.from_numpy(live)], atol=1e-2, rtol=5e-3)
+    if not (got_pool[~live] == -1e30).all():
+        raise AssertionError("mesh pool rank: a pad slot scored")
+    for r in served:
+        for k, v in r["counts"].items():
+            launches[k] += v
+    per_query = {name: {"ms": served[0]["ms"][name], "batch": b, "k": k,
+                        "collective_bytes": _collective_bytes(b, k, 768,
+                                                              MESH_SHARDS)}
+                 for name, b, k in (("single bf16", 1, 50),
+                                    ("batch of 32 int8", 32, 64))}
+    per_query["pool rank"] = {"ms": served[0]["ms"]["pool rank"], "batch": 8,
+                              "pool": 512, "collective_bytes": {
+                                  "scores_all_reduce": 8 * 512 * 4}}
+    for name, stages in served[0]["stages"].items():
+        per_query[name].update(stages)
+        per_query[name]["ms_a_query"] = (per_query[name]["ms"]["warm_ms"]
+                                         / per_query[name]["batch"])
+    emit("mesh_serve", card=CARD, ranks=MESH_SHARDS, backend="gloo",
+         docs=index_docs, seconds=serve_s, load_s=[r["load_s"] for r in served],
+         queries=per_query, sharded_against_one_process=check,
+         launches_per_rank=[{k: v for k, v in r["counts"].items() if v}
+                            for r in served],
+         peak_memory_mb=[r["peak_memory_mb"] for r in served],
+         host_clock="rank 0's")
+
+    # (b) data-parallel training
+    cfg, steps, tp, _ = mesh_train_steps(layers)
+    with tempfile.TemporaryDirectory(prefix="mesh_run_") as run_dir:
+        t0 = time.perf_counter()
+        trained = run_ranks(mesh_train_rank, MESH_DATA, layers, run_dir,
+                            device="cuda", backend="gloo", colocate=True)
+        train_s = time.perf_counter() - t0
+        saved = sorted(p.name for p in pathlib.Path(run_dir).iterdir())
+    hp, model = flagship(cfg, dev)
+    trainer = Trainer(model, RunConfig(model=hp, train=tp), tempfile.mkdtemp(),
+                      fused_accum=True)
+    state = trainer.init_state()
+    want = _first_step_check(model, trainer, state, steps[0], MESH_TRAIN_SEED,
+                             10, None)
+    tol = STEP_TOL[torch.bfloat16]
+    digests = {r["digest"] for r in trained}
+    for r in trained:
+        loss, norms = r["first_step"]
+        worst = max(abs(norms[g] - want[1][g]) / want[1][g] for g in want[1])
+        if abs(loss - want[0]) > tol["loss_rel"] * abs(want[0]) \
+                or not worst <= tol["grad_norm_rel"]:
+            raise AssertionError(f"mesh train: first step {loss}, norms off by "
+                                 f"{worst}, against one process {want[0]}")
+        if r["steps"] != 3 or len(r["dev"]) != 1 or not all(
+                math.isfinite(x) for x in r["losses"] + r["dev"]):
+            raise AssertionError(f"mesh train: {r['steps']} steps, losses "
+                                 f"{r['losses']}, dev {r['dev']}")
+    if len(digests) != 1:
+        raise AssertionError("mesh train: the ranks' parameters differ after "
+                             "three steps")
+    if not {"metrics.jsonl", "model_cur_best.pt", "model_final.pt",
+            "run_info.json"} <= set(saved):
+        raise AssertionError(f"mesh train: rank 0 wrote {saved}")
+    for r in trained:
+        for k, v in r["counts"].items():
+            launches[k] += v
+    n_params = trained[0]["n_params"]
+    rel = max(abs(r["first_step"][0] - want[0]) / abs(want[0]) for r in trained)
+    emit("mesh_train", card=CARD, ranks=MESH_DATA, backend="gloo",
+         model="sbalisentbienc l2wasserstein", dtype="bfloat16", layers=layers,
+         superbatch=[10, 3, 512], rows_a_rank=10, seconds=train_s,
+         step_ms=[r["step_ms"] for r in trained],
+         peak_memory_mb=[r["peak_memory_mb"] for r in trained],
+         first_step_loss=[r["first_step"][0] for r in trained],
+         one_process_first_step_loss=want[0], loss_rel_err=rel, tolerance=tol,
+         params_equal_after_3_steps=True, run_dir_files=saved,
+         launches_per_rank_per_step=[r["per_step"] for r in trained],
+         collective_bytes_a_step={"gradient_all_reduce": 4 * n_params},
+         losses=trained[0]["losses"], dev_score=trained[0]["dev"])
+    del model, trainer, state
+    torch.cuda.empty_cache()
+
+    # (c) one step at a world of one over NCCL, in this process
+    with tempfile.TemporaryDirectory(prefix="mesh_nccl_") as tmp:
+        initialize_multihost("file://" + tmp + "/rendezvous", 1, 0,
+                             backend="nccl", device="cuda")
+        try:
+            mesh = make_mesh(1)
+            hp, model = flagship(cfg, dev)
+            trainer = Trainer(model, RunConfig(model=hp, train=tp), tmp,
+                              fused_accum=True, mesh=mesh)
+            state = trainer.init_state()
+            got = _first_step_check(model, trainer, state, steps[0],
+                                    MESH_TRAIN_SEED, 10, mesh)
+            base = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = trainer.train_step(state, trainer.place(steps[0]),
+                                        torch.Generator().manual_seed(
+                                            MESH_TRAIN_SEED), 10)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            for k, v in read_counts().items():
+                launches[k] += v - base[k]
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    worst = max(abs(got[1][g] - want[1][g]) / want[1][g] for g in want[1])
+    if backend != "nccl" or abs(got[0] - want[0]) > tol["loss_rel"] * abs(want[0]) \
+            or not worst <= tol["grad_norm_rel"] \
+            or not bool(torch.isfinite(losses).all()) or state.step != 1:
+        raise AssertionError(f"mesh nccl: {backend}, loss {got[0]} against "
+                             f"{want[0]}, norms off by {worst}")
+    emit("mesh_nccl", card=CARD, backend=backend, world=1, step_ms=step_ms,
+         first_step_loss=got[0], one_process_first_step_loss=want[0],
+         grad_norm_rel_worst=worst)
+    return launches
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -3179,6 +3666,8 @@ PATH_KERNELS = {
     "families": ("sinkhorn", "attention", "ffn", "pool"),
     "checks": ("attention_dropout", "attention_bwd", "dropout", "sinkhorn",
                "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
+    "mesh": ("sinkhorn", "scan_bf16", "scan_int8_wide", "attention_dropout",
+             "attention_bwd", "dropout", "pool", "attention", "ffn"),
 }
 
 
@@ -3191,6 +3680,12 @@ def timed(phase: str, fn, *args):
 
 
 def run(args) -> dict:
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return _run(args, tmp)
+
+
+def _run(args, tmp: str) -> dict:
     dev = torch.device("cuda", 0)
     # references and scoring run in full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3212,11 +3707,17 @@ def run(args) -> dict:
         launches["train"] = timed("train", phase_train, dev, args.train_layers)
         launches["train_f32"] = timed("train_f32", phase_train_f32, dev,
                                       args.train_layers)
+    index_dir = None
     if args.phases in ("all", "index"):
+        if args.phases == "all":
+            index_dir = pathlib.Path(tmp) / "index"     # the mesh phase's
         scan_cases, launches["index"] = timed(
             "index", phase_index, dev, args.layers, args.encode_docs,
-            args.index_docs)
+            args.index_docs, index_dir)
         cases.update(scan_cases)
+    if args.phases in ("all", "mesh"):
+        launches["mesh"] = timed("mesh", phase_mesh, dev, index_dir,
+                                 args.index_docs, args.train_layers)
     if args.phases in ("all", "eval"):
         found, launches["eval"] = timed("eval", phase_eval, dev)
         add(found)
@@ -3273,7 +3774,7 @@ def main() -> int:
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
                         choices=("all", "index", "kernels", "eval", "chain",
-                                 "families", "checks"),
+                                 "families", "checks", "mesh"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
@@ -3282,7 +3783,9 @@ def main() -> int:
                              "data pipeline's two-model chain alone; "
                              "'families' the examples and the RoBERTa / MPNet "
                              "baselines alone; 'checks' the convergence and "
-                             "int8 checks alone")
+                             "int8 checks alone; 'mesh' the several-rank "
+                             "paths alone (sharded serving, data-parallel "
+                             "training, a world of one over NCCL)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

@@ -257,12 +257,15 @@ def test_dropout_sites_dtypes_and_attention_sites(rng, monkeypatch):
     hidden, attention = [], []
     real_dropout, real_attention = tb.fused_dropout, tb.fused_attention
 
-    def spy_dropout(x, p, *, seed, site):
+    def spy_dropout(x, p, *, seed, site, row0=0):
         hidden.append((site, x.dtype, p, seed))
+        assert row0 == 0
         return real_dropout(x, p, seed=seed, site=site)
 
-    def spy_attention(q, k, v, bias, scale, p=0.0, *, seed=None, site=0):
+    def spy_attention(q, k, v, bias, scale, p=0.0, *, seed=None, site=0,
+                      plane0=0):
         attention.append((site, p, seed))
+        assert plane0 == 0
         return real_attention(q, k, v, bias, scale, p, seed=seed, site=site)
 
     monkeypatch.setattr(tb, "fused_dropout", spy_dropout)

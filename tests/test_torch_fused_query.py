@@ -47,14 +47,15 @@ def test_gather_candidates_matches_jax_with_pad_ids(rng, dtype):
     j, t = _indexes(rng, 30, dtype)
     ids = np.array([4, -1, 29, 0, -1, 17, 4], np.int32)
     for max_sents in (MS, 3):
-        emb_w, cl_w, _, valid_w = jserve._gather_candidates(
+        emb_w, cl_w, owned_w, valid_w = jserve._gather_candidates(
             j.device_arrays(), *j.device_pos_arrays(), jnp.asarray(ids), max_sents)
-        emb, cl, valid = tserve._gather_candidates(
+        emb, cl, owned, valid = tserve._gather_candidates(
             t.device_arrays("cpu"), *t.device_pos_arrays("cpu"),
             torch.from_numpy(ids), max_sents)
         np.testing.assert_array_equal(emb.numpy(), np.asarray(emb_w))
         np.testing.assert_array_equal(cl.numpy(), np.asarray(cl_w))
         np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_w))
+        np.testing.assert_array_equal(owned.numpy(), np.asarray(owned_w))
         assert (emb[1] == 0).all() and (emb[4] == 0).all()   # not the last doc
         host = t.gather_doc_reps(ids, max_sents, device="cpu")
         np.testing.assert_array_equal(emb.numpy(), host.embed.numpy())

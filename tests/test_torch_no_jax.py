@@ -1,9 +1,10 @@
 """The port stands alone: importing `aspire_tpu_torch` and every submodule
 pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, tokenizers,
 regex, pandas, h5py, safetensors or aspire_tpu module, and needs neither nvcc
-nor triton; `chip_smoke.py`, the port's benchmark scripts, its chain and
-int8 scripts (scripts/torch_*.py) and examples (examples/*_torch.py) import
-none of them either
+nor triton; `chip_smoke.py`, the port's benchmark scripts, its chain,
+int8, 1M-document serving and several-machine worker scripts
+(scripts/torch_*.py) and examples (examples/*_torch.py) import none of them
+either
 (h5py only inside `SimilarityModel.set_encodings_cache`, which the card's
 machine never calls: it has no h5py)."""
 import ast
@@ -57,7 +58,8 @@ must = {"aspire_tpu_torch.core.types", "aspire_tpu_torch.ops.cdist",
         "aspire_tpu_torch.data.gorc", "aspire_tpu_torch.data.corpus",
         "aspire_tpu_torch.data.mix", "aspire_tpu_torch.data.ner",
         "aspire_tpu_torch.data.align", "aspire_tpu_torch.utils.profiling",
-        "aspire_tpu_torch.text.bpe", "aspire_tpu_torch.models.mpnet"}
+        "aspire_tpu_torch.text.bpe", "aspire_tpu_torch.models.mpnet",
+        "aspire_tpu_torch.parallel", "aspire_tpu_torch.parallel.mesh"}
 assert must <= set(names), must - set(names)
 print("IMPORTED", len(names))
 """
