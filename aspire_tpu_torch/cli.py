@@ -169,9 +169,10 @@ def _train(args, mesh):
             cfg.model, hidden_dropout_impl=args.hidden_dropout_impl)
     if args.ffn_impl:
         cfg.model = dataclasses.replace(cfg.model, ffn_impl=args.ffn_impl)
-    torch.manual_seed(args.seed)
+    # Flax's initial weights from a CPU generator seeded with --seed (a
+    # checkpoint's weights overwrite the encoder's below)
     model = build_model(cfg.model, bert_config, dtype=compute_dtype,
-                        device=device)
+                        device=device, seed=args.seed)
     if ckpt is not None:
         for bert in _bert_modules(model):
             bert.load_state_dict(ckpt.bert_state_dict())

@@ -45,6 +45,18 @@
 // template: 2, 4, ... 32), potentials in registers (in shared memory they made
 // the rounds 43% slower: the reads join each round's chain), accurate expf /
 // logf.  Pairs a block: four, or as many as fit 227 KB.
+//
+// Every other pair (a side past 1024 atoms, or a cost past one block's shared
+// memory: 240 x 240 and up, a query against a full-text document):
+// sinkhorn_large_kernel, one block of 1024 threads a pair.  The cost stays in
+// global memory, where L2 holds it, and is read at every half-round: the rows
+// of cost for f, the rows of its transpose (a copy the wrapper makes) for g,
+// so that both softmins read contiguous memory.  One warp a softmin, each
+// lane an online (max, sum) of base-2 exponentials (ex2.approx / lg2.approx,
+// log2(e) folded into 1 / eps, as the small kernel, and the sum's log divided
+// by that same factor) merged by butterfly shuffles; f, g and h of both sides in shared memory, 8 (n + m) bytes (so
+// n + m up to 29,056 atoms).  Same schedule, trip count and rounds as the
+// other two.
 #include <math.h>
 
 #include "common.cuh"
@@ -336,7 +348,123 @@ int launch_wide(const float* cost, const float* log_a, const float* log_b, const
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- large pairs
+constexpr int kLargeThreads = 1024;
+
+// -log2 sum_k 2^(h2[k] - c[k] inv2) / inv2 over `count` terms, by one warp:
+// lane l an online (max, sum) over k = l, l + 32, ..., then a butterfly merge
+// (every lane ends with the same value).  Dividing by the inv2 that scaled the
+// terms, rather than multiplying by eps ln 2, keeps the rounding of inv2 from
+// scaling every potential alike: at blur 0.05 that common factor (5e-8) put
+// the OT scores of a 300 x 1,200 pair 6e-3 from f64, 6x the PyTorch solver.
+__device__ __forceinline__ float warp_softmin(const float* __restrict__ c, const float* h2,
+                                              int count, float inv2, int lane) {
+  float mx = -INFINITY, sum = 0.f;
+  for (int k = lane; k < count; k += 32) {
+    const float x = fmaf(-c[k], inv2, h2[k]);
+    if (x > mx) {
+      sum = sum * ex2(mx - x) + 1.f;
+      mx = x;
+    } else {
+      sum += ex2(x - mx);
+    }
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const float m2 = __shfl_xor_sync(kFull, mx, w), s2 = __shfl_xor_sync(kFull, sum, w);
+    const float top = fmaxf(mx, m2);   // a lane without terms holds (-inf, 0)
+    sum = (mx == top ? sum : sum * ex2(mx - top)) + (m2 == top ? s2 : s2 * ex2(m2 - top));
+    mx = top;
+  }
+  return -(lg2(sum) + mx) / inv2;
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+sinkhorn_large_kernel(const float* __restrict__ cost, const float* __restrict__ cost_t,
+                      const float* __restrict__ log_a, const float* __restrict__ log_b,
+                      const float* __restrict__ diam, float* __restrict__ f_out,
+                      float* __restrict__ g_out, int n, int m, float blur, float log_scaling,
+                      int max_iters, int extrapolate) {
+  extern __shared__ float smem_large[];
+  float* f = smem_large;                   // [n]
+  float* g = f + n;                        // [m]
+  float* ha = g + m;                       // log2(e) (log_a + f / eps), [n]
+  float* hb = ha + n;                      // log2(e) (log_b + g / eps), [m]
+  const int pair = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const float* cg = cost + (size_t)pair * n * m;      // [n][m]: row i is f_i's
+  const float* ctg = cost_t + (size_t)pair * n * m;   // [m][n]: row j is g_j's
+  const float* la = log_a + (size_t)pair * n;
+  const float* lb = log_b + (size_t)pair * m;
+  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
+
+  // h of both sides: the log-weights (kind 0), or from f and g at the inv2
+  // that the round's softmins take (1)
+  auto publish = [&](int kind, float inv2) {
+    for (int i = threadIdx.x; i < n + m; i += blockDim.x) {
+      const bool row = i < n;
+      const int j = row ? i : i - n;
+      const float lw2 = (row ? la[j] : lb[j]) * kLog2e;
+      (row ? ha : hb)[j] = kind == 0 ? lw2 : fmaf(row ? f[j] : g[j], inv2, lw2);
+    }
+    __syncthreads();
+  };
+  // every softmin of a round, a warp each: f_i over hb (rows of the cost),
+  // g_j over ha (rows of its transpose); kind 0 sets f and g, 1 averages, 2
+  // writes the results out
+  auto softmins = [&](int kind, float inv2) {
+    for (int item = warp; item < n + m; item += warps) {
+      const bool row = item < n;
+      const int j = row ? item : item - n;
+      const float v = row ? warp_softmin(cg + (size_t)j * m, hb, m, inv2, lane)
+                          : warp_softmin(ctg + (size_t)j * n, ha, n, inv2, lane);
+      if (lane == 0) {
+        float* p = row ? f + j : g + j;
+        if (kind == 0) *p = v;
+        else if (kind == 1) *p = 0.5f * (*p + v);
+        else (row ? f_out + (size_t)pair * n : g_out + (size_t)pair * m)[j] = v;
+      }
+    }
+    __syncthreads();
+  };
+
+  publish(0, 0.f);
+  softmins(0, (1.f / sched.eps_at(0)) * kLog2e);
+  for (int it = 0; it < sched.iters; ++it) {   // Jacobi: both sides read the old f and g
+    const float inv2 = (1.f / sched.eps_at(it)) * kLog2e;
+    publish(1, inv2);
+    softmins(1, inv2);
+  }
+  if (extrapolate) {                       // at eps = blur, again from the loop's f and g
+    const float inv2 = (1.f / blur) * kLog2e;
+    publish(1, inv2);
+    softmins(2, inv2);
+    return;
+  }
+  for (int i = threadIdx.x; i < n + m; i += blockDim.x) {
+    if (i < n) f_out[(size_t)pair * n + i] = f[i];
+    else g_out[(size_t)pair * m + i - n] = g[i - n];
+  }
+}
+
 }  // namespace
+
+// the large-pair kernel; cost_t: the cost transposed, [bsz, m, n]
+extern "C" int aspire_sinkhorn_large_f32(const float* cost, const float* cost_t,
+                                         const float* log_a, const float* log_b,
+                                         const float* diam, float* f, float* g, int bsz, int n,
+                                         int m, float blur, float log_scaling, int max_iters,
+                                         int extrapolate, void* stream) {
+  if (bsz < 1 || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  const long long smem = 8LL * ((long long)n + m);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(sinkhorn_large_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sinkhorn_large_kernel<<<bsz, kLargeThreads, (int)smem, (cudaStream_t)stream>>>(
+      cost, cost_t, log_a, log_b, diam, f, g, n, m, blur, log_scaling, max_iters, extrapolate);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const float* log_b,
                                    const float* diam, float* f, float* g, int bsz, int n,

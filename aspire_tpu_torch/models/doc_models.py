@@ -53,6 +53,7 @@ from ..ops.sinkhorn import grouped_max_diameter
 from ..parallel.mesh import all_reduce, gather_rows
 from .bert import BertConfig
 from .encoders import BiEncoder, ConSentEncoder
+from .init import init_like_flax
 
 
 # Every loss term is a sum over the batch's examples.  The helpers return the
@@ -492,18 +493,23 @@ MODEL_REGISTRY = {
 
 
 def build_model(hp: ModelHParams, bert_config: BertConfig,
-                dtype=torch.float32, device="cuda", ot_solver: str = "auto"):
+                dtype=torch.float32, device="cuda", ot_solver: str = "auto",
+                seed: int = 0):
     """Model factory keyed by the reference registries (main_fsim.py:91-99,
     main_sentsim.py -- cosentbert/ictsentbert included).  ot_solver: the
     Sinkhorn solver of the contextual-sentence models' OT distance; it is not
-    a hyperparameter, so it stays out of `hp` and of run_info.json."""
+    a hyperparameter, so it stays out of `hp` and of run_info.json.  Every
+    parameter is drawn as the JAX package's `init_params` draws it (Flax's
+    defaults, `models/init.py`), from a CPU generator seeded with `seed`."""
     registry = {**MODEL_REGISTRY, **_sent_models()}
     try:
         cls = registry[hp.model_name]
     except KeyError:
         raise ValueError(f"Unknown model: {hp.model_name}") from None
     if issubclass(cls, ConSentDocModel):
-        return cls(hp, bert_config, dtype, device, ot_solver)
-    if ot_solver != "auto":
+        model = cls(hp, bert_config, dtype, device, ot_solver)
+    elif ot_solver != "auto":
         raise ValueError(f"{hp.model_name} has no OT distance to solve")
-    return cls(hp, bert_config, dtype, device)
+    else:
+        model = cls(hp, bert_config, dtype, device)
+    return init_like_flax(model, torch.Generator().manual_seed(int(seed)))

@@ -40,8 +40,13 @@ ulp from the division.  The mask is keep = bits
 words keyed on the element's position (``ops/philox.py``).
 
 Heads narrower than 64 (``BertConfig.tiny()`` has 8) are zero-padded to 64
-columns on the way in and the output sliced back (`with_padded_heads`); heads
-wider than 64 are refused.
+columns on the way in and the output sliced back (`with_padded_heads`).  Heads
+wider than 64, up to 256, are padded to the next multiple of 64 and run
+``csrc/attention_wide.cu`` (`head_route`): the same function, forward with
+or without dropout and backward, in bf16 and f32, its products on the FP32
+lanes (f32 in true f32), its launches counted apart (``wide_launches``,
+``wide_dropout_launches``, ``wide_bwd_launches``).  Wider heads are refused
+on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 from . import _build, philox
 
 HEAD_DIM = 64   # the kernels are built for 64-wide heads; narrower ones are padded
+WIDE_MAX = 256  # the wide kernels take heads padded to 128, 192 or 256
 
 
 def fused_attention_plain(q, k, v, bias, sm_scale: float,
@@ -89,18 +95,32 @@ def attention_keep_mask(shape, dropout_p: float, *, seed=None, site: int = 0,
                                  plane0=plane0) >= thresh
 
 
+def head_route(hd: int) -> tuple:
+    """(padded width, 'narrow' or 'wide') of a head of width hd on the card:
+    up to 64 the 64-wide kernels (attention.cu, attention_bwd.cu), above it
+    the wide ones (attention_wide.cu) at the next multiple of 64, up to
+    WIDE_MAX; wider heads raise."""
+    if 1 <= hd <= HEAD_DIM:
+        return HEAD_DIM, "narrow"
+    if HEAD_DIM < hd <= WIDE_MAX:
+        return -(-hd // 64) * 64, "wide"
+    raise ValueError(f"the attention kernels take head widths 1 to {WIDE_MAX}, "
+                     f"got {hd}")
+
+
 def with_padded_heads(fn, q, k, v, *args, **kwargs):
-    """fn(q, k, v, *args) at head width HEAD_DIM for q, k, v of a narrower
-    width: the three are zero-padded to HEAD_DIM columns and the output is
+    """fn(q, k, v, *args) at the padded head width of `head_route` for q, k,
+    v of another width: the three are zero-padded to it and the output is
     sliced back.  Exact, forward and backward: zero columns add nothing to
     q.k^T (the caller's sm_scale passes through), give zero context columns,
     and the cotangent's padded columns are zero, so delta = rowsum(g * ctx)
     and the gradients of the real columns do not change; the dropout mask is
     keyed on (row, key) and does not see the width."""
     hd = q.shape[-1]
-    if hd == HEAD_DIM:
+    width = head_route(hd)[0]
+    if hd == width:
         return fn(q, k, v, *args, **kwargs)
-    padded = [F.pad(x, (0, HEAD_DIM - hd)) for x in (q, k, v)]
+    padded = [F.pad(x, (0, width - hd)) for x in (q, k, v)]
     return fn(*padded, *args, **kwargs)[..., :hd]
 
 
@@ -136,23 +156,31 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
                   plane0, stats=None):
     """stats: None, or the [3, b * nh, t] f32 tensor that receives each row's
     softmax max and sum (planes 0 and 1) for the backward."""
-    b, nh, t, _ = q.shape
+    b, nh, t, hd = q.shape
     out = torch.empty_like(q)          # keeps a dense q's strides
     strides = [*_strides(q), *_strides(k), *_strides(v), *_strides(out)]
     mode, seed, c0, thresh, plane0, keep_div, _, bits_ptr = _drop_args(
         q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
-    name = ("aspire_attention_bf16" if q.dtype == torch.bfloat16
-            else "aspire_attention_f32")
+    wide = hd > HEAD_DIM
+    name = "aspire_attention_" + ("wide_" if wide else "") + (
+        "bf16" if q.dtype == torch.bfloat16 else "f32")
+    shape = (b, nh, t, hd, (ctypes.c_longlong * 12)(*strides)) if wide \
+        else (b, nh, t, *strides)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, nh, t, *strides, float(sm_scale), mode, seed,
+            out.data_ptr(), *shape, float(sm_scale), mode, seed,
             c0, thresh, plane0, keep_div, bits_ptr,
             0 if stats is None else stats.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    if mode == 0:
+    if wide:
+        if mode == 0:
+            fused_attention.wide_launches += 1
+        else:
+            fused_attention.wide_dropout_launches += 1
+    elif mode == 0:
         fused_attention.launches += 1
     elif q.dtype == torch.float32:
         fused_attention.f32_dropout_launches += 1
@@ -165,10 +193,10 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
                    site, bits, plane0):
     """One backward.  bf16: three launches (delta, keys kernel for dk and dv,
     dq kernel), with ds^T handed between the last two through a bf16 scratch
-    allocated here and freed on return.  f32: two launches (rows kernel for
-    delta and dq, keys kernel for dk and dv).  out and stats are the
-    forward's."""
-    b, nh, t, _ = q.shape
+    allocated here and freed on return.  f32, and heads wider than 64 in
+    either dtype: two launches (rows kernel for delta and dq, keys kernel for
+    dk and dv).  out and stats are the forward's."""
+    b, nh, t, hd = q.shape
     try:
         _strides(g)
     except ValueError:
@@ -181,9 +209,11 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
         _drop_args(q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
     bf16 = q.dtype == torch.bfloat16
-    name = "aspire_attention_bwd_bf16" if bf16 else "aspire_attention_bwd_f32"
+    wide = hd > HEAD_DIM
+    name = "aspire_attention_" + ("wide_" if wide else "") + "bwd_" + (
+        "bf16" if bf16 else "f32")
     scratch = []                        # held until the launches are queued
-    if bf16:
+    if bf16 and not wide:
         tp = -(-t // 64) * 64
         scratch = [torch.empty((b * nh, tp, tp), dtype=torch.bfloat16,
                                device=q.device)]
@@ -193,11 +223,13 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
             g.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(),
             *(x.data_ptr() for x in scratch), b, nh, t,
-            (ctypes.c_longlong * 24)(*strides),
+            *((hd,) if wide else ()), (ctypes.c_longlong * 24)(*strides),
             float(sm_scale), mode, seed, c0, thresh, plane0, keep_div,
             keep_div32, bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    if bf16:                            # what the C function launches
+    if wide:                            # what the C function launches
+        fused_attention.wide_bwd_launches += 2
+    elif bf16:
         fused_attention.bwd_launches += 3
     else:
         fused_attention.f32_bwd_launches += 2
@@ -235,9 +267,10 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
     """softmax(q.k^T * sm_scale + bias) [dropout] . v with nothing
     intermediate in device memory, differentiable in q, k, v.
 
-    q, k, v: [b, nh, t, hd] bf16 or f32, hd <= 64, any batch/head/token
-    strides (views of a [b, t, nh, hd] projection are taken as they are;
-    narrower heads are padded, see `with_padded_heads`); bias: [b, t] f32
+    q, k, v: [b, nh, t, hd] bf16 or f32, hd <= 256 on a CUDA tensor (any hd
+    on the CPU), any batch/head/token strides (views of a [b, t, nh, hd]
+    projection are taken as they are; other widths than 64, 128, 192 and
+    256 are padded, see `head_route` and `with_padded_heads`); bias: [b, t] f32
     additive key mask (0 at real tokens, -1e9 at pads; it gets no gradient).
     seed: the call's 64-bit seed as a Python int; site: the layer index;
     rng_bits: optional 32-bit integer [b, nh, t, t] bits drawn by the caller
@@ -245,8 +278,8 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
     place of plane 0 (example 0, head 0) in the whole batch, a data rank's
     first example times nh, so that the ranks of a data-parallel step drop
     what one process would (ignored with rng_bits).  Returns
-    [b, nh, t, hd] in q's dtype and, for a dense 64-wide q, q's memory
-    layout.
+    [b, nh, t, hd] in q's dtype and, for a dense q of a kernel's width,
+    q's memory layout.
     CUDA tensors launch the kernels; CPU tensors run the plain version under
     ordinary autograd with the same bits.
     """
@@ -271,9 +304,7 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
                                        site=site, rng_bits=rng_bits,
                                        device=q.device, plane0=plane0)
         return fused_attention_plain(q, k, v, bias, sm_scale, dropout_p, keep)
-    if hd > HEAD_DIM:
-        raise ValueError(f"the attention kernels take head widths up to "
-                         f"{HEAD_DIM}, got {hd}")
+    head_route(hd)                      # raises past WIDE_MAX
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("q, k, v must all be bfloat16 or all float32")
@@ -292,7 +323,7 @@ def fused_attention(q, k, v, bias, sm_scale: float, dropout_p: float = 0.0,
 
 
 def _attention_cuda(q, k, v, *args):
-    """The kernels on [b, nh, t, HEAD_DIM] CUDA tensors: through the autograd
+    """The kernels on [b, nh, t, width] CUDA tensors: through the autograd
     Function when a gradient is wanted, else the forward alone."""
     for x in (q, k, v):
         _strides(x)
@@ -304,9 +335,13 @@ def _attention_cuda(q, k, v, *args):
 
 # launches of the deterministic forward (either dtype), of the forward with
 # dropout and of the backward's kernels, bf16 (three a backward: delta, keys,
-# dq) and f32 (two: rows, keys) apart
+# dq) and f32 (two: rows, keys) apart; then those of the wide kernels (heads
+# above 64, either dtype; two a backward: rows, keys)
 fused_attention.launches = 0
 fused_attention.dropout_launches = 0
 fused_attention.bwd_launches = 0
 fused_attention.f32_dropout_launches = 0
 fused_attention.f32_bwd_launches = 0
+fused_attention.wide_launches = 0
+fused_attention.wide_dropout_launches = 0
+fused_attention.wide_bwd_launches = 0

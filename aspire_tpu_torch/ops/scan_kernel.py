@@ -31,8 +31,14 @@ Without `qadd` the function is the TPU kernel (0 at valid query sentences,
 -1e30 at padded ones); with ``qadd = -|q_j|^2`` it is what the index needs.
 
 The TPU block rules (n % block_docs, D % 128, Qpad % 8) are gone: any n, any
-S, any number of query sentences up to 128 a query; the kernels need
-D % 32 == 0.
+S, any number of query sentences; the kernels need D % 32 == 0 and D <= 1024.
+A query of more sentences than a kernel's column group holds (`query_cap`:
+128, or 64 for bf16 and int8 rows wider than 864) is scored in groups of at
+most that many rows, each by the kernel (an int8 batch's groups as extra
+queries of one launch, a single query's one launch a group), and a query's
+score is the largest of its groups' (`query_groups`, `fold_groups`): exact,
+the score being a maximum over query sentences, at the price of one read of
+the bucket a group.  The CPU route groups the same way.
 """
 from __future__ import annotations
 
@@ -124,6 +130,28 @@ def int8_wide(bsz: int, qmax: int, d: int) -> bool:
     return _tiling(bsz, qmax)[0] == MAX_TILES and -(-d // K_STAGE) * K_STAGE <= 768
 
 
+def query_cap(dtype: torch.dtype, d: int) -> int:
+    """Query sentences the scan kernels score in one column group at width
+    d: 128 (16 tiles of 8 columns), or 64 for bf16 and int8 rows where a
+    group's bf16 query rows fill a block's shared memory (`_max_tiles`)."""
+    return 8 * (MAX_TILES if dtype == torch.float32 else _max_tiles(d))
+
+
+def query_groups(q: torch.Tensor, cap: int):
+    """q [B, Q, D] -> ([B * G, cap, D], G) with G = ceil(Q / cap): entry
+    b G + g holds query b's rows g cap .. + cap - 1, zero rows past Q."""
+    bsz, qn, d = q.shape
+    groups = -(-qn // cap)
+    padded = torch.nn.functional.pad(q, (0, 0, 0, groups * cap - qn))
+    return padded.reshape(bsz * groups, cap, d), groups
+
+
+def fold_groups(scores: torch.Tensor, groups: int) -> torch.Tensor:
+    """[n, B * G] scores of `query_groups`' entries -> [n, B]: a query's
+    score is the largest of its groups'."""
+    return scores.reshape(scores.shape[0], -1, groups).amax(dim=2)
+
+
 @functools.lru_cache(maxsize=None)
 def int8_k_order(dp: int, device: str = "cpu") -> torch.Tensor:
     """The int8 kernel's k order, for a width dp (a multiple of 64): position
@@ -158,15 +186,17 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
         raise ValueError(f"the scan kernel takes a width that is a multiple "
                          f"of 32 up to {MAX_DIM}, got {d}")
     if qmax < 1 or qmax > 8 * MAX_TILES:
-        raise ValueError(f"the scan kernel takes 1 to {8 * MAX_TILES} query "
-                         f"sentences a query, got {qmax}")
+        raise ValueError(f"a launch of the scan kernel takes 1 to "
+                         f"{8 * MAX_TILES} query sentences a query, got {qmax} "
+                         f"(the wrappers score more in groups)")
     wide = name == "aspire_scan_int8" and int8_wide(bsz, qmax, d)
     # csrc/scan.cu's bf16 and int8 kernel keeps a group's query rows in shared
     # memory (its f32 kernel stages them in chunks)
     max_tiles = MAX_TILES if wide or sents.dtype == torch.float32 else _max_tiles(d)
     if qmax > 8 * max_tiles:
-        raise ValueError(f"the scan kernel takes up to {8 * max_tiles} query "
-                         f"sentences a query at width {d}, got {qmax}")
+        raise ValueError(f"a launch of the scan kernel takes up to "
+                         f"{8 * max_tiles} query sentences a query at width "
+                         f"{d}, got {qmax} (the wrappers score more in groups)")
     rows = (norms,) if scales is None else (norms, scales)
     if any(t.shape != (n, s) or t.dtype != torch.float32 for t in rows):
         raise ValueError("norms and scales must be float32 [n, s]")
@@ -214,15 +244,27 @@ def fused_l2max_scan(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
     sentence) of 2 q.x - |x|^2 (+ qadd); a document of pads only gives -inf
     (or -1e30 where padded query sentences exist).  CUDA tensors launch the
     kernel (bf16 rows: tensor cores; f32 rows: true-f32 FMAs); CPU tensors
-    run the plain version.
+    run the plain version.  More than `query_cap` query sentences are scored
+    in groups, one launch (or plain call) a group.
     """
+    qpad, cap = q.shape[0], query_cap(sents.dtype, sents.shape[-1])
+    if qpad > cap:
+        valid = torch.arange(qpad, device=q.device) < q_n
+        add = torch.zeros(qpad, dtype=torch.float32, device=q.device) \
+            if qadd is None else qadd.float()
+        add = torch.where(valid, add, torch.full_like(add, NEG))
+        qg, groups = query_groups(q[None], cap)
+        ag = torch.nn.functional.pad(add, (0, groups * cap - qpad),
+                                     value=NEG).reshape(groups, cap)
+        return fold_groups(torch.stack([
+            fused_l2max_scan(sents, qg[i], norms, cap, ag[i])
+            for i in range(groups)], dim=1), groups)[:, 0]
     if not sents.is_cuda:
         return fused_l2max_scan_plain(sents, q, norms, q_n, qadd)
     names = {torch.bfloat16: "aspire_scan_bf16", torch.float32: "aspire_scan_f32"}
     if sents.dtype not in names:
         raise TypeError(f"the scan kernel takes bfloat16 or float32 rows, got "
                         f"{sents.dtype}")
-    qpad = q.shape[0]
     valid = torch.arange(qpad, device=q.device) < q_n
     add = torch.zeros(qpad, dtype=torch.float32, device=q.device) \
         if qadd is None else qadd.float()
@@ -246,10 +288,18 @@ def fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens,
     of 2 scale (q.x_i8) - |x|^2 - |q_j|^2 over (sentence, valid query
     sentence), the scores of index/dense.score_buckets_batched (about -1e30 at
     padded documents, by the +inf norm fold).  CUDA tensors launch the kernel,
-    CPU tensors run the plain version.
+    CPU tensors run the plain version.  More than `query_cap` query sentences
+    are scored in groups that join the batch as extra queries.
     """
     if q.shape[1] != qmax:
         raise ValueError(f"q is {tuple(q.shape)}, qmax {qmax}")
+    cap = query_cap(sents.dtype, sents.shape[-1])
+    if qmax > cap:
+        qg, groups = query_groups(q, cap)
+        lens = (q_lens.reshape(-1, 1) - cap * torch.arange(
+            groups, device=q_lens.device)).clamp(0, cap).reshape(-1)
+        return fold_groups(fused_l2max_scan_int8_batched(
+            sents, scales, norms, qg, lens, cap), groups)
     if not sents.is_cuda:
         return fused_l2max_scan_int8_batched_plain(sents, scales, norms, q,
                                                    q_lens, qmax)

@@ -7,11 +7,16 @@ log-domain Sinkhorn with a per-pair eps schedule.  The CUDA source is
 cost, one write of the potentials -- and each pair stops after its own
 schedule length, which also removes the host-side read of the batch maximum
 that the TPU version needs.  The loop is a chain of about 85 dependent rounds,
-so at small batches its latency bounds it, not the card's rate: pairs of up
-to 32 x 32 run one block a pair with four threads a softmin, the cost in
-registers and base-2 exponentials; wider pairs (up to 1024 atoms a side, while
-the pair fits one block's shared memory: `kernel_takes`, 239 x 239 does,
-240 x 240 does not) run one warp a pair with the cost in shared memory.
+so at small batches its latency bounds it, not the card's rate.  Three
+kernels share the schedule, chosen by shape alone (`sinkhorn_route`): pairs
+of up to 32 x 32 run one block a pair with four threads a softmin, the cost in
+registers and base-2 exponentials ("small"); wider pairs up to 1024 atoms a
+side whose pair fits one block's shared memory (239 x 239 does, 240 x 240
+does not) run one warp a pair with the cost in shared memory ("wide"); every
+other pair, while f, g and h of both sides fit a block's shared memory
+(n + m <= 29,056), runs one block a pair with the cost and its transpose read
+from global memory each half-round, one warp a softmin ("large", launches
+counted apart).
 
 ``extrapolate=False`` returns the loop's own potentials, before the final
 step at eps = blur: the training loss takes that step in PyTorch, where
@@ -28,7 +33,7 @@ from .cdist import pairwise_l2
 from .sinkhorn import log_weights, resolve_diameter
 
 MAX_SMEM = 232_448   # shared memory of one block on the H100, bytes
-MAX_SIDE = 1024      # atoms a side: 32 lanes x at most 32 atoms in registers
+MAX_SIDE = 1024      # the wide kernel's atoms a side: 32 lanes x at most 32
 SMALL_SIDE = 32      # pairs up to 32 x 32 keep the cost in registers
 TABLE = 128          # rounds whose eps the small-pair kernel tabulates
 
@@ -43,16 +48,32 @@ def pair_bytes(n: int, m: int) -> int:
     return 4 * (n * (m | 1) + n + m)
 
 
-def kernel_takes(n: int, m: int) -> bool:
-    """Whether the CUDA kernel takes an n x m pair."""
-    return max(n, m) <= MAX_SIDE and pair_bytes(n, m) <= MAX_SMEM
+def large_bytes(n: int, m: int) -> int:
+    """Shared memory of the large-pair kernel: f, g and h of both sides."""
+    return 8 * (n + m)
+
+
+def sinkhorn_route(n: int, m: int) -> str:
+    """'small', 'wide' or 'large': which kernel takes an n x m pair (the first
+    two on today's conditions); raises past the large kernel's shared memory."""
+    if max(n, m) <= SMALL_SIDE:
+        return "small"
+    if max(n, m) <= MAX_SIDE and pair_bytes(n, m) <= MAX_SMEM:
+        return "wide"
+    if large_bytes(n, m) <= MAX_SMEM:
+        return "large"
+    raise ValueError(f"the Sinkhorn kernels take pairs whose potentials fit one "
+                     f"block's shared memory ({MAX_SMEM} bytes); {n} x {m} "
+                     f"needs {large_bytes(n, m)}")
 
 
 def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
                          scaling: float = 0.9, max_iters: int = 128,
                          extrapolate: bool = True):
-    """Plain PyTorch version of the kernel, same arithmetic order (it
-    multiplies by 1 / eps and takes eps from exp(k log s)).
+    """Plain PyTorch version of the kernels, same arithmetic order as the
+    small and wide ones (it multiplies by 1 / eps and takes eps from
+    exp(k log s)); the large-pair kernel divides each softmin's log-sum by
+    the factor that scaled its terms instead of multiplying it by eps.
 
     cost f32[B, n, m], log_a f32[B, n], log_b f32[B, m], diam f32[B]
     -> (f [B, n], g [B, m]): after the final step at eps = blur, or with
@@ -106,11 +127,7 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
     if not cost.is_cuda:
         return sinkhorn_solve_plain(cost, log_a, log_b, diam, blur, scaling,
                                     max_iters, extrapolate)
-    if not kernel_takes(n, m):
-        raise ValueError(f"the Sinkhorn kernel takes up to {MAX_SIDE} atoms a "
-                         f"side whose pair fits one block's shared memory "
-                         f"({MAX_SMEM} bytes); {n} x {m} needs "
-                         f"{pair_bytes(n, m)}")
+    large = sinkhorn_route(n, m) == "large"
     args = [t.detach().float().contiguous() for t in (cost, log_a, log_b, diam)]
     if any(t.device != cost.device for t in args):
         raise ValueError("all inputs must lie on the same device")
@@ -118,18 +135,26 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
     g = torch.empty((bsz, m), dtype=torch.float32, device=cost.device)
     if bsz == 0:
         return f, g
+    if large:          # g's softmins read the rows of the transpose
+        args.insert(1, args[0].transpose(1, 2).contiguous())
+    name = "aspire_sinkhorn_large_f32" if large else "aspire_sinkhorn_f32"
     lib = _build.load()
     with torch.cuda.device(cost.device):
-        err = lib.aspire_sinkhorn_f32(
+        err = getattr(lib, name)(
             *(t.data_ptr() for t in args), f.data_ptr(), g.data_ptr(),
             bsz, n, m, float(blur), math.log(scaling), int(max_iters),
             int(extrapolate), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "aspire_sinkhorn_f32")
-    sinkhorn_solve.launches += 1
+    _build.check(err, name)
+    if large:
+        sinkhorn_solve.large_launches += 1
+    else:
+        sinkhorn_solve.launches += 1
     return f, g
 
 
+# launches of the small- and wide-pair kernels, and of the large-pair one
 sinkhorn_solve.launches = 0
+sinkhorn_solve.large_launches = 0
 
 
 def sinkhorn_potentials_kernel(

@@ -12,7 +12,8 @@ topics distinct within a step.  One card, so no sharding; the trainer encodes
 a step's micro batches as one wide batch (fused accumulation), through the
 dropout attention, its backward, hidden dropout and the Sinkhorn loop's
 kernel.  Initial weights as Flax's defaults draw them (the JAX script's),
-from a seeded torch.Generator.
+from a seeded torch.Generator: the package's own `build_model`
+(`models/init.py`).
 
     python benchmarks/torch_convergence_check.py            # on the GPU
     python benchmarks/torch_convergence_check.py --layers 2 --steps 8 --tokens 64 --device cpu
@@ -31,9 +32,6 @@ import torch
 B, T, SMAX = 8, 256, 20
 V = 30000
 LOG_EVERY = 20
-# the standard deviation of a unit normal truncated at +-2 (Flax's
-# variance_scaling divides by it)
-TRUNCATED_STD = 0.87962566103423978
 
 
 def parse_args(argv=None):
@@ -94,30 +92,6 @@ class Triples:
         return {"query": f, "pos": p}
 
 
-def flax_default_init(model: torch.nn.Module, seed: int = 0) -> None:
-    """The JAX script's initial weights in distribution (its
-    `Trainer.init_state` draws Flax's default initializers), from a seeded
-    CPU generator, so the same numbers on any device: dense kernels
-    lecun-normal (a normal truncated at 2 sigma, variance 1 / fan_in),
-    embeddings N(0, 1 / width), biases 0, LayerNorm scales 1."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if "LayerNorm" in name:
-                p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias"):
-                p.zero_()
-            elif "embeddings" in name:
-                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1]))
-            else:
-                # nn.Linear's weight is [out, in]: fan_in is its width
-                std = math.sqrt(1.0 / p.shape[1]) / TRUNCATED_STD
-                w = torch.empty(p.shape)
-                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                            generator=gen)
-                p.copy_(w)
-
-
 def train(args) -> tuple[list, float]:
     """Trains; returns the logged losses (every LOG_EVERY steps and the last
     step: the mean of the step's micro-batch losses) and the seconds of the
@@ -129,9 +103,9 @@ def train(args) -> tuple[list, float]:
 
     dev = require_device(args.device)
     cfg = run_config()
+    # build_model draws Flax's initial weights (models/init.py), seed 0
     model = build_model(cfg.model, BertConfig(num_hidden_layers=args.layers),
-                        dtype=torch.bfloat16, device=dev)
-    flax_default_init(model)
+                        dtype=torch.bfloat16, device=dev, seed=0)
     data = Triples(0, args.tokens)
     losses_log = []
     with tempfile.TemporaryDirectory() as tmp:

@@ -10,10 +10,11 @@
     python3 chip_smoke.py --phases families  # the examples and the RoBERTa / MPNet baselines alone
     python3 chip_smoke.py --phases checks    # the convergence and int8 checks alone
     python3 chip_smoke.py --phases mesh      # the several-rank paths alone
+    python3 chip_smoke.py --phases ranges    # the kernels' input ranges and their paths alone
 
 Phases run in the order device, build, kernels, serve, train, index, mesh,
-eval, chain, families, checks; each prints its seconds (a `phase_seconds`
-line).
+eval, chain, families, checks, ranges; each prints its seconds (a
+`phase_seconds` line).
 
 Phases, one JSON object a line:
 
@@ -137,7 +138,24 @@ Phases, one JSON object a line:
   checks   benchmarks/torch_convergence_check.py at full size (160 steps,
            its descent asserted, each step's launches counted), then
            scripts/torch_int8_validation.py --random-bert on 4,000 + 50
-           abstracts of the chain's synthesiser (reported, not gated).
+           abstracts of the chain's synthesiser (reported, not gated);
+  ranges   the kernels' input ranges past the 64-wide heads, one block's
+           Sinkhorn pair and 128 query sentences (their kernel cases run in
+           the kernels phase, or first when the phase runs alone), on their
+           paths, with the counts set to 0 before: BERT-base width as 6
+           heads of 128 -- a request encoded in bf16 and f32 through the wide
+           K2 against 'naive', the flagship's first step against the plain
+           path in bf16 and f32 and two optimizer steps in bf16 (the wide K5a
+           and K5b, each step's launches counted), and `python -m
+           aspire_tpu_torch train --init-hf-dir` on a local BERT directory
+           with such heads, two steps in a subprocess; then an index of 2,000
+           documents of 240-1,200 sentences (768-d reps drawn on the card
+           from a seed, bf16 and int8, buckets 400 / 800 / 1,200), a fused query of 300
+           sentences on bf16 (K8 a group of 128 rows at a time, K1's large
+           pairs) and a batch of 8 on int8 (K7 with the groups as extra
+           queries), each against the plain scan and solver='torch', and
+           `rank --rerank ot --max-sents 1200` (the pool protocol, one facet)
+           with that run against `--ot-solver xla`.
 
 Any failed check raises: the run then prints {"ok": false, ...} and exits
 with code 1.  Without CUDA it exits with code 1 before printing any result.
@@ -385,8 +403,11 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     """K1 in both modes against its plain version: after the final step (the
     serving and query paths) and the loop's own potentials (extrapolate=False,
     the training loss); for the first, also the scores and plans of
-    `wasserstein_dist` through the kernel against the PyTorch solver, and for
-    the second the training distance through solver 'auto' against 'torch'."""
+    `wasserstein_dist` through the kernel against the PyTorch solver (both
+    against the PyTorch solver in f64, `f64_witness`; held for large pairs), and
+    for the second the training distance through solver 'auto' against
+    'torch'."""
+    from aspire_tpu_torch.core.types import MultiVec
     from aspire_tpu_torch.ops import sinkhorn_kernel as sk
     from aspire_tpu_torch.ops.distances import wasserstein_dist
     q, c, cost, la, lb, diam, a, b = sinkhorn_inputs(bsz, 7 + bsz + n + m, diameter,
@@ -410,20 +431,27 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     sims_t, (_, _, _, plan_t, _) = wasserstein_dist(q, c, solver="torch", **kw)
     sims = check_close("sinkhorn sims", sims_k, sims_t, atol=2e-3, rtol=2e-3)
     plan = check_close("sinkhorn plan", plan_k, plan_t, atol=2e-3, rtol=0.0)
-    before = sk.sinkhorn_solve.launches
+    launched = lambda: sk.sinkhorn_solve.launches + sk.sinkhorn_solve.large_launches
+    before = launched()
     dist_a = wasserstein_dist(q, c, temp=5000.0, **dkw)
-    if sk.sinkhorn_solve.launches != before + 1:
+    if launched() != before + 1:
         raise AssertionError("wasserstein_dist(solver='auto') launched "
-                             f"{sk.sinkhorn_solve.launches - before} K1 kernels")
+                             f"{launched() - before} K1 kernels")
     dist_t = wasserstein_dist(q, c, temp=5000.0, solver="torch", **dkw)
     dist = check_close("sinkhorn auto distance", dist_a, dist_t, atol=2e-3, rtol=2e-3)
     res.update(sims_max_abs_err=sims["max_abs_err"],
                plan_max_abs_err=plan["max_abs_err"],
                auto_distance_max_abs_err=dist["max_abs_err"])
+    kw64 = {**kw, "diameter_value": diam.double()} if diameter == "grouped" else kw
+    sims_64, _ = wasserstein_dist(MultiVec(q.embed.double(), q.lens),
+                                  MultiVec(c.embed.double(), c.lens), solver="torch", **kw64)
+    res["sims_f64"] = f64_witness("sinkhorn sims", sims_k, sims_t, sims_64,
+                                  hold=sk.sinkhorn_route(n, m) == "large")
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
     res.update(case=f"B={bsz} n={n} m={m} f32 diameter={diameter}",
+               route=sk.sinkhorn_route(n, m),
                kernel_ms=t_k, plain_ms=t_p, library_ms=None,
                pairs_per_s=bsz / t_k["median"] * 1e3,
                **sinkhorn_bound(cost, diam),
@@ -431,6 +459,23 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
                           "bound_ms": sinkhorn_bound(cost, diam, extrapolate=False)[
                               "bound_ms"]})
     return res
+
+
+def f64_witness(name, kernel, plain, exact, hold: bool = True) -> dict:
+    """OT scores of the kernel and of the PyTorch solver in f32 against the
+    PyTorch solver in f64 on the same reps.  A score is a plan-weighted sum
+    of costs with the plan exp((f + g - C) / blur): an f32 rounding of a
+    cost or a potential near 60 (4e-6) is 1e-4 of a plan entry at blur 0.05,
+    so two f32 solvers part by ~1e-5 of a score.  With `hold`, the kernel
+    may be no more than twice the f32 solver's distance from f64, plus 1e-3
+    (the small and wide kernels are reported only)."""
+    err_k = float((kernel.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    if hold and not err_k <= 2 * err_p + 1e-3:
+        raise AssertionError(f"{name}: the kernel is {err_k} from f64, the plain "
+                             f"f32 solver {err_p}")
+    return {"kernel_max_abs_err": err_k, "plain_f32_max_abs_err": err_p,
+            "score_max_abs": float(exact.abs().max())}
 
 
 def attention_inputs(b, nh, t, hd, dtype, seed, dev):
@@ -941,6 +986,7 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
 
     res.update(
         case=f"{label}: [{n},{s},{d}] {dtype}, {q_n} of {qmax} query sentences",
+        query_groups=-(-qmax // sk.query_cap(sents.dtype, d)),
         qadd_max_abs_err=res_q["max_abs_err"],
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan(sents, q, norms, q_n, qadd)),
         plain_ms=cuda_ms(lambda: sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd)),
@@ -959,7 +1005,9 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
     q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev)
     live = bucket["doc_idx"] >= 0
     fn = sk.fused_l2max_scan_int8_batched
-    wide = sk.int8_wide(bsz, qmax, d)
+    # more query sentences than a launch takes: the groups join the batch
+    groups = -(-qmax // sk.query_cap(torch.int8, d))
+    wide = sk.int8_wide(bsz * groups, min(qmax, sk.query_cap(torch.int8, d)), d)
     before = (fn.launches, fn.wide_launches)
     got = fn(sents, scales, norms, q, q_lens, qmax)
     torch.cuda.synchronize()
@@ -989,6 +1037,7 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
 
     res.update(
         case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}",
+        query_groups=groups,
         source="aspire_tpu_torch/csrc/" + ("scan_int8.cu" if wide else "scan.cu"),
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan_int8_batched(
             sents, scales, norms, q, q_lens, qmax)),
@@ -1069,6 +1118,51 @@ def phase_kernels(dev) -> dict:
         emit("kernel_cases", kernel=name, cases=rows)
     emit("attention_bwd_sensitivity", **bwd_sensitivity(dev))
     tiny_encode(dev)
+    for name, rows in range_kernel_cases(dev).items():
+        cases[name] = rows
+        emit("kernel_cases", kernel=name, cases=rows)
+    return cases
+
+
+def range_kernel_cases(dev) -> dict:
+    """The kernels' input ranges past the 64-wide heads, one block's Sinkhorn
+    pair and 128 query sentences, each against its plain version; the first
+    case of each wide or large kernel is the ranges phase's shape (a
+    BERT-base encode with 6 heads of 128; the rank CLI's 24-sentence queries
+    against candidates of up to 1,200 sentences).  The scans at 300 query
+    sentences run K8 a group at a time and K7 with the groups as extra
+    queries, on one bucket of 4,000 documents of up to 24 sentences."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "attention_wide": [case_attention(16, 6, 256, 128, bf16, dev),
+                           case_attention(16, 6, 256, 128, f32, dev),
+                           case_attention(4, 8, 512, 96, bf16, dev),
+                           case_attention(2, 3, 512, 256, bf16, dev),
+                           case_attention(2, 3, 200, 256, f32, dev)],
+        "attention_dropout_wide": [case_attention_dropout(30, 6, 512, 128, bf16, dev),
+                                   case_attention_dropout(4, 6, 512, 128, f32, dev),
+                                   case_attention_dropout(4, 8, 512, 96, bf16, dev),
+                                   case_attention_dropout(2, 3, 200, 256, f32, dev)],
+        "attention_bwd_wide": [case_attention_bwd(30, 6, 512, 128, bf16, dev),
+                               case_attention_bwd(4, 6, 512, 128, f32, dev),
+                               case_attention_bwd(4, 6, 512, 128, bf16, dev, p=0.0),
+                               case_attention_bwd(4, 8, 512, 96, bf16, dev),
+                               case_attention_bwd(2, 3, 200, 256, f32, dev),
+                               case_attention_bwd(2, 3, 200, 256, bf16, dev, p=0.0)],
+        "sinkhorn_large": [case_sinkhorn(16, "pair", dev, 24, 1200),
+                           case_sinkhorn(16, "pair", dev, 300, 1200),
+                           case_sinkhorn(16, "pair", dev, 240, 240),
+                           case_sinkhorn(16, "pair", dev, 512, 512),
+                           case_sinkhorn(30, "grouped", dev, 300, 300)],
+    }
+    one = build_large_index(dev, 4000, buckets=(24,))["buckets"]
+    label = "bucket 24 of 4,000 documents"
+    cases["scan_bf16_grouped"] = [case_scan_bf16(one["bfloat16"][0], label, dev,
+                                                 qmax=300, q_n=300)]
+    cases["scan_int8_grouped"] = [case_scan_int8(one["int8"][0], label, 8, dev,
+                                                 qmax=300)]
+    del one
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -1230,7 +1324,11 @@ def counters() -> dict:
             "pool": (sentence_pool_fused, "launches"),
             "scan_bf16": (fused_l2max_scan, "launches"),
             "scan_int8": (fused_l2max_scan_int8_batched, "launches"),
-            "scan_int8_wide": (fused_l2max_scan_int8_batched, "wide_launches")}
+            "scan_int8_wide": (fused_l2max_scan_int8_batched, "wide_launches"),
+            "attention_wide": (fused_attention, "wide_launches"),
+            "attention_dropout_wide": (fused_attention, "wide_dropout_launches"),
+            "attention_bwd_wide": (fused_attention, "wide_bwd_launches"),
+            "sinkhorn_large": (sinkhorn_solve, "large_launches")}
 
 
 def ffn_launches(dtype) -> int:
@@ -1848,7 +1946,8 @@ def _host_ms(fn, calls: int = 5) -> tuple:
             "warm_ms_spread": [min(out[1:]), max(out[1:])]}, result
 
 
-def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5) -> dict:
+def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5,
+              max_sents: int = 20) -> dict:
     """The fused query's three stages run apart, a synchronise after each."""
     from aspire_tpu_torch.core.types import MultiVec
     from aspire_tpu_torch.index.dense import score_buckets_batched
@@ -1868,7 +1967,8 @@ def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5) -> dict:
             t = time.perf_counter()
             _, d = score_buckets_batched(buckets, q, q_lens, k, scan=scan)
             t = lap("scan", t)
-            emb, cl, _, _ = _gather_candidates(buckets, *pos, d.reshape(-1), 20)
+            emb, cl, _, _ = _gather_candidates(buckets, *pos, d.reshape(-1),
+                                               max_sents)
             t = lap("gather", t)
             qt = _tile_queries(q, q_lens, k)
             diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
@@ -3620,6 +3720,474 @@ def phase_mesh(dev, index_dir, index_docs: int, layers: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- ranges
+RANGE_HEADS = 6                    # BERT-base width as 6 heads of 128
+RANGE_CLI_LAYERS = 4               # depth of the local BERT directory (the CLI's run)
+RANGE_DOCS = 2000                  # full-text documents of the long index
+RANGE_SENTS = (240, 1200)          # their sentence counts, both ends taken
+RANGE_BUCKETS = (400, 800, 1200)
+RANGE_QUERY = 300                  # sentences of a full-text query
+RANGE_K = 20
+# the noise, in spreads of the query's reps, of the rank CLI's planted near
+# copies: their OT scores lie far apart in this order
+RANGE_PLANT_NOISE = (0.05, 0.1, 0.2, 0.4, 0.8)
+
+
+def range_encode(cfg, dev) -> dict:
+    """A request (16 abstracts x 256 tokens) through ConSentEncoder with 6
+    heads of 128, bf16 and f32, 'auto' (the wide K2) against 'naive', weights
+    from a numpy seed.  Tolerances: bf16 the serve phase's 0.15 (8-bit
+    roundings at each path's own places over every layer), f32 1e-3."""
+    from aspire_tpu_torch.models.convert import state_dict_from_flax_params
+    from aspire_tpu_torch.models.encoders import ConSentEncoder
+    state = state_dict_from_flax_params(random_flax_tree(cfg, seed=0), cfg)
+    token_ids, attn_mask, sent_ids, _ = make_request(cfg, 150, dev)
+    rows = []
+    for dtype, atol in ((torch.bfloat16, 0.15), (torch.float32, 1e-3)):
+        outs = {}
+        for impl in ("auto", "naive"):
+            enc = ConSentEncoder(cfg, max_sents=20, dtype=dtype, device=dev,
+                                 attention_impl=impl, ffn_impl=impl,
+                                 pool_impl=impl).eval()
+            enc.load_state_dict(state)
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                outs[impl] = enc(token_ids, attn_mask, sent_ids)[1]
+            torch.cuda.synchronize()
+            outs[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
+            outs[impl + "_launches"] = {k: v - before[k] for k, v in read_counts().items()
+                                        if v != before[k]}
+            del enc
+        got = outs["auto_launches"]
+        if got.get("attention_wide") != cfg.num_hidden_layers or "attention" in got \
+                or outs["naive_launches"]:
+            raise AssertionError(f"ranges encode: launches {got}, naive "
+                                 f"{outs['naive_launches']}")
+        res = check_close(f"ranges encode {dtype}", outs["auto"], outs["naive"], atol)
+        rows.append({"dtype": str(dtype).split(".")[-1], "launches": got,
+                     "ms": outs["auto_ms"], "plain_ms": outs["naive_ms"], **res})
+    return {"docs": 16, "tokens": 256, "rows": rows}
+
+
+def range_train(cfg, dev) -> dict:
+    """The flagship (sbalisentbienc) with 6 heads of 128 on [10, 3, 512]
+    superbatches: the first step through the kernels against the plain path,
+    bf16 and f32 (`kernel_against_plain_step`); then two optimizer steps in
+    bf16 through Trainer, each step's launches counted (the wide K5a and
+    K5b, none of the 64-wide ones)."""
+    import tempfile
+    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
+    from aspire_tpu_torch.train.trainer import Trainer
+    layers = cfg.num_hidden_layers
+    steps = [synth_superbatch(700 + i, 10, 3, 512, 20, cfg.vocab_size) for i in range(2)]
+    seed = 31
+    first = {str(dt).split(".")[-1]: kernel_against_plain_step(cfg, dev, steps[0], seed, dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    hp, model = flagship(cfg, dev)
+    tp = TrainHParams(batch_size=3, accumulated_batch_size=30,
+                      update_rule="adam", learning_rate=2e-5,
+                      lr_decay_method="warmuplin", num_warmup_steps=20,
+                      train_size=3000)
+    torch.cuda.reset_peak_memory_stats()
+    marks, counts = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, RunConfig(model=hp, train=tp), tmp, fused_accum=True)
+        state = trainer.train(trainer.init_state(), _timed(steps, marks, counts),
+                              seed=seed)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(read_counts())
+    # two encodes a step, two launches a wide backward (rows, keys)
+    want = {"attention_dropout_wide": 2 * layers, "attention_bwd_wide": 2 * 2 * layers,
+            "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2,
+            "attention_dropout": 0, "attention_bwd": 0}
+    for i, (a_, b_) in enumerate(zip(counts[:-1], counts[1:])):
+        got = {k: b_[k] - a_[k] for k in want}
+        if got != want:
+            raise AssertionError(f"ranges train: step {i} launched {got}, "
+                                 f"expected {want}")
+    losses = trainer.loss_history
+    if state.step != 2 or not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ranges train: step {state.step}, losses {losses}")
+    first_loss = sum(losses[:10])
+    if abs(first_loss - first["bfloat16"]["loss_kernel"]) > 1e-2 * abs(first_loss):
+        raise AssertionError(f"ranges train: first loss {first_loss} against "
+                             f"{first['bfloat16']['loss_kernel']}")
+    out = {"superbatch": [10, 3, 512], "first_step": first,
+           "step_ms": [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])],
+           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "launches_per_step": want, "first_loss": first_loss}
+    del model, trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def range_cli_train(root: str, cfg, vocab: list, dev) -> dict:
+    """A local BERT directory with 6 heads of 128 (RANGE_CLI_LAYERS deep),
+    then `python -m aspire_tpu_torch train --init-hf-dir` on it for two
+    steps, in a subprocess on the card; its run directory is what
+    `range_rank` ranks with."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, num_hidden_layers=RANGE_CLI_LAYERS)
+    write_hf_dir(f"{root}/hf", cfg, vocab, seed=41)
+    write_triples(f"{root}/train.jsonl", vocab, seed=43, n=12)
+    with open(f"{root}/cfg.json", "w") as f:
+        json.dump({"model_name": "sbalisentbienc",
+                   "score_aggregation": "l2wasserstein",
+                   "sent_sm_temp": 5000.0, "sent_loss_prop": 1.0,
+                   "sentsup_loss_prop": 1.0, "max_sents": 24,
+                   "batch_size": 3, "accumulated_batch_size": 6,
+                   "train_size": 12, "num_epochs": 1, "update_rule": "adam",
+                   "learning_rate": 2e-5, "lr_decay_method": "warmuplin",
+                   "num_warmup_steps": 2, "es_check_every": 10_000,
+                   "base-pt-layer": f"{root}/hf"}, f)
+    argv = [sys.executable, "-m", "aspire_tpu_torch", "train", "--config",
+            f"{root}/cfg.json", "--train", f"{root}/train.jsonl", "--out",
+            f"{root}/run", "--init-hf-dir", f"{root}/hf", "--seq-len", "512",
+            "--seed", "5", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "trained 2 steps" not in proc.stdout:
+        raise AssertionError(f"ranges: train --init-hf-dir exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+    with open(f"{root}/run/run_info.json") as f:
+        bert = json.load(f)["all_hparams"]["bert_config"]
+    if bert["num_attention_heads"] != cfg.num_attention_heads:
+        raise AssertionError(f"ranges: the run's encoder has {bert}")
+    return {"argv": argv[3:], "seconds": seconds, "heads": cfg.num_attention_heads,
+            "head_width": cfg.hidden_size // cfg.num_attention_heads,
+            "layers": cfg.num_hidden_layers,
+            "stdout_tail": proc.stdout.strip().splitlines()[-1]}
+
+
+def build_long_index(dev, pids: list, save_dir: str, plants: dict) -> dict:
+    """A dense-bucket index of len(pids) documents of RANGE_SENTS sentences
+    of 768-d reps (one normal draw on the card from a generator seeded 45,
+    split into documents; their lengths from numpy seed 45; a document of
+    `plants`, pid -> (reps [n, 768], noise), holds those reps repeated to its
+    length plus normal noise of `noise` times their spread), built by
+    build_dense_index in bf16 (also saved under save_dir, the rank CLI's
+    index) and, quantised on the card, by build_dense_index_prequantized in
+    int8 (build_dense_index's int8 rows and scales; norms within an f32
+    rounding of its), both put on the card."""
+    from aspire_tpu_torch.index.dense import (build_dense_index,
+                                              build_dense_index_prequantized,
+                                              quantize_sentences)
+    rng = np.random.default_rng(45)
+    d = 768
+    t0 = time.perf_counter()
+    lens = rng.integers(RANGE_SENTS[0], RANGE_SENTS[1] + 1, len(pids))
+    cuts = np.cumsum(lens)[:-1]
+    gen = torch.Generator(device=dev).manual_seed(45)
+    flat_dev = torch.randn((int(lens.sum()), d), generator=gen, device=dev) * 2.0
+    starts = np.concatenate([[0], cuts])
+    row_of = {pid: i for i, pid in enumerate(pids)}
+    for pid, (reps, noise) in plants.items():
+        i = row_of[pid]
+        base = torch.from_numpy(reps).to(dev)
+        base = base[torch.arange(int(lens[i]), device=dev) % base.shape[0]]
+        flat_dev[starts[i]:starts[i] + base.shape[0]] = base + noise * base.std() * \
+            torch.randn(base.shape, generator=gen, device=dev)
+    doc_reps = np.split(flat_dev.cpu().numpy(), cuts)
+    xi, sc = quantize_sentences(flat_dev)
+    quant = list(zip(np.split(xi.cpu().numpy(), cuts), np.split(sc.cpu().numpy(), cuts)))
+    del flat_dev, xi, sc
+    host_s = {"reps": time.perf_counter() - t0}
+    big = {"docs": len(pids), "pids": pids, "planted": set(plants),
+           "dim": d, "bucket_sizes": list(RANGE_BUCKETS),
+           "sentences": int(lens.sum()), "lens": lens, "reps": doc_reps,
+           "buckets": {}, "pos": {}, "stored": {}}
+    for name in ("bfloat16", "int8"):
+        t0 = time.perf_counter()
+        if name == "int8":
+            idx = build_dense_index_prequantized(quant, pids, buckets=RANGE_BUCKETS)
+        else:
+            idx = build_dense_index(doc_reps, pids, buckets=RANGE_BUCKETS, dtype=name)
+        host_s[f"build_{name}"] = time.perf_counter() - t0
+        big["buckets"][name] = idx.device_arrays(dev)
+        big["pos"][name] = idx.device_pos_arrays(dev)
+        big["stored"][name] = sum(a.nbytes for b in idx.buckets for a in b.values())
+        if name == "bfloat16":
+            t0 = time.perf_counter()
+            idx.save(save_dir)
+            host_s["save_bfloat16"] = time.perf_counter() - t0
+        del idx
+    big["host_seconds"] = host_s
+    return big
+
+
+def range_fused_queries(big: dict, dev, add) -> list:
+    """Full-text queries of RANGE_QUERY sentences (an unplanted document's
+    own first sentences plus unit noise) on the long index: one on bf16 (K8
+    a group of 128 rows at a time, then K1's large pairs, 300 x up to 1,200) and a batch of 8
+    on int8 (K7 with the groups as extra queries, one K1 launch), each held
+    to the same search with the plain scan and solver='torch' (the ids, the
+    first-stage and the OT scores, `compare_answers`), the document itself
+    first, and its rerank to the plain solver in f64 (`_rerank_witness`)."""
+    from aspire_tpu_torch.index.dense import flatten_device_buckets
+    from aspire_tpu_torch.index.serve import (make_fused_query,
+                                              make_fused_query_batched)
+    from aspire_tpu_torch.ops.scan_kernel import query_cap
+    rng = np.random.default_rng(46)
+    long_docs = [i for i, (n, pid) in enumerate(zip(big["lens"], big["pids"]))
+                 if n >= RANGE_QUERY and pid not in big["planted"]][:8]
+    # unit noise on reps of spread 2: the document stays first by far, and
+    # its first-stage distance stays clear of the Gram expansion's
+    # cancellation (|q|^2 + |x|^2 - 2 q.x of a near copy is all rounding)
+    q = np.stack([big["reps"][i][:RANGE_QUERY] for i in long_docs])
+    q = q + rng.standard_normal(q.shape, dtype=np.float32)
+    q_all = torch.from_numpy(q).to(dev)
+    q_lens = torch.full((len(long_docs),), RANGE_QUERY, dtype=torch.int64, device=dev)
+    groups = -(-RANGE_QUERY // query_cap(torch.bfloat16, 768))
+    rows = []
+    for label, storage, bsz in (("single bf16", "bfloat16", 1),
+                                ("batch of 8 int8", "int8", 8)):
+        int8 = storage == "int8"
+        buckets, pos = big["buckets"][storage], big["pos"][storage]
+        nb = len(buckets)
+        flat = flatten_device_buckets(buckets)
+        kw = dict(k=RANGE_K, max_sents=RANGE_SENTS[1], int8=int8, temp=5000.0)
+        if bsz == 1:
+            fn_k = make_fused_query(nb, **kw)
+            fn_p = make_fused_query(nb, scan="torch", solver="torch", **kw)
+            call = lambda fn: tuple(x[None] for x in fn(q_all[0], RANGE_QUERY, *flat, *pos))
+            want = {"scan_bf16": nb * groups, "sinkhorn_large": 1}
+        else:
+            fn_k = make_fused_query_batched(nb, **kw)
+            fn_p = make_fused_query_batched(nb, scan="torch", solver="torch",
+                                            q_chunk=1, **kw)
+            call = lambda fn: fn(q_all, q_lens, *flat, *pos)
+            want = {"scan_int8_wide": nb, "sinkhorn_large": 1}
+        before = read_counts()
+        t_k, out_k = _host_ms(lambda: call(fn_k), calls=2)
+        after = read_counts()
+        add(before, after)
+        got = {k: (after[k] - before[k]) // 3 for k in after if after[k] != before[k]}
+        if got != want:
+            raise AssertionError(f"ranges {label}: a call launched {got}, expected {want}")
+        before = read_counts()
+        t_p, out_p = _host_ms(lambda: call(fn_p), calls=1)
+        if read_counts() != before:
+            raise AssertionError(f"ranges {label}: the plain route launched kernels")
+        v, ids, sims = out_k
+        if tuple(ids.shape) != (bsz, RANGE_K) or int((ids < 0).sum()) \
+                or not bool(torch.isfinite(sims).all()) \
+                or ids[:, 0].tolist() != long_docs[:bsz]:
+            raise AssertionError(f"ranges {label}: malformed answer, first ids "
+                                 f"{ids[:, 0].tolist()} for documents {long_docs[:bsz]}")
+        rows.append({"query": label, "storage": storage, "batch": bsz,
+                     "query_sentences": RANGE_QUERY, "query_groups": groups,
+                     "k": RANGE_K, "max_sents": RANGE_SENTS[1], **t_k,
+                     "plain_route": t_p, "launches_a_call": got,
+                     "ids_equal": bool(torch.equal(out_k[1], out_p[1])),
+                     "kernel_against_plain": compare_answers(label, out_k, out_p),
+                     "rerank_f64": _rerank_witness(label, buckets, pos, q_all[:bsz],
+                                                   q_lens[:bsz], ids),
+                     **_stage_ms(buckets, pos, q_all[:bsz], q_lens[:bsz], RANGE_K,
+                                 "kernel", "kernel", calls=2,
+                                 max_sents=RANGE_SENTS[1])})
+    return rows
+
+
+def _rerank_witness(label, buckets, pos, q, q_lens, ids) -> dict:
+    """A fused query's rerank of its own candidates once more, on the same
+    gathered reps and diameter: K1, the plain solver in f32 and the plain
+    solver in f64 (`f64_witness`)."""
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.index.serve import _gather_candidates, _tile_queries
+    from aspire_tpu_torch.ops.distances import wasserstein_dist
+    from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
+    sims = {}
+    with torch.no_grad():
+        emb, cl, _, _ = _gather_candidates(buckets, *pos, ids.reshape(-1),
+                                           RANGE_SENTS[1])
+        qt = _tile_queries(q, q_lens, ids.shape[1])
+        diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
+        for name, dtype, solver in (("kernel", torch.float32, "kernel"),
+                                    ("plain", torch.float32, "torch"),
+                                    ("f64", torch.float64, "torch")):
+            sims[name] = wasserstein_dist(
+                MultiVec(qt.embed.to(dtype), qt.lens), MultiVec(emb.to(dtype), cl),
+                temp=5000.0, return_pair_sims=True, solver=solver,
+                diameter_value=diam.to(dtype))[0]
+    return {"kernel_against_plain": float((sims["kernel"] - sims["plain"]).abs().max()),
+            **f64_witness(f"ranges {label} rerank", sims["kernel"], sims["plain"],
+                          sims["f64"])}
+
+
+def _ranked(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _rank_argv(root: str, dev) -> list:
+    return ["rank", "--index", f"{root}/index", "--dataset", "csfcube",
+            "--dataset-dir", f"{root}/data", "--model", "sbalisentbienc",
+            "--run-dir", f"{root}/run", "--tokenizer", f"{root}/hf",
+            "--facet", "background", "--rerank", "ot", "--max-sents",
+            str(RANGE_SENTS[1]), "--ot-temp", "5000.0", "--no-dumps",
+            "--device", dev.type]
+
+
+def range_plants(root: str, dev) -> dict:
+    """The rank CLI's queries, encoded in this process by the CLI's own
+    functions with the run that `range_cli_train` trained: each query's near
+    copies in its pool (write_csfcube's q-n0 ... q-n4) are planted in the long
+    index as the query's reps plus noise of RANGE_PLANT_NOISE[j] spreads
+    -> {pid: (reps, noise)} for `build_long_index`."""
+    from aspire_tpu_torch.cli import _load_eval_model, _query_rows, build_parser
+    from aspire_tpu_torch.evaluation.datasets import EvalDataset
+    args = build_parser().parse_args(_rank_argv(root, dev) + ["--out", f"{root}/plants"])
+    dataset = EvalDataset(args.dataset, args.dataset_dir)
+    model = _load_eval_model(args)
+    qpids = list(dataset.get_test_pool(facet=args.facet))
+    rows = _query_rows(args, dataset, model, qpids,
+                       model.get_encoding(qpids, dataset), cosine=False)
+    del model
+    torch.cuda.empty_cache()
+    return {f"{q}-n{j}": (reps, noise) for q, reps in zip(qpids, rows)
+            for j, noise in enumerate(RANGE_PLANT_NOISE)}
+
+
+def range_rank(root: str, big: dict, add, dev) -> dict:
+    """`python -m aspire_tpu_torch rank --rerank ot --max-sents 1200` (the
+    pool protocol, facet background) over the long index with the run that
+    `range_cli_train` trained: its queries (up to 24 sentences, encoded in
+    f32 through the wide K2) against candidates of up to 1,200 sentences need
+    K1's large pairs.  Held to the same ranking with `--ot-solver xla` (the
+    plain loop): each query's top 5 are its planted near copies in the order
+    of their noise (`range_plants`) in both rankings; below them the same
+    order wherever neighbouring scores are apart; every score within K1's
+    limits for scores (2e-3 + 2e-3 relative)."""
+    common = _rank_argv(root, dev)
+    name = "test-pid2pool-csfcube-sbalisentbienc-background-ranked.json"
+    before = read_counts()
+    t0 = time.perf_counter()
+    _cli(common + ["--out", f"{root}/ranked_kernel"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = read_counts()
+    add(before, after)
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if not got.get("sinkhorn_large") or not got.get("attention_wide") \
+            or got.get("attention"):
+        raise AssertionError(f"ranges rank: launched {got}")
+    before = read_counts()
+    t0 = time.perf_counter()
+    _cli(common + ["--out", f"{root}/ranked_plain", "--ot-solver", "xla"])
+    plain_s = time.perf_counter() - t0
+    if read_counts()["sinkhorn_large"] != before["sinkhorn_large"]:
+        raise AssertionError("ranges rank: --ot-solver xla launched K1")
+    k_rank = _ranked(f"{root}/ranked_kernel/{name}")
+    p_rank = _ranked(f"{root}/ranked_plain/{name}")
+    if set(k_rank) != set(p_rank):
+        raise AssertionError("ranges rank: the two runs ranked other queries")
+    worst, moved, pairs, gap = 0.0, 0, 0, math.inf
+    for qpid, ranked in k_rank.items():
+        plain = p_rank[qpid]
+        pk, pp = dict(map(tuple, ranked)), dict(map(tuple, plain))
+        if set(pk) != set(pp):
+            raise AssertionError(f"ranges rank: query {qpid}: other candidates")
+        for c, s in pk.items():
+            if not abs(s - pp[c]) <= 2e-3 + 2e-3 * abs(pp[c]):
+                raise AssertionError(f"ranges rank: query {qpid}, candidate {c}: "
+                                     f"{s} against {pp[c]}")
+            worst = max(worst, abs(s - pp[c]))
+        planted = [f"{qpid}-n{j}" for j in range(len(RANGE_PLANT_NOISE))]
+        top = len(planted)
+        if [c for c, _ in ranked[:top]] != planted or [c for c, _ in plain[:top]] != planted:
+            raise AssertionError(f"ranges rank: query {qpid}: top {top} "
+                                 f"{[c for c, _ in ranked[:top]]} (kernel), "
+                                 f"{[c for c, _ in plain[:top]]} (plain), planted {planted}")
+        gap = min(gap, min(a - b for (_, a), (_, b) in zip(plain[:top], plain[1:top + 1])))
+        scores = [s for _, s in plain]
+        for pos, ((a, _), (b, _)) in enumerate(zip(ranked, plain)):
+            if a != b:
+                near = [abs(scores[pos] - scores[o]) for o in (pos - 1, pos + 1)
+                        if 0 <= o < len(scores)]
+                if min(near) > 2 * (2e-3 + 2e-3 * abs(scores[pos])):
+                    raise AssertionError(f"ranges rank: query {qpid}: order "
+                                         "differs where the scores are apart")
+                moved += 1
+        pairs += len(pk)
+    cands = {c for ranked in k_rank.values() for c, _ in ranked}
+    pid_len = dict(zip(big["pids"], big["lens"].tolist()))
+    return {"argv": common[1:], "queries": len(k_rank), "pairs": pairs,
+            "candidate_sentences_max": max(pid_len[c] for c in cands),
+            "seconds": seconds, "plain_seconds": plain_s, "launches": got,
+            "max_score_diff": worst, "top_equal": len(RANGE_PLANT_NOISE),
+            "top_least_gap": gap, "positions_differing_below": moved}
+
+
+def phase_ranges(dev, layers: int) -> dict:
+    """The kernels' input ranges on their paths: BERT-base width with 6 heads
+    of 128 (encode, training steps, `train --init-hf-dir`), then full-text
+    documents (an index of 2,000 documents of 240-1,200 sentences, fused
+    queries of 300 sentences, the rank CLI at --max-sents 1200).  The counts
+    are set to 0 at the start; the plain routes' runs launch nothing, and the
+    CLI's plain run is left out of the sum."""
+    import tempfile
+    from aspire_tpu_torch.models.bert import BertConfig
+    torch.cuda.empty_cache()
+    reset_counts()
+    launches = dict.fromkeys(read_counts(), 0)
+
+    def add(before, after):
+        for k in launches:
+            launches[k] += after[k] - before[k]
+
+    cfg = BertConfig(num_hidden_layers=layers, num_attention_heads=RANGE_HEADS)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    before = read_counts()
+    encode = range_encode(cfg, dev)
+    lap("encode")
+    train = range_train(cfg, dev)
+    lap("train")
+    add(before, read_counts())
+    vocab = eval_vocab(cfg.vocab_size)
+    with tempfile.TemporaryDirectory(prefix="ranges_") as root:
+        cli_train = range_cli_train(root, cfg, vocab, dev)
+        lap("cli_train")
+        write_csfcube(f"{root}/data", vocab, seed=44, n_docs=RANGE_DOCS)
+        with open(f"{root}/data/abstracts-csfcube.jsonl") as f:
+            pids = [json.loads(line)["paper_id"] for line in f]
+        lap("dataset")
+        plants = range_plants(root, dev)
+        lap("plants")
+        big = build_long_index(dev, pids, f"{root}/index", plants)
+        lap("index")
+        queries = range_fused_queries(big, dev, add)
+        lap("queries")
+        rank = range_rank(root, big, add, dev)
+        lap("rank")
+    emit("ranges", card=CARD, seconds=seconds, layers=layers, hidden=cfg.hidden_size,
+         heads=RANGE_HEADS, head_width=cfg.hidden_size // RANGE_HEADS,
+         encode=encode, train=train, cli_train=cli_train,
+         index={"docs": big["docs"], "sentences": big["sentences"],
+                "sentences_a_document": list(RANGE_SENTS),
+                "buckets": big["bucket_sizes"], "stored_bytes": big["stored"],
+                "host_seconds": big["host_seconds"],
+                "built_by": "build_dense_index (bf16) and build_dense_index_prequantized "
+                            "(int8, quantised on the card) on the host, from reps drawn "
+                            "on the card"},
+         queries=queries, rank=rank, launches=launches)
+    del big
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -3646,6 +4214,14 @@ KERNELS = [
      "aspire_tpu/ops/pallas_scan.py:180"),
     ("scan_int8_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
      "aspire_tpu/ops/pallas_scan.py:180"),
+    ("attention_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_dropout_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_bwd_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+     "aspire_tpu/ops/pallas_attention.py:229"),
+    ("sinkhorn_large", "aspire_tpu_torch/csrc/sinkhorn.cu",
+     "aspire_tpu/ops/pallas_sinkhorn.py:164"),
 ]
 
 
@@ -3668,6 +4244,9 @@ PATH_KERNELS = {
                "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
     "mesh": ("sinkhorn", "scan_bf16", "scan_int8_wide", "attention_dropout",
              "attention_bwd", "dropout", "pool", "attention", "ffn"),
+    "ranges": ("attention_wide", "attention_dropout_wide", "attention_bwd_wide",
+               "sinkhorn_large", "scan_bf16", "scan_int8_wide", "sinkhorn",
+               "ffn", "dropout", "pool"),
 }
 
 
@@ -3729,6 +4308,12 @@ def _run(args, tmp: str) -> dict:
         add(found)
     if args.phases in ("all", "checks"):
         launches["checks"] = timed("checks", phase_checks, dev)
+    if args.phases == "ranges":
+        for name, rows in timed("range_kernels", range_kernel_cases, dev).items():
+            cases[name] = rows
+            emit("kernel_cases", kernel=name, cases=rows)
+    if args.phases in ("all", "ranges"):
+        launches["ranges"] = timed("ranges", phase_ranges, dev, args.train_layers)
     for path, counts in launches.items():
         idle = [name for name in PATH_KERNELS[path] if counts[name] < 1]
         if idle:
@@ -3774,7 +4359,7 @@ def main() -> int:
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
                         choices=("all", "index", "kernels", "eval", "chain",
-                                 "families", "checks", "mesh"),
+                                 "families", "checks", "mesh", "ranges"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
@@ -3785,7 +4370,9 @@ def main() -> int:
                              "baselines alone; 'checks' the convergence and "
                              "int8 checks alone; 'mesh' the several-rank "
                              "paths alone (sharded serving, data-parallel "
-                             "training, a world of one over NCCL)")
+                             "training, a world of one over NCCL); 'ranges' "
+                             "the kernels' wide-head, large-pair and "
+                             "grouped-query cases and their paths alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "

@@ -99,7 +99,8 @@ def test_full_width_is_passed_through_and_wider_heads_are_not_padded(rng):
     seen = []
     with_padded_heads(lambda *a: seen.append(a[0]) or a[0], q, q, q)
     assert seen[0] is q
-    # the CPU route takes any width; on a CUDA tensor hd > 64 is refused
+    # the CPU route takes any width; on a CUDA tensor a head of 64 < hd <= 256
+    # is padded to the next multiple of 64 for the wide kernels (head_route)
     wide = torch.from_numpy(rng.standard_normal((1, 2, 4, 80)).astype(np.float32))
     out = fused_attention(wide, wide, wide, torch.zeros((1, 4)), 0.1)
     assert out.shape == wide.shape

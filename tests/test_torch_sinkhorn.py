@@ -10,8 +10,8 @@ from aspire_tpu.ops import sinkhorn as js
 from aspire_tpu.ops.pallas_sinkhorn import sinkhorn_potentials_pallas
 from aspire_tpu_torch.ops import sinkhorn as ts
 from aspire_tpu_torch.ops.sinkhorn_kernel import (
-    kernel_takes, pair_bytes, sinkhorn_potentials_kernel, sinkhorn_solve,
-    sinkhorn_solve_plain)
+    large_bytes, pair_bytes, sinkhorn_potentials_kernel, sinkhorn_route,
+    sinkhorn_solve, sinkhorn_solve_plain)
 
 # The same f32 algorithm on both sides; ~70 annealing rounds compound the
 # differences of the two logsumexp routines and summation orders.
@@ -177,13 +177,21 @@ def test_kernel_plain_version_past_32_atoms_matches_pallas_interpret(rng, n, m):
 
 
 def test_what_the_cuda_wrapper_takes():
-    """Up to 1024 atoms a side (registers), a pair within one block's shared
-    memory (past 32 atoms a side the cost with an odd pitch and two rows of
-    potentials; up to 32 the cost lies in registers and shared memory holds
-    two buffers of the 32 + 32 values of h and a table of 128 rounds' eps and
-    1/eps)."""
+    """Which kernel takes a pair (`sinkhorn_route`): up to 32 atoms a side the
+    small one (the cost in registers; shared memory holds two buffers of the
+    32 + 32 values of h and a table of 128 rounds' eps and 1/eps), up to 1024
+    atoms a side (registers) with the pair within one block's shared memory
+    the wide one (the cost with an odd pitch and two rows of potentials), and
+    every other pair the large one while its f, g and h fit a block's shared
+    memory; past that the route raises."""
     assert pair_bytes(20, 20) == pair_bytes(32, 1) == 4 * (2 * (32 + 32) + 2 * 128)
     assert pair_bytes(48, 40) == 4 * (48 * 41 + 88)
-    assert kernel_takes(32, 32) and kernel_takes(48, 40) and kernel_takes(100, 100)
-    assert kernel_takes(239, 239) and not kernel_takes(240, 240)
-    assert kernel_takes(1, 1024) and not kernel_takes(1, 1025)
+    assert sinkhorn_route(20, 20) == sinkhorn_route(32, 32) == "small"
+    assert sinkhorn_route(48, 40) == sinkhorn_route(100, 100) == "wide"
+    assert sinkhorn_route(239, 239) == "wide" and sinkhorn_route(240, 240) == "large"
+    assert sinkhorn_route(1, 1024) == "wide" and sinkhorn_route(1, 1025) == "large"
+    assert sinkhorn_route(24, 1200) == sinkhorn_route(300, 300) == "large"
+    assert large_bytes(24, 1200) == 8 * 1224
+    assert sinkhorn_route(29_056 - 24, 24) == "large"
+    with pytest.raises(ValueError, match="29033 x 24"):
+        sinkhorn_route(29_033, 24)
