@@ -29,7 +29,7 @@
 //     accumulators, the value tile read as B MN-major);
 //   - q (once) and the key tiles (pass 1), then key and value tiles (pass 2),
 //     come by cp.async into the 128-byte swizzle that the wgmma descriptors
-//     read, through a ring of kStages stages loaded kStages - 2 steps ahead
+//     read, through a ring of kStagesW stages loaded kStagesW - 2 steps ahead
 //     of use, with one block barrier a step; the keys' biases ride in the
 //     same ring (-inf past t);
 //   - each probability is expf(s - m) * (1 / l), the reciprocal taken once a
@@ -45,6 +45,11 @@
 //     drop_prob_bf16 is done by integer instructions (round_bf16), since the
 //     conversion unit is the one the exponentials need; the Philox rounds
 //     that depend only on the row are taken once a thread (philox_row).
+//
+// The bf16 kernel is one template over the head width (64, 128, 192, 256:
+// wider heads than 64 are padded to the next of them by the wrapper), so the
+// rounding, the Philox mapping and the statistics are the 64-wide kernel's at
+// every width; the bf16 kernel section below says how the tile follows it.
 //
 // Dropout is a compile-time mode (kDrop: 0 none, 1 Philox bits made in the
 // kernel, 2 bits read from an operand).  The bits are a function of the
@@ -77,16 +82,42 @@ using bf16 = __nv_bfloat16;
 struct Strides { long long b, h, t; };
 
 // ---------------------------------------------------------------- bf16 kernel
+// The kernel is one template over the head width kW (64, 128, 192, 256).  A
+// [rows][kW] operand lies in shared memory as kW / 64 column blocks of
+// [rows][64] in the 128-byte swizzle (load_tile_sw128_async): q.k^T steps its
+// descriptors over the blocks (K-major, kW / 16 k-steps), pd.v takes one
+// m64n64k16 product a block (the value tile MN-major) into kW / 64
+// accumulators of 32 floats.  Shared memory and registers set the tile a
+// width takes (BfCfg):
+//   - 64: 64-key tiles, 4 stages (82 KB), 2 blocks an SM at 128 registers;
+//   - 128: 64-key tiles, 4 stages (162 KB): the context is 64 registers a
+//     thread and the block one an SM either way, so the ring is deep;
+//   - 192: 64-key tiles, 3 stages (194 KB: a fourth would pass 227 KB);
+//   - 256: q for 128 rows is 64 KB and a stage of 64 keys 64 KB, so 32-key
+//     tiles (m64n32k16 scores, 16 a thread) and 4 stages of 32 KB (194 KB);
+//     the context takes 128 registers.
+// Two warpgroups a block at every width: the key and value tiles are loaded
+// once for 128 query rows.
 constexpr int kWg = 2;                    // warpgroups a block, 64 query rows each
 constexpr int kBqWg = 64 * kWg;           // query rows a block
 constexpr int kThreadsWg = 128 * kWg;
-constexpr int kStages = 4;                // ring of key (and value) tiles
-constexpr int kAhead = kStages - 2;       // steps loaded ahead of use
-constexpr int kTileSw = kBk * kHd;        // elements of a swizzled [64][64] tile
-// q [128][64], then a key and a value tile a stage (all in the 128-byte
-// swizzle), then the keys' biases a stage; 1 KB to align the base
-constexpr size_t kSmemBf16 = 1024 + (size_t)(kBqWg * kHd + 2 * kStages * kTileSw) * sizeof(bf16) +
-                             (size_t)kStages * kBk * sizeof(float);
+
+template <int kW> struct BfCfg;           // keys a tile, stages of the ring, blocks an SM
+template <> struct BfCfg<64> { static constexpr int bk = 64, stages = 4, blocks = 2; };
+template <> struct BfCfg<128> { static constexpr int bk = 64, stages = 4, blocks = 1; };
+template <> struct BfCfg<192> { static constexpr int bk = 64, stages = 3, blocks = 1; };
+template <> struct BfCfg<256> { static constexpr int bk = 32, stages = 4, blocks = 1; };
+
+// q [128][kW], then a key and a value tile [bk][kW] a stage (all in the
+// 128-byte swizzle), then the keys' biases a stage; 1 KB to align the base
+template <int kW>
+constexpr size_t smem_bf16() {
+  using C = BfCfg<kW>;
+  return 1024 + (size_t)(kBqWg * kW + 2 * C::stages * C::bk * kW) * sizeof(bf16) +
+         (size_t)C::stages * C::bk * sizeof(float);
+}
+static_assert(smem_bf16<64>() == 83968, "the 64-wide kernel keeps its layout");
+static_assert(smem_bf16<192>() <= 232448 && smem_bf16<256>() <= 232448, "one block fits");
 
 struct FwdArgs {
   const bf16 *q, *k, *v;
@@ -101,11 +132,12 @@ struct FwdArgs {
 };
 
 // s = s * scale + bias of the column, in the accumulator layout (s[4 j + i]:
-// rows g (i < 2) and g + 8, columns 8 j + 2 t + (i & 1))
-__device__ __forceinline__ void scale_bias(float (&s)[32], const float* bias_s, float sm_scale,
+// rows g (i < 2) and g + 8, columns 8 j + 2 t + (i & 1)), kN 8-column tiles
+template <int kN>
+__device__ __forceinline__ void scale_bias(float (&s)[4 * kN], const float* bias_s, float sm_scale,
                                            int tq) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kN; ++j) {
     const float2 b = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * tq);
     s[4 * j] = s[4 * j] * sm_scale + b.x;
     s[4 * j + 1] = s[4 * j + 1] * sm_scale + b.y;
@@ -124,19 +156,20 @@ __device__ __forceinline__ float exp_sfu(float x) {
 }
 
 // online max and sum of the rows g (index 0) and g + 8 (index 1) over one tile
-__device__ __forceinline__ void row_stats(const float (&s)[32], float (&m_run)[2],
+template <int kN>
+__device__ __forceinline__ void row_stats(const float (&s)[4 * kN], float (&m_run)[2],
                                           float (&l_run)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    for (int j = 0; j < kN; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m_run[h], mx);
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
       sum += exp_sfu(s[4 * j + 2 * h] - m_new) + exp_sfu(s[4 * j + 2 * h + 1] - m_new);
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -145,12 +178,27 @@ __device__ __forceinline__ void row_stats(const float (&s)[32], float (&m_run)[2
   }
 }
 
-template <int kDrop>
-__global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const FwdArgs a) {
+// S += A . B of one k-step, the score tile 64 (32 at width 256) keys wide
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], unsigned long long a,
+                                             unsigned long long b, int accumulate) {
+  wgmma_m64n64k16_ss(s, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_scores(float (&s)[16], unsigned long long a,
+                                             unsigned long long b, int accumulate) {
+  wgmma_m64n32k16_ss(s, a, b, accumulate);
+}
+
+template <int kW, int kDrop>
+__global__ void __launch_bounds__(kThreadsWg, BfCfg<kW>::blocks) attention_bf16_kernel(const FwdArgs a) {
+  constexpr int kBkW = BfCfg<kW>::bk, kStagesW = BfCfg<kW>::stages;
+  constexpr int kAhead = kStagesW - 2;    // steps loaded ahead of use
+  constexpr int kCb = kW / 64;            // column blocks of a row
+  constexpr int kTileW = kBkW * kW;       // elements of a key (value) tile
+  constexpr int kN = kBkW / 8;            // 8-column accumulator tiles of a score tile
   extern __shared__ unsigned char smem_fwd[];
   bf16* qs = reinterpret_cast<bf16*>(smem_fwd + ((1024 - smem_addr(smem_fwd) % 1024) % 1024));
-  bf16* ring = qs + kBqWg * kHd;          // stage st: keys at ring + 2 st kTileSw, values after them
-  float* bias_ring = reinterpret_cast<float*>(ring + 2 * kStages * kTileSw);
+  bf16* ring = qs + kBqWg * kW;           // stage st: keys at ring + 2 st kTileW, values after them
+  float* bias_ring = reinterpret_cast<float*>(ring + 2 * kStagesW * kTileW);
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3, t = a.t;
@@ -160,19 +208,19 @@ __global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const Fwd
   const bf16* kg = a.k + b * a.ks.b + head * a.ks.h;
   const bf16* vg = a.v + b * a.vs.b + head * a.vs.h;
   const float* bg = a.bias + (long long)b * t;
-  const bf16* qw = qs + wg * 64 * kHd;              // the warpgroup's rows of q
-  const int n = (t + kBk - 1) / kBk;                // key tiles: steps 0 .. n - 1 walk them
+  const bf16* qw = qs + wg * 64 * 64;               // the warpgroup's rows of q (in each block)
+  const int n = (t + kBkW - 1) / kBkW;              // key tiles: steps 0 .. n - 1 walk them
                                                     // for the row stats, n .. 2n - 1 again
 
   // step s: the keys of its tile (and in pass 2 the values) and their biases
-  // into stage s % kStages, which step s - kStages read
+  // into stage s % kStagesW, which step s - kStagesW read
   auto load_step = [&](int s) {
-    const int st = s % kStages, k0 = (s < n ? s : s - n) * kBk;
-    bf16* kd = ring + 2 * st * kTileSw;
-    load_tile_sw128_async<kBk, kThreadsWg>(kd, kg, a.ks.t, k0, t);
-    if (s >= n) load_tile_sw128_async<kBk, kThreadsWg>(kd + kTileSw, vg, a.vs.t, k0, t);
-    if (threadIdx.x < kBk) {
-      float* bd = bias_ring + st * kBk + threadIdx.x;
+    const int st = s % kStagesW, k0 = (s < n ? s : s - n) * kBkW;
+    bf16* kd = ring + 2 * st * kTileW;
+    load_tile_sw128_async<kBkW, kThreadsWg, kW>(kd, kg, a.ks.t, k0, t);
+    if (s >= n) load_tile_sw128_async<kBkW, kThreadsWg, kW>(kd + kTileW, vg, a.vs.t, k0, t);
+    if (threadIdx.x < kBkW) {
+      float* bd = bias_ring + st * kBkW + threadIdx.x;
       if (k0 + (int)threadIdx.x < t) cp_async4(bd, bg + k0 + threadIdx.x);
       else *bd = -INFINITY;               // keys past t: zero weight, no part in the max
     }
@@ -186,22 +234,22 @@ __global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const Fwd
     cp_async_wait<kAhead>();
     fence_proxy_async();                  // the copies, seen by wgmma ...
     __syncthreads();                      // ... for everyone's copies
-    return s % kStages;
+    return s % kStagesW;
   };
-  // S = q.k^T of the warpgroup's 64 rows and the stage's 64 keys, scaled and biased
-  auto scores = [&](float (&s)[32], int st) {
-    const bf16* kt = ring + 2 * st * kTileSw;
+  // S = q.k^T of the warpgroup's 64 rows and the stage's keys, scaled and biased
+  auto scores = [&](float (&s)[4 * kN], int st) {
+    const bf16* kt = ring + 2 * st * kTileW;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk)
-      wgmma_m64n64k16_ss(s, sw128_desc(qw + kk * 16), sw128_desc(kt + kk * 16), kk);
+    for (int kk = 0; kk < kW / 16; ++kk)
+      wgmma_scores(s, kmajor_desc<kBqWg>(qw, kk), kmajor_desc<kBkW>(kt, kk), kk);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_hold(s);
-    scale_bias(s, bias_ring + st * kBk, a.sm_scale, tq);
+    scale_bias<kN>(s, bias_ring + st * kBkW, a.sm_scale, tq);
   };
 
-  load_tile_sw128_async<kBqWg, kThreadsWg>(qs, a.q + b * a.qs.b + head * a.qs.h, a.qs.t, q0, t);
+  load_tile_sw128_async<kBqWg, kThreadsWg, kW>(qs, a.q + b * a.qs.b + head * a.qs.h, a.qs.t, q0, t);
 #pragma unroll
   for (int s = 0; s < kAhead; ++s) {      // q joins step 0's group
     if (s < 2 * n) load_step(s);
@@ -211,9 +259,9 @@ __global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const Fwd
   // pass 1: each row's max and sum
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   for (int j = 0; j < n; ++j) {
-    float s[32];
+    float s[4 * kN];
     scores(s, arrive(j));
-    row_stats(s, m_run, l_run);
+    row_stats<kN>(s, m_run, l_run);
   }
   if (a.stats != nullptr && tq == 0) {    // a training forward leaves them for the backward
     const long long planes_t = (long long)gridDim.z * gridDim.y * t;
@@ -230,16 +278,18 @@ __global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const Fwd
 
   // pass 2: probabilities, mask, context
   const PhiloxRow prow = philox_row(a.drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
-  float o[32];
+  float o[kCb][32];                       // the context, a 64-column block each
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int cb = 0; cb < kCb; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
   for (int j = 0; j < n; ++j) {
-    const int st = arrive(n + j), k0 = j * kBk;
-    float s[32];
+    const int st = arrive(n + j), k0 = j * kBkW;
+    float s[4 * kN];
     scores(s, st);
-    unsigned pa[4][4];   // the A fragments of keys 16 kk .. + 15: normalised in f32, then cast
+    unsigned pa[kBkW / 16][4];   // the A fragments of keys 16 kk .. + 15: normalised in f32, then cast
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {          // 8-column accumulator tile c
+    for (int c = 0; c < kN; ++c) {        // 8-column accumulator tile c
       float p[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = expf(s[4 * c + i] - m_run[i >> 1]) * inv_l[i >> 1];
@@ -253,49 +303,67 @@ __global__ void __launch_bounds__(kThreadsWg, 2) attention_bf16_kernel(const Fwd
       pa[c >> 1][2 * (c & 1)] = pack_bf16(p[0], p[1]);
       pa[c >> 1][2 * (c & 1) + 1] = pack_bf16(p[2], p[3]);
     }
-    const bf16* vt = ring + (2 * st + 1) * kTileSw;
+    const bf16* vt = ring + (2 * st + 1) * kTileW;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk)
-      wgmma_m64n64k16<1>(o, pa[kk], sw128_desc(vt + kk * 16 * kHd), 1);
+    for (int kk = 0; kk < kBkW / 16; ++kk)
+#pragma unroll
+      for (int cb = 0; cb < kCb; ++cb)
+        wgmma_m64n64k16<1>(o[cb], pa[kk], sw128_desc(vt + cb * kBkW * 64 + kk * 16 * 64), 1);
     wgmma_commit();
     wgmma_wait<0>();                      // the stage is read before step j + 2 reloads it
-    wgmma_hold(o);
+#pragma unroll
+    for (int cb = 0; cb < kCb; ++cb) wgmma_hold(o[cb]);
   }
 
   // the warpgroup's rows of q are read by no product any more: the warp
-  // stages its 16 rows of the context there (swizzled, so that neither the
-  // 4-byte writes nor the 16-byte reads meet a bank twice), then stores them
-  // with 16-byte stores
-  bf16* ow = qs + (wg * 64 + warp * 16) * kHd;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int off = ((c ^ g) << 3) + 2 * tq;
-    *reinterpret_cast<unsigned*>(ow + g * kHd + off) = pack_bf16(o[4 * c], o[4 * c + 1]);
-    *reinterpret_cast<unsigned*>(ow + (g + 8) * kHd + off) = pack_bf16(o[4 * c + 2], o[4 * c + 3]);
-  }
-  __syncwarp();
+  // stages its 16 rows of each column block of the context there (swizzled,
+  // so that neither the 4-byte writes nor the 16-byte reads meet a bank
+  // twice), then stores them with 16-byte stores
   bf16* og = a.out + b * a.os.b + head * a.os.h;
   const int row0 = q0 + wg * 64 + warp * 16;
 #pragma unroll
-  for (int idx = lane; idx < 16 * 8; idx += 32) {
-    const int r = idx >> 3, c = idx & 7;
-    if (row0 + r < t)
-      *reinterpret_cast<uint4*>(og + (long long)(row0 + r) * a.os.t + (c << 3)) =
-          *reinterpret_cast<const uint4*>(ow + r * kHd + ((c ^ (r & 7)) << 3));
+  for (int cb = 0; cb < kCb; ++cb) {
+    bf16* ow = qs + cb * kBqWg * 64 + (wg * 64 + warp * 16) * 64;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int off = ((c ^ g) << 3) + 2 * tq;
+      *reinterpret_cast<unsigned*>(ow + g * 64 + off) = pack_bf16(o[cb][4 * c], o[cb][4 * c + 1]);
+      *reinterpret_cast<unsigned*>(ow + (g + 8) * 64 + off) =
+          pack_bf16(o[cb][4 * c + 2], o[cb][4 * c + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int idx = lane; idx < 16 * 8; idx += 32) {
+      const int r = idx >> 3, c = idx & 7;
+      if (row0 + r < t)
+        *reinterpret_cast<uint4*>(og + (long long)(row0 + r) * a.os.t + cb * 64 + (c << 3)) =
+            *reinterpret_cast<const uint4*>(ow + r * 64 + ((c ^ (r & 7)) << 3));
+    }
   }
 }
 
-template <int kDrop>
+template <int kW, int kDrop>
 int launch_bf16(const FwdArgs& a, int b, int nh, void* stream) {
   // above 48 KB of dynamic shared memory a kernel has to opt in
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<kDrop>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<kW, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBf16);
+                                         (int)smem_bf16<kW>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.t + kBqWg - 1) / kBqWg, nh, b);
-  attention_bf16_kernel<kDrop><<<grid, kThreadsWg, kSmemBf16, (cudaStream_t)stream>>>(a);
+  attention_bf16_kernel<kW, kDrop><<<grid, kThreadsWg, smem_bf16<kW>(), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int kDrop>
+int launch_bf16_at(int hd, const FwdArgs& a, int b, int nh, void* stream) {
+  switch (hd) {
+    case 64: return launch_bf16<64, kDrop>(a, b, nh, stream);
+    case 128: return launch_bf16<128, kDrop>(a, b, nh, stream);
+    case 192: return launch_bf16<192, kDrop>(a, b, nh, stream);
+    case 256: return launch_bf16<256, kDrop>(a, b, nh, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------- f32 kernels: 3xTF32
@@ -730,13 +798,15 @@ bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65
 
 }  // namespace
 
-// mode: 0 no dropout, 1 Philox bits from (seed, c0), 2 bits from the operand;
+// hd: the head width, 64, 128, 192 or 256 (bf16; f32 takes 64 here and the
+// wider heads in attention_wide.cu); mode: 0 no dropout, 1 Philox bits from
+// (seed, c0), 2 bits from the operand;
 // plane0: the place of plane 0 in the whole batch (its Philox counter);
 // keep_div: 1 - p rounded to the compute type; stats: null, or a [2 or more,
 // b * nh, t] f32 array that receives each row's max (plane 0) and sum (plane
 // 1) for the backward
 extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v, const void* bias,
-                                     void* out, int b, int nh, int t, long long qsb, long long qsh,
+                                     void* out, int b, int nh, int t, int hd, long long qsb, long long qsh,
                                      long long qst, long long ksb, long long ksh, long long kst,
                                      long long vsb, long long vsh, long long vst, long long osb,
                                      long long osh, long long ost, float sm_scale, int mode,
@@ -751,9 +821,9 @@ extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v
   a.sm_scale = sm_scale;
   a.inv_keep = 1.f / keep_div;            // as the backward takes it (attention_bwd.cu)
   a.drop = Drop{seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits, plane0, 0u};
-  if (mode == 0) return launch_bf16<0>(a, b, nh, stream);
-  if (mode == 1) return launch_bf16<1>(a, b, nh, stream);
-  if (mode == 2 && bits != nullptr) return launch_bf16<2>(a, b, nh, stream);
+  if (mode == 0) return launch_bf16_at<0>(hd, a, b, nh, stream);
+  if (mode == 1) return launch_bf16_at<1>(hd, a, b, nh, stream);
+  if (mode == 2 && bits != nullptr) return launch_bf16_at<2>(hd, a, b, nh, stream);
   return (int)cudaErrorInvalidValue;
 }
 

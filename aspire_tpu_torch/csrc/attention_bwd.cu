@@ -17,7 +17,8 @@
 // cores run asynchronously beside the elementwise work, and tile loads overlap
 // the math.
 //
-// bf16, three launches a backward:
+// bf16, three launches a backward (at 64-wide heads; the wider ones take the
+// same three steps on wgmma alone, below the 64-wide kernels):
 //
 //   delta  delta = rowsum(g * ctx) of every row, into plane 2 of the
 //          [3, b * heads, t] f32 statistics (8 lanes a row, one pass over g
@@ -108,19 +109,24 @@ constexpr int kDeltaRows = 32;   // rows a block of the delta pass (8 lanes a ro
 
 __device__ __forceinline__ int padded(int t) { return (t + 63) & ~63; }
 
+// kW: the head width; lane c of a row takes columns 8 c .. + 7 of each 64
+template <int kW>
 __global__ void __launch_bounds__(kDeltaRows * 8) bwd_delta_bf16_kernel(BwdArgs a) {
   const int head = blockIdx.y, b = blockIdx.z, t = a.t;
   const int row = blockIdx.x * kDeltaRows + (threadIdx.x >> 3), c = (threadIdx.x & 7) * 8;
   float sum = 0.f;
   if (row < t) {
-    const uint4 gv = *reinterpret_cast<const uint4*>(head_ptr<bf16>(a.g, a.gs, b, head) +
-                                                     (long long)row * a.gs.t + c);
-    const uint4 ov = *reinterpret_cast<const uint4*>(head_ptr<bf16>(a.out, a.os, b, head) +
-                                                     (long long)row * a.os.t + c);
-    const bf16* gp = reinterpret_cast<const bf16*>(&gv);
-    const bf16* op = reinterpret_cast<const bf16*>(&ov);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sum += __bfloat162float(gp[i]) * __bfloat162float(op[i]);
+    for (int cb = 0; cb < kW / 64; ++cb) {
+      const uint4 gv = *reinterpret_cast<const uint4*>(head_ptr<bf16>(a.g, a.gs, b, head) +
+                                                       (long long)row * a.gs.t + cb * 64 + c);
+      const uint4 ov = *reinterpret_cast<const uint4*>(head_ptr<bf16>(a.out, a.os, b, head) +
+                                                       (long long)row * a.os.t + cb * 64 + c);
+      const bf16* gp = reinterpret_cast<const bf16*>(&gv);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += __bfloat162float(gp[i]) * __bfloat162float(op[i]);
+    }
   }
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -420,8 +426,8 @@ int launch_bf16(const BwdArgs& a, int b, int nh, void* stream) {
                                          (int)kSmemKeysBf16);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  bwd_delta_bf16_kernel<<<dim3((a.t + kDeltaRows - 1) / kDeltaRows, nh, b), kDeltaRows * 8, 0,
-                          s>>>(a);
+  bwd_delta_bf16_kernel<kHd><<<dim3((a.t + kDeltaRows - 1) / kDeltaRows, nh, b), kDeltaRows * 8,
+                               0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.t + 63) / 64, nh, b);
@@ -430,6 +436,314 @@ int launch_bf16(const BwdArgs& a, int b, int nh, void* stream) {
   if (err != cudaSuccess) return (int)err;
   bwd_dq_bf16_kernel<<<grid, kThreads, kSmemDqBf16, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16, heads of 128 to 256
+// The same three launches at the wide widths kW (128, 192, 256), with the
+// products on wgmma and every [rows][kW] operand in shared memory as kW / 64
+// column blocks in the 128-byte swizzle (load_tile_sw128_async):
+//
+//   delta  bwd_delta_bf16_kernel<kW>, 8 lanes a row, kW / 64 loads a lane.
+//   keys   bwd_keys_wide_kernel: one warpgroup per 64 keys, walking the query
+//          tiles as the 64-wide keys kernel does (S^T = k.q^T and dpd^T =
+//          v.g^T of 16 query rows a step, the next step's in flight, the mask
+//          drawn once, the same elementwise arithmetic), but k and v are read
+//          from shared memory as A descriptors (m64n16k16, both operands
+//          K-major) and the kernel keeps dv alone: dv += pd^T . g, one
+//          m64n64k16 a column block (g MN-major).  ds^T goes to the scratch.
+//   ds     bwd_ds_wide_kernel: dq = ds . k (blocks [0, tp / 64): 64 query
+//          rows each) and dk = ds^T . q (blocks [tp / 64, 2 tp / 64): 64 keys
+//          each) in one launch, both from the scratch: A a [64][64] tile of
+//          ds^T (MN-major for dq, K-major for dk), B the [64][kW] tile of k or
+//          q (MN-major), m64n64k16 a column block, through a 4-stage cp.async
+//          ring.
+//
+// Why dk leaves the keys kernel: its accumulator is kW / 2 registers a
+// thread, as dv's is, and at 256 the two alone are 256, past the 255 a
+// thread can have; k and v as register A fragments would be another kW / 2.
+// ds^T is in the scratch for dq anyway: dk reads it once more (at [30, 6,
+// 512, 128] 94 MB, 0.03 ms of bytes) in place of a second accumulator, and
+// every product is still computed once (five of 2 t t kW).  Shared memory
+// of the keys kernel: k, v, two buffers of q and g, staging: 108 KB at 128
+// (two blocks an SM), 156 KB at 192, 204 KB at 256 (one).
+template <int kW>
+constexpr size_t smem_keys_wide() {
+  return 1024 + (size_t)6 * 64 * kW * sizeof(bf16) + 2 * 3 * 64 * sizeof(float) +
+         (size_t)kWarps * 16 * kLd * sizeof(bf16);
+}
+static_assert(smem_keys_wide<256>() <= 232448, "the widest keys kernel fits one block");
+
+constexpr int kStagesDs = 4;              // the ds kernel's ring
+template <int kW>
+constexpr size_t smem_ds_wide() {
+  return 1024 + (size_t)kStagesDs * (64 * 64 + 64 * kW) * sizeof(bf16) +
+         (size_t)kWarps * 16 * kLd * sizeof(bf16);
+}
+
+// S^T = k . q^T and dpd^T = v . g^T of 64 keys and 16 query rows, k and v
+// read from shared memory: k, v the [64][kW] key tiles, q, g the query
+// tiles (64 rows a column block) from the step's first row on; one commit group
+template <int kW>
+__device__ __forceinline__ void start_scores_wide(float (&s)[8], float (&dp)[8], const bf16* k,
+                                                  const bf16* v, const bf16* q, const bf16* g) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kW / 16; ++kk)
+    wgmma_m64n16k16_ss(s, kmajor_desc<64>(k, kk), kmajor_desc<64>(q, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < kW / 16; ++kk)
+    wgmma_m64n16k16_ss(dp, kmajor_desc<64>(v, kk), kmajor_desc<64>(g, kk), kk);
+  wgmma_commit();
+}
+
+// a warp's 16 rows of a [64, kW] accumulator (acc[cb]: columns 64 cb ..) as
+// bf16, staged a column block at a time in its rows of `stage`
+template <int kW>
+__device__ __forceinline__ void store_wide_bf16(const float (&acc)[kW / 64][32], bf16* stage_w,
+                                                bf16* dst, long long stride, int row0, int t,
+                                                int lane) {
+#pragma unroll
+  for (int cb = 0; cb < kW / 64; ++cb) {
+    float tile[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tile[i >> 2][i & 3] = acc[cb][i];
+    store_acc_bf16(tile, stage_w, dst + cb * 64, stride, row0, t, lane);
+  }
+}
+
+template <int kW, int kDrop>
+__global__ void __launch_bounds__(kThreads) bwd_keys_wide_kernel(BwdArgs a) {
+  constexpr int kCb = kW / 64, kTile = 64 * kW;
+  extern __shared__ unsigned char smem_kw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_kw + ((1024 - smem_addr(smem_kw) % 1024) % 1024));
+  bf16* vs = ks + kTile;
+  bf16* qs = vs + kTile;                  // [2 buffers][kTile]
+  bf16* gs = qs + 2 * kTile;              // [2 buffers][kTile]
+  float* st_s = reinterpret_cast<float*>(gs + 2 * kTile);   // [2 buffers][m, 1/l, delta][64]
+  bf16* stage = reinterpret_cast<bf16*>(st_s + 2 * 192);     // [warp][16][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * kBk, head = blockIdx.y, b = blockIdx.z, t = a.t;
+  const int plane = b * gridDim.y + head, tp = padded(t), kw = k0 + warp * 16;
+  const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+  const float* st = a.stats + (long long)plane * t;
+  const bf16* qg = head_ptr<bf16>(a.q, a.qs, b, head);
+  const bf16* gg = head_ptr<bf16>(a.g, a.gs, b, head);
+  bf16* ds_g = a.scratch + ((long long)plane * tp + kw) * tp;   // the warp's 16 rows of ds^T
+  bf16* ds_w = stage + warp * 16 * kLd;                          // their staging
+
+  load_tile_sw128_async<64, kThreads, kW>(ks, head_ptr<bf16>(a.k, a.ks, b, head), a.ks.t, k0, t);
+  load_tile_sw128_async<64, kThreads, kW>(vs, head_ptr<bf16>(a.v, a.vs, b, head), a.vs.t, k0, t);
+  load_tile_sw128_async<64, kThreads, kW>(qs, qg, a.qs.t, 0, t);
+  load_tile_sw128_async<64, kThreads, kW>(gs, gg, a.gs.t, 0, t);
+  cp_async_commit();
+  if (threadIdx.x < kBq) {
+    const RowStats r = load_row_stats(st, planes_t, threadIdx.x, t);
+    st_s[threadIdx.x] = r.m;
+    st_s[64 + threadIdx.x] = r.inv_l;
+    st_s[128 + threadIdx.x] = r.delta;
+  }
+  // bias of the warp's keys g and g + 8, the rows of its transposed tile
+  const float bias0 = kw + g < t ? a.bias[(long long)b * t + kw + g] : -INFINITY;
+  const float bias1 = kw + g + 8 < t ? a.bias[(long long)b * t + kw + g + 8] : -INFINITY;
+
+  float dv[kCb][32];   // [64 keys, kW] of the warpgroup, a 64-column block each
+#pragma unroll
+  for (int cb = 0; cb < kCb; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[cb][i] = 0.f;
+
+  const int n_tiles = (t + kBq - 1) / kBq;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1, q0 = it * kBq;
+    const bool more = it + 1 < n_tiles;
+    RowStats next = {0.f, 1.f, 0.f};
+    if (more) {                   // tile it + 1 into the other buffers, in flight during the math
+      load_tile_sw128_async<64, kThreads, kW>(qs + (buf ^ 1) * kTile, qg, a.qs.t, q0 + kBq, t);
+      load_tile_sw128_async<64, kThreads, kW>(gs + (buf ^ 1) * kTile, gg, a.gs.t, q0 + kBq, t);
+      if (threadIdx.x < kBq) next = load_row_stats(st, planes_t, q0 + kBq + threadIdx.x, t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();           // tile it (and the key tiles) landed: this thread's copies ...
+    fence_proxy_async();          // ... seen by wgmma ...
+    __syncthreads();              // ... for everyone's copies
+    const bf16* qb = qs + buf * kTile;
+    const bf16* gb = gs + buf * kTile;
+    const float* sb = st_s + buf * 192;
+    // 16 query rows a step, two steps in flight (as the 64-wide keys kernel)
+    float s[2][8], dp[2][8];
+    start_scores_wide<kW>(s[0], dp[0], ks, vs, qb, gb);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c < 3) start_scores_wide<kW>(s[(c + 1) & 1], dp[(c + 1) & 1], ks, vs,
+                                       qb + (c + 1) * 16 * 64, gb + (c + 1) * 16 * 64);
+      unsigned bits[2][4];
+      if constexpr (kDrop != 0) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          acc_bits_t<kDrop>(a.drop, plane, t, kw, q0 + c * 16 + nt * 8, lane, bits[nt]);
+      }
+      if (c < 3) wgmma_wait<1>(); else wgmma_wait<0>();   // step c's scores (and step c - 1's dv)
+      wgmma_hold(s[c & 1]);
+      wgmma_hold(dp[c & 1]);
+      unsigned pa[4];   // pd^T of the step as an A fragment
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = c * 16 + nt * 8 + 2 * tq;   // the thread's rows r, r + 1 of the tile
+        const float2 m2 = *reinterpret_cast<const float2*>(sb + r);
+        const float2 il2 = *reinterpret_cast<const float2*>(sb + 64 + r);
+        const float2 d2 = *reinterpret_cast<const float2*>(sb + 128 + r);
+        float pdv[4], dsv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float m = (i & 1) ? m2.y : m2.x, inv_l = (i & 1) ? il2.y : il2.x;
+          const float delta = (i & 1) ? d2.y : d2.x;
+          const float sv = s[c & 1][4 * nt + i] * a.sm_scale + ((i >> 1) ? bias1 : bias0);
+          const float probs = expf(sv - m) * inv_l;
+          float dprobs = dp[c & 1][4 * nt + i];
+          pdv[i] = probs;
+          if constexpr (kDrop != 0) {
+            const bool keep = bits[nt][i] >= a.drop.thresh;
+            dprobs = keep ? dprobs * a.inv_keep32 : 0.f;
+            pdv[i] = keep ? __bfloat162float(__float2bfloat16_rn(probs)) * a.inv_keep : 0.f;
+          }
+          dsv[i] = (probs * (dprobs - delta)) * a.sm_scale;
+        }
+        // A layout: a0 (key g, rows 2t..), a1 (key g + 8), a2 / a3 the same 8 rows on
+        pa[2 * nt] = pack_bf16(pdv[0], pdv[1]);
+        pa[2 * nt + 1] = pack_bf16(pdv[2], pdv[3]);
+        *reinterpret_cast<unsigned*>(ds_w + g * kLd + r) = pack_bf16(dsv[0], dsv[1]);
+        *reinterpret_cast<unsigned*>(ds_w + (g + 8) * kLd + r) = pack_bf16(dsv[2], dsv[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < kCb; ++cb)
+        wgmma_m64n64k16<1>(dv[cb], pa, sw128_desc(gb + cb * 64 * 64 + c * 16 * 64), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();              // the tile's buffers and the A registers are read
+#pragma unroll
+    for (int cb = 0; cb < kCb; ++cb) wgmma_hold(dv[cb]);
+    __syncwarp();
+    // the warp's 16 rows of ds^T for this tile's 64 query rows: 16-byte stores
+#pragma unroll
+    for (int idx = lane; idx < 16 * 8; idx += 32) {
+      const int r = idx >> 3, cv = (idx & 7) * 8;
+      *reinterpret_cast<uint4*>(ds_g + (long long)r * tp + q0 + cv) =
+          *reinterpret_cast<const uint4*>(ds_w + r * kLd + cv);
+    }
+    if (more && threadIdx.x < kBq) {   // buffer buf ^ 1 was last read before this tile's barrier
+      float* nb = st_s + (buf ^ 1) * 192;
+      nb[threadIdx.x] = next.m;
+      nb[64 + threadIdx.x] = next.inv_l;
+      nb[128 + threadIdx.x] = next.delta;
+    }
+    __syncthreads();              // buffers buf are free for tile it + 2
+  }
+  store_wide_bf16<kW>(dv, ds_w, head_ptr<bf16>(a.dv, a.dvs, b, head), a.dvs.t, kw, t, lane);
+}
+
+// dq of 64 query rows (blocks [0, tp / 64)) or dk of 64 keys (the rest) from
+// the ds^T scratch: the contraction walks 64 keys (dq) or 64 query rows (dk)
+// a step
+template <int kW>
+__global__ void __launch_bounds__(kThreads) bwd_ds_wide_kernel(BwdArgs a) {
+  constexpr int kCb = kW / 64, kStage = 64 * 64 + 64 * kW;   // elements: ds^T tile, k or q tile
+  constexpr int kAhead = kStagesDs - 2;
+  extern __shared__ unsigned char smem_dsw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_dsw + ((1024 - smem_addr(smem_dsw) % 1024) % 1024));
+  bf16* stage = ring + kStagesDs * kStage;  // [warp][16][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int head = blockIdx.y, b = blockIdx.z, t = a.t;
+  const int plane = b * gridDim.y + head, tp = padded(t), n = tp / 64;
+  const bool dq = (int)blockIdx.x < n;
+  const int r0 = (dq ? blockIdx.x : blockIdx.x - n) * 64;   // the block's query rows or keys
+  const bf16* ds_p = a.scratch + (long long)plane * tp * tp;  // ds^T: [keys][query rows]
+  // B: k's rows (dq) or q's rows (dk), the contraction's index
+  const bf16* bsrc = dq ? head_ptr<bf16>(a.k, a.ks, b, head) : head_ptr<bf16>(a.q, a.qs, b, head);
+  const long long bstride = dq ? a.ks.t : a.qs.t;
+
+  // step i: ds^T rows i * 64 .. at columns r0 .. (dq: [keys][rows], read as A
+  // MN-major) or rows r0 .. at columns i * 64 .. (dk: [keys][rows], A K-major),
+  // and rows i * 64 .. of k or q
+  auto load_step = [&](int i) {
+    bf16* d = ring + (i % kStagesDs) * kStage;
+    if (dq) load_tile_sw128_async<64, kThreads, 64>(d, ds_p + r0, tp, i * 64, tp);
+    else load_tile_sw128_async<64, kThreads, 64>(d, ds_p + i * 64, tp, r0, tp);
+    load_tile_sw128_async<64, kThreads, kW>(d + 64 * 64, bsrc, bstride, i * 64, t);
+  };
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+    if (i < n) load_step(i);
+    cp_async_commit();
+  }
+  float acc[kCb][32];
+#pragma unroll
+  for (int cb = 0; cb < kCb; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    // one barrier a step, as the forward's ring: the stage loaded here was
+    // last read in step i - 2, whose products every thread waited for
+    if (i + kAhead < n) load_step(i + kAhead);
+    cp_async_commit();
+    cp_async_wait<kAhead>();
+    fence_proxy_async();
+    __syncthreads();
+    const bf16* at = ring + (i % kStagesDs) * kStage;
+    const bf16* bt = at + 64 * 64;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int cb = 0; cb < kCb; ++cb) {
+        const unsigned long long db = sw128_desc(bt + cb * 64 * 64 + kk * 16 * 64);
+        if (dq) wgmma_m64n64k16_ss<1, 1>(acc[cb], sw128_desc(at + kk * 16 * 64), db, 1);
+        else wgmma_m64n64k16_ss<0, 1>(acc[cb], sw128_desc(at + kk * 16), db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < kCb; ++cb) wgmma_hold(acc[cb]);
+  }
+  bf16* dst = dq ? head_ptr<bf16>(a.dq, a.dqs, b, head) : head_ptr<bf16>(a.dk, a.dks, b, head);
+  store_wide_bf16<kW>(acc, stage + warp * 16 * kLd, dst, dq ? a.dqs.t : a.dks.t, r0 + warp * 16,
+                      t, lane);
+}
+
+template <int kW, int kDrop>
+int launch_bf16_wide(const BwdArgs& a, int b, int nh, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(bwd_keys_wide_kernel<kW, kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_keys_wide<kW>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_ds_wide_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_ds_wide<kW>());
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  bwd_delta_bf16_kernel<kW><<<dim3((a.t + kDeltaRows - 1) / kDeltaRows, nh, b), kDeltaRows * 8,
+                              0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.t + 63) / 64;
+  bwd_keys_wide_kernel<kW, kDrop><<<dim3(tiles, nh, b), kThreads, smem_keys_wide<kW>(), s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_ds_wide_kernel<kW><<<dim3(2 * tiles, nh, b), kThreads, smem_ds_wide<kW>(), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int kDrop>
+int launch_bf16_at(int hd, const BwdArgs& a, int b, int nh, void* stream) {
+  switch (hd) {
+    case 64: return launch_bf16<kDrop>(a, b, nh, stream);
+    case 128: return launch_bf16_wide<128, kDrop>(a, b, nh, stream);
+    case 192: return launch_bf16_wide<192, kDrop>(a, b, nh, stream);
+    case 256: return launch_bf16_wide<256, kDrop>(a, b, nh, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ==================================================================== f32 ====
@@ -745,12 +1059,14 @@ bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65
 // strides: (batch, head, token) of q, k, v, g, out, dq, dk, dv; stats: the
 // [3, b * nh, t] f32 array whose planes 0 and 1 the forward filled (plane 2
 // receives delta); scratch: bf16 [b * nh, tp, tp] with tp = t rounded up to 64
-// (ds^T, bf16 only); mode and plane0 as in the forward.  bf16 launches three
-// kernels (delta, keys, dq), f32 two (rows, keys).
+// (ds^T, bf16 only); hd (bf16): the head width, 64, 128, 192 or 256 (f32
+// takes 64 here and the wider heads in attention_wide.cu); mode and plane0 as
+// in the forward.  bf16 launches three kernels (delta, keys, dq; at the wide
+// widths delta, keys, ds), f32 two (rows, keys).
 extern "C" int aspire_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                          const void* bias, const void* g, const void* out,
                                          void* dq, void* dk, void* dv, void* stats, void* scratch,
-                                         int b, int nh, int t, const long long* strides,
+                                         int b, int nh, int t, int hd, const long long* strides,
                                          float sm_scale, int mode, unsigned long long seed,
                                          unsigned c0, unsigned thresh, unsigned plane0,
                                          float keep_div, float keep_div32, const void* bits,
@@ -758,9 +1074,9 @@ extern "C" int aspire_attention_bwd_bf16(const void* q, const void* k, const voi
   if (bad_grid(b, nh, t) || scratch == nullptr) return (int)cudaErrorInvalidValue;
   const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, scratch, t, strides,
                               sm_scale, seed, c0, thresh, plane0, keep_div, keep_div32, bits);
-  if (mode == 0) return launch_bf16<0>(a, b, nh, stream);
-  if (mode == 1) return launch_bf16<1>(a, b, nh, stream);
-  if (mode == 2 && bits != nullptr) return launch_bf16<2>(a, b, nh, stream);
+  if (mode == 0) return launch_bf16_at<0>(hd, a, b, nh, stream);
+  if (mode == 1) return launch_bf16_at<1>(hd, a, b, nh, stream);
+  if (mode == 2 && bits != nullptr) return launch_bf16_at<2>(hd, a, b, nh, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,19 +33,33 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   }
 }
 
-// kTileRows rows from row0 on into the 128-byte-swizzled layout that wgmma
-// descriptors read (common.cuh): rows of 128 bytes, dst 1024-byte aligned; the
-// block's first kNThreads threads share the copies
-template <int kTileRows = kBk, int kNThreads = kThreads>
+// kTileRows rows from row0 on of a [t, kW] matrix into the 128-byte-swizzled
+// layout that wgmma descriptors read (common.cuh): rows of 128 bytes, dst
+// 1024-byte aligned; a row wider than 64 goes to kW / 64 column blocks of
+// [kTileRows][64], block cb at dst + cb * kTileRows * 64 (a K-major operand
+// steps its descriptor over the blocks, an MN-major one takes a product a
+// block).  The block's first kNThreads threads share the copies.
+template <int kTileRows = kBk, int kNThreads = kThreads, int kW = kHd>
 __device__ __forceinline__ void load_tile_sw128_async(__nv_bfloat16* dst,
                                                       const __nv_bfloat16* src, long long stride,
                                                       int row0, int t) {
-  for (int idx = threadIdx.x; idx < kTileRows * 8; idx += kNThreads) {
-    const int r = idx >> 3, c = idx & 7;
+  constexpr unsigned kChunks = kW / 8;   // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < kTileRows * (int)kChunks; idx += kNThreads) {
+    // unsigned: at kW = 64 a shift and a mask, and the block index folds
+    // away (a signed division cost the 64-wide kernels registers)
+    const int r = (unsigned)idx / kChunks, c = (unsigned)idx % kChunks;
     const bool valid = row0 + r < t;
-    cp_async16(dst + r * kHd + ((c ^ (r & 7)) << 3),
+    cp_async16(dst + (c >> 3) * kTileRows * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3),
                valid ? src + (long long)(row0 + r) * stride + (c << 3) : src, valid);
   }
+}
+
+// The descriptor of k-step kk (16 columns) of a K-major operand stored as
+// column blocks of kRows rows (load_tile_sw128_async): block kk / 4, 32 bytes
+// a step inside it
+template <int kRows>
+__device__ __forceinline__ unsigned long long kmajor_desc(const __nv_bfloat16* tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kRows * 64 + (kk & 3) * 16);
 }
 
 // acc[16, 64] += a[16, 16] . b[16j .. 16j + 15] for a tile b[64][64] ([k][n],

@@ -1,42 +1,42 @@
-// Fused attention at head widths above 64: softmax(q.k^T * scale + bias)
-// [dropout] . v, forward and backward, bf16 and f32.
+// Fused attention at head widths above 64 in f32: softmax(q.k^T * scale +
+// bias) [dropout] . v, forward and backward.  (bf16 heads of every width run
+// csrc/attention.cu and csrc/attention_bwd.cu, on wgmma.)
 //
 // Takes the place of the TPU kernels aspire_tpu/ops/pallas_attention.py
-// (_fwd_kernel and _bwd_kernel) at the widths that csrc/attention.cu and
-// csrc/attention_bwd.cu do not take: the Pallas kernels hold whole [t, hd]
-// heads of any hd, the 64-wide kernels one width.  The wrapper pads a head of
-// width 64 < hd <= 256 with zero columns to kHd = 128, 192 or 256
+// (_fwd_kernel and _bwd_kernel) at the widths that the f32 kernels of
+// csrc/attention.cu and csrc/attention_bwd.cu do not take: the Pallas kernels
+// hold whole [t, hd] heads of any hd, those one width.  The wrapper pads a
+// head of width 64 < hd <= 256 with zero columns to kHd = 128, 192 or 256
 // (ops/attention_kernel.py `head_route`), which changes no result.
 //
-// What bounds it: the products.  At [30, 6, 512, 128] the forward's three
-// products of 2 t t hd (q.k^T in each of two walks, pd.v) are 36 GFLOP and the
-// backward's seven (scores and dpd in each of its two kernels, dq, dk, dv) 85;
-// the bytes are 0.05 GB.  This first design runs every product on the FP32
-// lanes (67 TFLOP/s at most), fed from shared memory, and is simple rather
-// than fast:
+// What bounds it: the products.  At [4, 6, 512, 128] the forward's three
+// products of 2 t t hd (q.k^T in each of two walks, pd.v) are 4.8 GFLOP and the
+// backward's seven (scores and dpd in each of its two kernels, dq, dk, dv)
+// 11.3.  This first design runs every product on the FP32 lanes (67 TFLOP/s
+// at most), in true f32, fed from shared memory, and is simple rather than
+// fast:
 //
 //   - every operand tile lives in shared memory as f32, rows of kHd + 4
 //     floats (16-byte rows, and the float4 reads of 8 neighbouring rows fall
-//     on 32 different banks); bf16 inputs are widened on the way in (exact);
+//     on 32 different banks);
 //   - a block of 256 threads, ty = thread / 16 and tx = thread % 16, computes
 //     a [64 query rows, 32 keys] tile of scores: thread (ty, tx) the rows
 //     ty + 16 i (i < 4) at the keys tx + 16 j (j < 2), each score one chain
 //     of FMAs over d = 0, 1, ... kHd - 1 (`dot_tile`).  Every kernel here
 //     computes its scores with that one function, so the backward recomputes
-//     the forward's scores, probabilities and pd bit for bit;
+//     the forward's scores and probabilities bit for bit;
 //   - a [rows, kHd] sum (context, dq, dk, dv) is owned by thread (ty, tx) at
 //     the rows ty + 16 i and the columns 4 tx + 64 c .. + 3, read from a
 //     [rows][keys] tile of probabilities (or ds) in shared memory.
 //
 // Rounding follows csrc/attention.cu: the forward walks the keys twice, first
 // each row's max m and sum l (online, expf), then probs = expf(s - m) * (1 /
-// l), cast to the compute type (bf16: round to nearest even), with dropout
-// bf16(bf16(probs) * (1 / bf16(1 - p))) (f32: probs * (1 / (1 - p))), the
-// dropped ones zero, and ctx = pd . v summed in f32, cast on store.  m and l
-// go to planes 0 and 1 of the [3, b * heads, t] statistics when asked for.
-// The mask word of an element is keyed on (plane, query row, key / 4)
-// (common.cuh), a Philox4x32-10 call an element (four threads share a call's
-// counter; each keeps its own word), or read from the bits operand.
+// l), with dropout probs * (1 / (1 - p)), the dropped ones zero, and ctx =
+// pd . v summed in f32.  m and l go to planes 0 and 1 of the [3, b * heads, t]
+// statistics when asked for.  The mask word of an element is keyed on
+// (plane, query row, key / 4) (common.cuh), a Philox4x32-10 call an element
+// (four threads share a call's counter; each keeps its own word), or read
+// from the bits operand.
 //
 // The backward is two launches, as the f32 one of attention_bwd.cu: a rows
 // kernel (delta = rowsum(g * ctx) into plane 2, then dq = ds . k) and a keys
@@ -48,7 +48,6 @@
 namespace {
 
 using namespace aspire;
-using bf16 = __nv_bfloat16;
 
 constexpr int kBq = 64;              // query rows a tile
 constexpr int kBk = 32;              // keys a tile
@@ -57,34 +56,15 @@ constexpr int kLdS = kBk + 1;        // pitch of a [rows][keys] tile
 
 struct Strides { long long b, h, t; };
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
+__device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-template <>
-__device__ __forceinline__ float4 load4<bf16>(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);   // the lower address in the low half
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<bf16>(bf16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
 // rows r0 .. r0 + rows - 1 of a [t, kHd] head into dst [rows][kHd + 4] as f32,
 // zeros past t
-template <typename T, int kHd>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long ld, int r0, int rows,
+template <int kHd>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ld, int r0, int rows,
                                           int t) {
   constexpr int kQuads = kHd / 4;
   for (int idx = threadIdx.x; idx < rows * kQuads; idx += kThreads) {
@@ -205,17 +185,7 @@ __device__ __forceinline__ float score(float dot, float sm_scale, float bias) {
 }
 
 // pd: the probability as the context's product takes it
-template <typename T>
-__device__ __forceinline__ float drop_prob(float probs, bool keep, bool dropout, float inv_keep);
-template <>
-__device__ __forceinline__ float drop_prob<bf16>(float probs, bool keep, bool dropout,
-                                                 float inv_keep) {
-  if (!dropout) return round_bf16(probs);
-  return round_bf16(drop_prob_bf16(probs, keep, inv_keep));
-}
-template <>
-__device__ __forceinline__ float drop_prob<float>(float probs, bool keep, bool dropout,
-                                                  float inv_keep) {
+__device__ __forceinline__ float drop_prob(float probs, bool keep, bool dropout, float inv_keep) {
   if (!dropout) return probs;
   const float k = probs * inv_keep;
   return keep ? k : 0.f;
@@ -234,13 +204,11 @@ struct Args {
   Drop drop;
 };
 
-template <typename T>
-__device__ __forceinline__ const T* head(const void* p, const Strides& s, int b, int h) {
-  return reinterpret_cast<const T*>(p) + b * s.b + h * s.h;
+__device__ __forceinline__ const float* head(const void* p, const Strides& s, int b, int h) {
+  return reinterpret_cast<const float*>(p) + b * s.b + h * s.h;
 }
-template <typename T>
-__device__ __forceinline__ T* head(void* p, const Strides& s, int b, int h) {
-  return reinterpret_cast<T*>(p) + b * s.b + h * s.h;
+__device__ __forceinline__ float* head(void* p, const Strides& s, int b, int h) {
+  return reinterpret_cast<float*>(p) + b * s.b + h * s.h;
 }
 
 // key tile k0 .. k0 + kBk - 1 of a head's bias into bias_s (-inf past t)
@@ -267,7 +235,7 @@ constexpr size_t keys_smem() {
 
 // ------------------------------------------------------------------- forward
 // grid (ceil(t / kBq), heads, batch)
-template <typename T, int kHd>
+template <int kHd>
 __global__ void __launch_bounds__(kThreads) attention_wide_fwd_kernel(const Args a) {
   constexpr int kLd = kHd + 4;
   extern __shared__ __align__(16) float smem_wide[];
@@ -279,11 +247,11 @@ __global__ void __launch_bounds__(kThreads) attention_wide_fwd_kernel(const Args
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int q0 = blockIdx.x * kBq, hh = blockIdx.y, b = blockIdx.z, t = a.t;
   const int plane = b * gridDim.y + hh;
-  const T* kg = head<T>(a.k, a.ks, b, hh);
-  const T* vg = head<T>(a.v, a.vs, b, hh);
+  const float* kg = head(a.k, a.ks, b, hh);
+  const float* vg = head(a.v, a.vs, b, hh);
   const float* bg = a.bias + (long long)b * t;
   const int n = (t + kBk - 1) / kBk;
-  load_rows<T, kHd>(qs, head<T>(a.q, a.qs, b, hh), a.qs.t, q0, kBq, t);
+  load_rows<kHd>(qs, head(a.q, a.qs, b, hh), a.qs.t, q0, kBq, t);
 
   // walk 1: each row's max and sum
   float m[4], l[4];
@@ -291,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) attention_wide_fwd_kernel(const Args
   for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
   for (int j = 0; j < n; ++j) {
     __syncthreads();                     // the last tile's readers are done
-    load_rows<T, kHd>(ks, kg, a.ks.t, j * kBk, kBk, t);
+    load_rows<kHd>(ks, kg, a.ks.t, j * kBk, kBk, t);
     load_bias(bias_s, bg, j * kBk, t);
     __syncthreads();
     float s[4][2];
@@ -330,8 +298,8 @@ __global__ void __launch_bounds__(kThreads) attention_wide_fwd_kernel(const Args
   for (int j = 0; j < n; ++j) {
     const int k0 = j * kBk;
     __syncthreads();
-    load_rows<T, kHd>(ks, kg, a.ks.t, k0, kBk, t);
-    load_rows<T, kHd>(vs, vg, a.vs.t, k0, kBk, t);
+    load_rows<kHd>(ks, kg, a.ks.t, k0, kBk, t);
+    load_rows<kHd>(vs, vg, a.vs.t, k0, kBk, t);
     load_bias(bias_s, bg, k0, t);
     __syncthreads();
     float s[4][2];
@@ -343,24 +311,24 @@ __global__ void __launch_bounds__(kThreads) attention_wide_fwd_kernel(const Args
         const int row = q0 + ty + 16 * i, key = tx + 16 * jj;
         const float probs = expf(score(s[i][jj], a.sm_scale, bias_s[key]) - m[i]) * inv_l[i];
         const bool keep = kept(a.drop, a.mode, plane, t, row, k0 + key);
-        ps[(ty + 16 * i) * kLdS + key] = drop_prob<T>(probs, keep, a.mode != 0, a.inv_keep);
+        ps[(ty + 16 * i) * kLdS + key] = drop_prob(probs, keep, a.mode != 0, a.inv_keep);
       }
     __syncthreads();
     acc_rows<kHd>(o, ps, vs, ty, tx);
   }
-  T* og = head<T>(a.o, a.os, b, hh);
+  float* og = head(a.o, a.os, b, hh);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t) continue;
 #pragma unroll
-    for (int c = 0; c < kHd / 64; ++c) store4<T>(og + (long long)row * a.os.t + 4 * tx + 64 * c, o[i][c]);
+    for (int c = 0; c < kHd / 64; ++c) store4(og + (long long)row * a.os.t + 4 * tx + 64 * c, o[i][c]);
   }
 }
 
 // ------------------------------------------------------------ backward, rows
 // delta and dq of kBq query rows; grid (ceil(t / kBq), heads, batch)
-template <typename T, int kHd>
+template <int kHd>
 __global__ void __launch_bounds__(kThreads) attention_wide_rows_kernel(const Args a) {
   constexpr int kLd = kHd + 4;
   extern __shared__ __align__(16) float smem_wide[];
@@ -375,13 +343,13 @@ __global__ void __launch_bounds__(kThreads) attention_wide_rows_kernel(const Arg
   const int plane = b * gridDim.y + hh;
   const long long planes_t = (long long)gridDim.z * gridDim.y * t;
   float* st = a.stats + (long long)plane * t;
-  const T* kg = head<T>(a.k, a.ks, b, hh);
-  const T* vg = head<T>(a.v, a.vs, b, hh);
-  const T* ctx = head<T>(a.out, a.os, b, hh);
+  const float* kg = head(a.k, a.ks, b, hh);
+  const float* vg = head(a.v, a.vs, b, hh);
+  const float* ctx = head(a.out, a.os, b, hh);
   const float* bg = a.bias + (long long)b * t;
   const int n = (t + kBk - 1) / kBk;
-  load_rows<T, kHd>(qs, head<T>(a.q, a.qs, b, hh), a.qs.t, q0, kBq, t);
-  load_rows<T, kHd>(gs, head<T>(a.g, a.gs, b, hh), a.gs.t, q0, kBq, t);
+  load_rows<kHd>(qs, head(a.q, a.qs, b, hh), a.qs.t, q0, kBq, t);
+  load_rows<kHd>(gs, head(a.g, a.gs, b, hh), a.gs.t, q0, kBq, t);
   __syncthreads();
 
   // delta = rowsum(g * ctx): the thread's columns, then the row's 16 threads;
@@ -416,8 +384,8 @@ __global__ void __launch_bounds__(kThreads) attention_wide_rows_kernel(const Arg
   for (int j = 0; j < n; ++j) {
     const int k0 = j * kBk;
     __syncthreads();
-    load_rows<T, kHd>(ks, kg, a.ks.t, k0, kBk, t);
-    load_rows<T, kHd>(vs, vg, a.vs.t, k0, kBk, t);
+    load_rows<kHd>(ks, kg, a.ks.t, k0, kBk, t);
+    load_rows<kHd>(vs, vg, a.vs.t, k0, kBk, t);
     load_bias(bias_s, bg, k0, t);
     __syncthreads();
     float s[4][2], dp[4][2];
@@ -437,21 +405,21 @@ __global__ void __launch_bounds__(kThreads) attention_wide_rows_kernel(const Arg
     __syncthreads();
     acc_rows<kHd>(dq, ds, ks, ty, tx);   // dq += ds . k
   }
-  T* dqg = head<T>(a.dq, a.dqs, b, hh);
+  float* dqg = head(a.dq, a.dqs, b, hh);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= t) continue;
 #pragma unroll
     for (int c = 0; c < kHd / 64; ++c)
-      store4<T>(dqg + (long long)row * a.dqs.t + 4 * tx + 64 * c, dq[i][c]);
+      store4(dqg + (long long)row * a.dqs.t + 4 * tx + 64 * c, dq[i][c]);
   }
 }
 
 // ------------------------------------------------------------ backward, keys
 // dk and dv of kBk keys, walking the query tiles; grid (ceil(t / kBk), heads,
 // batch); after the rows kernel (delta)
-template <typename T, int kHd>
+template <int kHd>
 __global__ void __launch_bounds__(kThreads) attention_wide_keys_kernel(const Args a) {
   constexpr int kLd = kHd + 4;
   extern __shared__ __align__(16) float smem_wide[];
@@ -468,11 +436,11 @@ __global__ void __launch_bounds__(kThreads) attention_wide_keys_kernel(const Arg
   const int plane = b * gridDim.y + hh;
   const long long planes_t = (long long)gridDim.z * gridDim.y * t;
   const float* st = a.stats + (long long)plane * t;
-  const T* qg = head<T>(a.q, a.qs, b, hh);
-  const T* gg = head<T>(a.g, a.gs, b, hh);
+  const float* qg = head(a.q, a.qs, b, hh);
+  const float* gg = head(a.g, a.gs, b, hh);
   const int n = (t + kBq - 1) / kBq;
-  load_rows<T, kHd>(ks, head<T>(a.k, a.ks, b, hh), a.ks.t, k0, kBk, t);
-  load_rows<T, kHd>(vs, head<T>(a.v, a.vs, b, hh), a.vs.t, k0, kBk, t);
+  load_rows<kHd>(ks, head(a.k, a.ks, b, hh), a.ks.t, k0, kBk, t);
+  load_rows<kHd>(vs, head(a.v, a.vs, b, hh), a.vs.t, k0, kBk, t);
   load_bias(bias_s, a.bias + (long long)b * t, k0, t);
 
   float4 dk[2][kHd / 64], dv[2][kHd / 64];
@@ -484,8 +452,8 @@ __global__ void __launch_bounds__(kThreads) attention_wide_keys_kernel(const Arg
   for (int j = 0; j < n; ++j) {
     const int q0 = j * kBq;
     __syncthreads();
-    load_rows<T, kHd>(qs, qg, a.qs.t, q0, kBq, t);
-    load_rows<T, kHd>(gs, gg, a.gs.t, q0, kBq, t);
+    load_rows<kHd>(qs, qg, a.qs.t, q0, kBq, t);
+    load_rows<kHd>(gs, gg, a.gs.t, q0, kBq, t);
     if (threadIdx.x < kBq) {
       const int row = q0 + threadIdx.x;
       const bool valid = row < t;
@@ -507,23 +475,23 @@ __global__ void __launch_bounds__(kThreads) attention_wide_keys_kernel(const Arg
         const bool keep = kept(a.drop, a.mode, plane, t, row, k0 + key);
         const float kept_d = dp[i][jj] * a.inv_keep32;
         const float dprobs = a.mode == 0 ? dp[i][jj] : keep ? kept_d : 0.f;
-        pds[r * kLdS + key] = drop_prob<T>(probs, keep, a.mode != 0, a.inv_keep);
+        pds[r * kLdS + key] = drop_prob(probs, keep, a.mode != 0, a.inv_keep);
         ds[r * kLdS + key] = probs * (dprobs - row_s[2 * kBq + r]) * a.sm_scale;
       }
     __syncthreads();
     acc_keys<kHd>(dv, pds, gs, ty, tx);   // dv += pd^T . g
     acc_keys<kHd>(dk, ds, qs, ty, tx);    // dk += ds^T . q
   }
-  T* dkg = head<T>(a.dk, a.dks, b, hh);
-  T* dvg = head<T>(a.dv, a.dvs, b, hh);
+  float* dkg = head(a.dk, a.dks, b, hh);
+  float* dvg = head(a.dv, a.dvs, b, hh);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= t) continue;
 #pragma unroll
     for (int c = 0; c < kHd / 64; ++c) {
-      store4<T>(dkg + (long long)key * a.dks.t + 4 * tx + 64 * c, dk[i][c]);
-      store4<T>(dvg + (long long)key * a.dvs.t + 4 * tx + 64 * c, dv[i][c]);
+      store4(dkg + (long long)key * a.dks.t + 4 * tx + 64 * c, dk[i][c]);
+      store4(dvg + (long long)key * a.dvs.t + 4 * tx + 64 * c, dv[i][c]);
     }
   }
 }
@@ -537,18 +505,18 @@ int launch(Kernel kernel, size_t smem, int blocks, int nh, int b, const Args& a,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kHd>
+template <int kHd>
 int forward(const Args& a, int b, int nh, void* stream) {
-  return launch(attention_wide_fwd_kernel<T, kHd>, fwd_smem<kHd>(), (a.t + kBq - 1) / kBq, nh, b,
+  return launch(attention_wide_fwd_kernel<kHd>, fwd_smem<kHd>(), (a.t + kBq - 1) / kBq, nh, b,
                 a, stream);
 }
 
-template <typename T, int kHd>
+template <int kHd>
 int backward(const Args& a, int b, int nh, void* stream) {
-  const int err = launch(attention_wide_rows_kernel<T, kHd>, rows_smem<kHd>(),
+  const int err = launch(attention_wide_rows_kernel<kHd>, rows_smem<kHd>(),
                          (a.t + kBq - 1) / kBq, nh, b, a, stream);
   if (err != 0) return err;
-  return launch(attention_wide_keys_kernel<T, kHd>, keys_smem<kHd>(), (a.t + kBk - 1) / kBk, nh, b,
+  return launch(attention_wide_keys_kernel<kHd>, keys_smem<kHd>(), (a.t + kBk - 1) / kBk, nh, b,
                 a, stream);
 }
 
@@ -559,22 +527,20 @@ bool bad_args(int b, int nh, int t, int mode, const void* bits) {
          (mode == 2 && bits == nullptr);
 }
 
-template <typename T>
 int forward_at(int hd, const Args& a, int b, int nh, void* stream) {
   switch (hd) {
-    case 128: return forward<T, 128>(a, b, nh, stream);
-    case 192: return forward<T, 192>(a, b, nh, stream);
-    case 256: return forward<T, 256>(a, b, nh, stream);
+    case 128: return forward<128>(a, b, nh, stream);
+    case 192: return forward<192>(a, b, nh, stream);
+    case 256: return forward<256>(a, b, nh, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 int backward_at(int hd, const Args& a, int b, int nh, void* stream) {
   switch (hd) {
-    case 128: return backward<T, 128>(a, b, nh, stream);
-    case 192: return backward<T, 192>(a, b, nh, stream);
-    case 256: return backward<T, 256>(a, b, nh, stream);
+    case 128: return backward<128>(a, b, nh, stream);
+    case 192: return backward<192>(a, b, nh, stream);
+    case 256: return backward<256>(a, b, nh, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -620,36 +586,31 @@ Args backward_args(const void* q, const void* k, const void* v, const void* bias
 // bits from (seed, c0, plane0), 2 bits from the operand; keep_div: 1 - p
 // rounded to the compute type; stats: null, or [3, b * nh, t] f32 that
 // receives each row's max (plane 0) and sum (plane 1)
-#define ASPIRE_WIDE_FWD(NAME, T)                                                                 \
-  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias, void* out,  \
-                      int b, int nh, int t, int hd, const long long* strides, float sm_scale,    \
-                      int mode, unsigned long long seed, unsigned c0, unsigned thresh,           \
-                      unsigned plane0, float keep_div, const void* bits, void* stats,            \
-                      void* stream) {                                                            \
-    if (bad_args(b, nh, t, mode, bits)) return (int)cudaErrorInvalidValue;                       \
-    const Args a = forward_args(q, k, v, bias, out, t, strides, sm_scale, mode, seed, c0, thresh, \
-                                plane0, keep_div, bits, stats);                                  \
-    return forward_at<T>(hd, a, b, nh, stream);                                                  \
-  }
-ASPIRE_WIDE_FWD(aspire_attention_wide_bf16, bf16)
-ASPIRE_WIDE_FWD(aspire_attention_wide_f32, float)
-#undef ASPIRE_WIDE_FWD
+extern "C" int aspire_attention_wide_f32(const void* q, const void* k, const void* v,
+                                         const void* bias, void* out, int b, int nh, int t, int hd,
+                                         const long long* strides, float sm_scale, int mode,
+                                         unsigned long long seed, unsigned c0, unsigned thresh,
+                                         unsigned plane0, float keep_div, const void* bits,
+                                         void* stats, void* stream) {
+  if (bad_args(b, nh, t, mode, bits)) return (int)cudaErrorInvalidValue;
+  const Args a = forward_args(q, k, v, bias, out, t, strides, sm_scale, mode, seed, c0, thresh,
+                              plane0, keep_div, bits, stats);
+  return forward_at(hd, a, b, nh, stream);
+}
 
 // two launches: rows (delta into plane 2 of stats, dq), then keys (dk, dv);
 // the 24 strides are those of q, k, v, g, out, dq, dk, dv; stats holds the
 // forward's m and l
-#define ASPIRE_WIDE_BWD(NAME, T)                                                                 \
-  extern "C" int NAME(const void* q, const void* k, const void* v, const void* bias,             \
-                      const void* g, const void* out, void* dq, void* dk, void* dv, void* stats, \
-                      int b, int nh, int t, int hd, const long long* strides, float sm_scale,    \
-                      int mode, unsigned long long seed, unsigned c0, unsigned thresh,           \
-                      unsigned plane0, float keep_div, float keep_div32, const void* bits,       \
-                      void* stream) {                                                            \
-    if (bad_args(b, nh, t, mode, bits)) return (int)cudaErrorInvalidValue;                       \
-    const Args a = backward_args(q, k, v, bias, g, out, dq, dk, dv, stats, t, strides, sm_scale, \
-                                 mode, seed, c0, thresh, plane0, keep_div, keep_div32, bits);    \
-    return backward_at<T>(hd, a, b, nh, stream);                                                 \
-  }
-ASPIRE_WIDE_BWD(aspire_attention_wide_bwd_bf16, bf16)
-ASPIRE_WIDE_BWD(aspire_attention_wide_bwd_f32, float)
-#undef ASPIRE_WIDE_BWD
+extern "C" int aspire_attention_wide_bwd_f32(const void* q, const void* k, const void* v,
+                                             const void* bias, const void* g, const void* out,
+                                             void* dq, void* dk, void* dv, void* stats, int b,
+                                             int nh, int t, int hd, const long long* strides,
+                                             float sm_scale, int mode, unsigned long long seed,
+                                             unsigned c0, unsigned thresh, unsigned plane0,
+                                             float keep_div, float keep_div32, const void* bits,
+                                             void* stream) {
+  if (bad_args(b, nh, t, mode, bits)) return (int)cudaErrorInvalidValue;
+  const Args a = backward_args(q, k, v, bias, g, out, dq, dk, dv, stats, t, strides, sm_scale,
+                               mode, seed, c0, thresh, plane0, keep_div, keep_div32, bits);
+  return backward_at(hd, a, b, nh, stream);
+}

@@ -192,7 +192,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned 
 }
 
 // d[32] (D[64, 64]) = (accumulate ? d : 0) + A . B, A [64, 16] read from
-// shared memory through a descriptor as B is, both K-major
+// shared memory through a descriptor as B is; K-major unless kTransA
+// (kTransB): an A stored [k][m] (a B stored [k][n]) in the 128-byte swizzle
+// is read MN-major, 16 rows a k-step
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long long desc_a,
                                                    unsigned long long desc_b, int accumulate) {
   asm volatile(
@@ -200,12 +203,38 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], unsigned long
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[16] (D[64, 32]) = (accumulate ? d : 0) + A . B, both K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], unsigned long long desc_a,
+                                                   unsigned long long desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[8] (D[64, 16]) = (accumulate ? d : 0) + A . B, both K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], unsigned long long desc_a,
+                                                   unsigned long long desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -25,9 +25,17 @@
 // special-function unit (ex2.approx / lg2.approx, log2(e) folded into 1/eps),
 // two butterfly shuffles for the sum: every thread of an atom ends with the same
 // sum (a + b == b + a) and all four store h.  h is double-buffered, so a round
-// takes one block barrier; eps and 1/eps of every round are tabulated once.
-// The chain of a round: store, barrier, loads, an FMA, kPer max steps, two
-// shuffles, the exponentials, kPer adds, two shuffles, a log, three FMAs.
+// takes one block barrier; log2(e) / eps of every round and its reciprocal
+// are tabulated once.  The chain of a round: store, barrier, loads, an FMA,
+// kPer max steps, two shuffles, the exponentials, kPer adds, two shuffles, a
+// log, the division (three FMAs, `div_by`), an FMA.
+//
+// Every kernel here takes a potential back from its scaled form by dividing
+// by the factor that scaled the softmin's terms (log2(e) / eps, or 1 / eps),
+// never by multiplying by eps or by a rounded 1 / factor: the rounding of
+// either is common to every potential, and at blur 0.05 a factor off by ~5e-8
+// moved OT scores near 78 by 5e-3 to 1.6e-2 (PERF.md); h is built from the
+// potentials with that same factor, the final step's included.
 //
 // Variants measured on the H100 and not kept (PERF.md, section 6; B = 16): one
 // thread doing its atom's row and column softmins (ptxas put the two chains one
@@ -67,7 +75,6 @@ constexpr int kLanes = 4;              // threads an atom in the small kernel
 constexpr int kSmallSide = 32;         // the small kernel's largest side
 constexpr int kTable = 128;            // rounds whose eps the small kernel tabulates
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kMaxPairsPerBlock = 4;   // the wide kernel's warps a block
@@ -83,6 +90,17 @@ __device__ __forceinline__ float lg2(float x) {
   float y;
   asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x / y for a divisor that many divisions share, from r = 1 / y (rounded):
+// the product x r corrected once by its residual x - (x r) y, which an FMA
+// takes exactly, so the quotient is within an ulp of x / y (most often its
+// correct rounding) and its error is its own, not r's, which would be common
+// to every quotient.  Three FMA-pipe instructions in place of a division's
+// reciprocal, refinement and range check.
+__device__ __forceinline__ float div_by(float x, float y, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, y, x), r, q);
 }
 
 // The schedule of one pair: eps_at(i) for round i, and its length.
@@ -118,7 +136,7 @@ sinkhorn_small_kernel(const float* __restrict__ cost, const float* __restrict__ 
   // log2(e) * h, h = log-weight + potential / eps: [buffer][a by row, b by column][hpos];
   // atoms past n (m) stay -inf, so the terms they give vanish
   __shared__ __align__(16) float h2[2][2][kSmallSide];
-  // eps and log2(e) / eps of the first kTable rounds, computed once
+  // log2(e) / eps of the first kTable rounds and its reciprocal, computed once
   __shared__ float table[2][kTable];
   const int pair = blockIdx.x;
   // threads [0, half) own the rows, [half, 2 half) the columns
@@ -148,23 +166,24 @@ sinkhorn_small_kernel(const float* __restrict__ cost, const float* __restrict__ 
   }
   const Schedule sched(diam[pair], blur, log_scaling, max_iters);
   for (int i = threadIdx.x; i < min(sched.iters + 1, kTable); i += blockDim.x) {
-    const float e = sched.eps_at(i);
-    table[0][i] = e;
-    table[1][i] = (1.f / e) * kLog2e;
+    const float inv2 = (1.f / sched.eps_at(i)) * kLog2e;
+    table[0][i] = inv2;
+    table[1][i] = 1.f / inv2;
   }
-  auto eps_of = [&](int i, float& e, float& inv2) {
+  auto inv2_of = [&](int i, float& inv2, float& r) {
     if (i < kTable) {
-      e = table[0][i];
-      inv2 = table[1][i];
+      inv2 = table[0][i];
+      r = table[1][i];
     } else {
-      e = sched.eps_at(i);
-      inv2 = (1.f / e) * kLog2e;
+      inv2 = (1.f / sched.eps_at(i)) * kLog2e;
+      r = 1.f / inv2;
     }
   };
 
   // -eps ln sum_o exp(h_b[o] - c[o] / eps) over the other side, from buffer b,
-  // at inv2 = log2(e) / eps
-  auto softmin = [&](int b, float inv2, float eps) {
+  // at inv2 = log2(e) / eps (r = 1 / inv2): -log2(sum_o 2^(h2_b[o] - c[o]
+  // inv2)) / inv2
+  auto softmin = [&](int b, float inv2, float r) {
     float hv[4 * ((kPer + 3) / 4)];
     const float4* hp = reinterpret_cast<const float4*>(&h2[b][1 - mine][sub * kSlots]);
 #pragma unroll
@@ -188,7 +207,7 @@ sinkhorn_small_kernel(const float* __restrict__ cost, const float* __restrict__ 
     for (int k = 0; k < kPer; ++k) sum += ex2(tt[k] - mx);
 #pragma unroll
     for (int w = 1; w < kLanes; w <<= 1) sum += __shfl_xor_sync(kFull, sum, w);
-    return -eps * kLn2 * (lg2(sum) + mx);
+    return div_by(-(lg2(sum) + mx), inv2, r);
   };
   int buf = 0;
   // h of the next round into the other buffer, then the round's one barrier
@@ -200,20 +219,21 @@ sinkhorn_small_kernel(const float* __restrict__ cost, const float* __restrict__ 
   };
 
   __syncthreads();
-  float eps, inv2;
-  eps_of(0, eps, inv2);
-  float f = softmin(0, inv2, eps);           // this thread's potential: f of its row or g
+  float inv2, r;
+  inv2_of(0, inv2, r);
+  float f = softmin(0, inv2, r);             // this thread's potential: f of its row or g
   for (int it = 0; it < sched.iters; ++it) {
-    float eps_next, inv2_next;
-    eps_of(it + 1, eps_next, inv2_next);     // read ahead, off the chain
+    float inv2_next, r_next;
+    inv2_of(it + 1, inv2_next, r_next);      // read ahead, off the chain
     publish(fmaf(f, inv2, lw2));             // Jacobi: every softmin reads the old f and g
-    f = 0.5f * (f + softmin(buf, inv2, eps));
-    eps = eps_next;
+    f = 0.5f * (f + softmin(buf, inv2, r));
     inv2 = inv2_next;
+    r = r_next;
   }
   if (extrapolate) {                         // at eps = blur, again from the loop's f and g
-    publish(fmaf(f / blur, kLog2e, lw2));
-    f = softmin(buf, (1.f / blur) * kLog2e, blur);
+    inv2 = (1.f / blur) * kLog2e;
+    publish(fmaf(f, inv2, lw2));
+    f = softmin(buf, inv2, 1.f / inv2);
   }
   if (live && sub == 0) (by_col ? g_out + (size_t)pair * m : f_out + (size_t)pair * n)[atom] = f;
 }
@@ -233,16 +253,17 @@ int launch_small(const float* cost, const float* log_a, const float* log_b, cons
 // floats a pair keeps in shared memory: cost [n][m | 1], then ha [n], hb [m]
 __host__ __device__ inline int pair_floats(int n, int m) { return n * (m | 1) + n + m; }
 
-// -eps * logsumexp_k(h[k] - c[k * stride] / eps), max-shifted.
+// -eps * logsumexp_k(h[k] - c[k * stride] / eps), max-shifted, as
+// -logsumexp_k(h[k] - c[k * stride] inv_eps) / inv_eps (r = 1 / inv_eps)
 __device__ __forceinline__ float softmin(const float* c, int stride, const float* h,
-                                         int count, float eps, float inv_eps) {
+                                         int count, float inv_eps, float r) {
   float mx = -INFINITY;
 #pragma unroll 4
   for (int k = 0; k < count; ++k) mx = fmaxf(mx, h[k] - c[k * stride] * inv_eps);
   float sum = 0.f;
 #pragma unroll 4
   for (int k = 0; k < count; ++k) sum += expf(h[k] - c[k * stride] * inv_eps - mx);
-  return -eps * (logf(sum) + mx);
+  return div_by(-(logf(sum) + mx), inv_eps, r);
 }
 
 template <int kPer>
@@ -271,17 +292,17 @@ sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ l
     lb[r] = i < m ? log_b[(size_t)pair * m + i] : 0.f;
   }
   const Schedule sched(diam[pair], blur, log_scaling, max_iters);
-  // ha / hb from f / g at 1 / eps (or a divisor), then the two softmins
-  auto write_h = [&](float inv, float div, bool by_div) {
+  // ha / hb from f / g at the 1 / eps that the round's softmins take
+  auto write_h = [&](float inv) {
 #pragma unroll
     for (int r = 0; r < kPer; ++r) {
       const int i = lane + 32 * r;
-      if (i < m) hb[i] = lb[r] + (by_div ? g[r] / div : g[r] * inv);
-      if (i < n) ha[i] = la[r] + (by_div ? f[r] / div : f[r] * inv);
+      if (i < m) hb[i] = lb[r] + g[r] * inv;
+      if (i < n) ha[i] = la[r] + f[r] * inv;
     }
   };
 
-  float eps = sched.eps_at(0), inv = 1.f / eps;
+  float inv = 1.f / sched.eps_at(0), r_inv = 1.f / inv;
 #pragma unroll
   for (int r = 0; r < kPer; ++r) {
     const int i = lane + 32 * r;
@@ -292,21 +313,21 @@ sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ l
 #pragma unroll
   for (int r = 0; r < kPer; ++r) {
     const int i = lane + 32 * r;
-    f[r] = i < n ? softmin(c + i * ld, 1, hb, m, eps, inv) : 0.f;
-    g[r] = i < m ? softmin(c + i, ld, ha, n, eps, inv) : 0.f;
+    f[r] = i < n ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : 0.f;
+    g[r] = i < m ? softmin(c + i, ld, ha, n, inv, r_inv) : 0.f;
   }
 
   for (int it = 0; it < sched.iters; ++it) {
-    eps = sched.eps_at(it);
-    inv = 1.f / eps;
+    inv = 1.f / sched.eps_at(it);
+    r_inv = 1.f / inv;
     __syncwarp();                      // every lane is done reading hb / ha
-    write_h(inv, 0.f, false);          // Jacobi: both updates read the old f and g
+    write_h(inv);                      // Jacobi: both updates read the old f and g
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < kPer; ++r) {
       const int i = lane + 32 * r;
-      const float ft = i < n ? softmin(c + i * ld, 1, hb, m, eps, inv) : 0.f;
-      const float gt = i < m ? softmin(c + i, ld, ha, n, eps, inv) : 0.f;
+      const float ft = i < n ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : 0.f;
+      const float gt = i < m ? softmin(c + i, ld, ha, n, inv, r_inv) : 0.f;
       f[r] = 0.5f * (f[r] + ft);
       g[r] = 0.5f * (g[r] + gt);
     }
@@ -314,8 +335,9 @@ sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ l
 
   if (extrapolate) {                   // at eps = blur, again from the loop's f and g
     inv = 1.f / blur;
+    r_inv = 1.f / inv;
     __syncwarp();
-    write_h(inv, blur, true);
+    write_h(inv);
     __syncwarp();
   }
 #pragma unroll
@@ -323,9 +345,9 @@ sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ l
     const int i = lane + 32 * r;
     if (i < n)
       f_out[(size_t)pair * n + i] =
-          extrapolate ? softmin(c + i * ld, 1, hb, m, blur, inv) : f[r];
+          extrapolate ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : f[r];
     if (i < m)
-      g_out[(size_t)pair * m + i] = extrapolate ? softmin(c + i, ld, ha, n, blur, inv) : g[r];
+      g_out[(size_t)pair * m + i] = extrapolate ? softmin(c + i, ld, ha, n, inv, r_inv) : g[r];
   }
 }
 

@@ -41,12 +41,14 @@ words keyed on the element's position (``ops/philox.py``).
 
 Heads narrower than 64 (``BertConfig.tiny()`` has 8) are zero-padded to 64
 columns on the way in and the output sliced back (`with_padded_heads`).  Heads
-wider than 64, up to 256, are padded to the next multiple of 64 and run
-``csrc/attention_wide.cu`` (`head_route`): the same function, forward with
-or without dropout and backward, in bf16 and f32, its products on the FP32
-lanes (f32 in true f32), its launches counted apart (``wide_launches``,
-``wide_dropout_launches``, ``wide_bwd_launches``).  Wider heads are refused
-on a CUDA tensor.
+wider than 64, up to 256, are padded to the next multiple of 64
+(`head_route`): in bf16 they run the same kernels instantiated at that width
+(128, 192, 256: every product on wgmma, the tile set by the width's shared
+memory and registers; the backward hands dq and dk to one kernel that reads
+ds^T from the scratch), in f32 ``csrc/attention_wide.cu`` (products on the
+FP32 lanes in true f32); their launches are counted apart
+(``wide_launches``, ``wide_dropout_launches``, ``wide_bwd_launches``).
+Wider heads are refused on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -97,9 +99,9 @@ def attention_keep_mask(shape, dropout_p: float, *, seed=None, site: int = 0,
 
 def head_route(hd: int) -> tuple:
     """(padded width, 'narrow' or 'wide') of a head of width hd on the card:
-    up to 64 the 64-wide kernels (attention.cu, attention_bwd.cu), above it
-    the wide ones (attention_wide.cu) at the next multiple of 64, up to
-    WIDE_MAX; wider heads raise."""
+    up to 64 the 64-wide kernels, above it the wide ones (bf16: attention.cu
+    and attention_bwd.cu at that width; f32: attention_wide.cu) at the next
+    multiple of 64, up to WIDE_MAX; wider heads raise."""
     if 1 <= hd <= HEAD_DIM:
         return HEAD_DIM, "narrow"
     if HEAD_DIM < hd <= WIDE_MAX:
@@ -163,10 +165,13 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
         q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
     wide = hd > HEAD_DIM
-    name = "aspire_attention_" + ("wide_" if wide else "") + (
-        "bf16" if q.dtype == torch.bfloat16 else "f32")
-    shape = (b, nh, t, hd, (ctypes.c_longlong * 12)(*strides)) if wide \
-        else (b, nh, t, *strides)
+    if q.dtype == torch.bfloat16:       # every width: csrc/attention.cu
+        name, shape = "aspire_attention_bf16", (b, nh, t, hd, *strides)
+    elif wide:                          # csrc/attention_wide.cu
+        name = "aspire_attention_wide_f32"
+        shape = (b, nh, t, hd, (ctypes.c_longlong * 12)(*strides))
+    else:
+        name, shape = "aspire_attention_f32", (b, nh, t, *strides)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -192,10 +197,11 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
 def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
                    site, bits, plane0):
     """One backward.  bf16: three launches (delta, keys kernel for dk and dv,
-    dq kernel), with ds^T handed between the last two through a bf16 scratch
-    allocated here and freed on return.  f32, and heads wider than 64 in
-    either dtype: two launches (rows kernel for delta and dq, keys kernel for
-    dk and dv).  out and stats are the forward's."""
+    dq kernel; at heads wider than 64 delta, keys kernel for dv, one kernel
+    for dq and dk), with ds^T handed between the last two through a bf16
+    scratch allocated here and freed on return.  f32: two launches (rows
+    kernel for delta and dq, keys kernel for dk and dv).  out and stats are
+    the forward's."""
     b, nh, t, hd = q.shape
     try:
         _strides(g)
@@ -210,29 +216,33 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
     lib = _build.load()
     bf16 = q.dtype == torch.bfloat16
     wide = hd > HEAD_DIM
-    name = "aspire_attention_" + ("wide_" if wide else "") + "bwd_" + (
-        "bf16" if bf16 else "f32")
     scratch = []                        # held until the launches are queued
-    if bf16 and not wide:
+    if bf16:                            # every width: csrc/attention_bwd.cu
+        name, width = "aspire_attention_bwd_bf16", (hd,)
         tp = -(-t // 64) * 64
         scratch = [torch.empty((b * nh, tp, tp), dtype=torch.bfloat16,
                                device=q.device)]
+    elif wide:                          # csrc/attention_wide.cu
+        name, width = "aspire_attention_wide_bwd_f32", (hd,)
+    else:
+        name, width = "aspire_attention_bwd_f32", ()
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(),
-            *(x.data_ptr() for x in scratch), b, nh, t,
-            *((hd,) if wide else ()), (ctypes.c_longlong * 24)(*strides),
+            *(x.data_ptr() for x in scratch), b, nh, t, *width,
+            (ctypes.c_longlong * 24)(*strides),
             float(sm_scale), mode, seed, c0, thresh, plane0, keep_div,
             keep_div32, bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    if wide:                            # what the C function launches
-        fused_attention.wide_bwd_launches += 2
+    launched = 3 if bf16 else 2         # what the C function launches
+    if wide:
+        fused_attention.wide_bwd_launches += launched
     elif bf16:
-        fused_attention.bwd_launches += 3
+        fused_attention.bwd_launches += launched
     else:
-        fused_attention.f32_bwd_launches += 2
+        fused_attention.f32_bwd_launches += launched
     return dq, dk, dv
 
 
@@ -336,7 +346,8 @@ def _attention_cuda(q, k, v, *args):
 # launches of the deterministic forward (either dtype), of the forward with
 # dropout and of the backward's kernels, bf16 (three a backward: delta, keys,
 # dq) and f32 (two: rows, keys) apart; then those of the wide kernels (heads
-# above 64, either dtype; two a backward: rows, keys)
+# above 64, either dtype; a backward three in bf16, delta, keys, ds, and two
+# in f32, rows, keys)
 fused_attention.launches = 0
 fused_attention.dropout_launches = 0
 fused_attention.bwd_launches = 0

@@ -40,9 +40,9 @@ TABLE = 128          # rounds whose eps the small-pair kernel tabulates
 
 def pair_bytes(n: int, m: int) -> int:
     """Shared memory the kernel keeps for one n x m pair: up to 32 atoms a
-    side two buffers of h (32 floats a side each) and eps and 1/eps of 128
-    rounds; above, the cost with an odd row pitch (m | 1) and one float an
-    atom of either side."""
+    side two buffers of h (32 floats a side each) and log2(e) / eps of 128
+    rounds with its reciprocal; above, the cost with an odd row pitch (m | 1)
+    and one float an atom of either side."""
     if max(n, m) <= SMALL_SIDE:
         return 4 * (2 * 2 * SMALL_SIDE + 2 * TABLE)
     return 4 * (n * (m | 1) + n + m)
@@ -70,10 +70,10 @@ def sinkhorn_route(n: int, m: int) -> str:
 def sinkhorn_solve_plain(cost, log_a, log_b, diam, blur: float = 0.05,
                          scaling: float = 0.9, max_iters: int = 128,
                          extrapolate: bool = True):
-    """Plain PyTorch version of the kernels, same arithmetic order as the
-    small and wide ones (it multiplies by 1 / eps and takes eps from
-    exp(k log s)); the large-pair kernel divides each softmin's log-sum by
-    the factor that scaled its terms instead of multiplying it by eps.
+    """Plain PyTorch version of the kernels, same arithmetic order (it
+    multiplies by 1 / eps and takes eps from exp(k log s)), but for one step:
+    the kernels divide each softmin's log-sum by the factor that scaled its
+    terms, where this multiplies it by eps.
 
     cost f32[B, n, m], log_a f32[B, n], log_b f32[B, m], diam f32[B]
     -> (f [B, n], g [B, m]): after the final step at eps = blur, or with

@@ -37,18 +37,18 @@ SRC = _build.CSRC / "attention.cu"
 OUT = ROOT / "build" / "attention_ablation"
 CASES = (((30, 12, 512, 64), 0.1), ((30, 12, 512, 64), 0.0), ((16, 12, 256, 64), 0.0))
 
-_ELEMENTWISE_START = "#pragma unroll\n    for (int c = 0; c < 8; ++c) {          // 8-column accumulator tile c"
+_ELEMENTWISE_START = "#pragma unroll\n    for (int c = 0; c < kN; ++c) {        // 8-column accumulator tile c"
 _ELEMENTWISE_END = "    const bf16* vt = ring"
 
 
 def _without_elementwise(src: str) -> str:
-    stats = "    row_stats(s, m_run, l_run);\n"
+    stats = "    row_stats<kN>(s, m_run, l_run);\n"
     if stats not in src:
         raise ValueError("attention.cu changed: no row_stats call to replace")
     src = src.replace(stats, "    m_run[0] = fmaxf(m_run[0], s[0]);\n    l_run[1] += s[7];\n")
     i, j = src.index(_ELEMENTWISE_START), src.index(_ELEMENTWISE_END)
     return src[:i] + """#pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < kN; ++c) {
       pa[c >> 1][2 * (c & 1)] = pack_bf16(s[4 * c], s[4 * c + 1]);
       pa[c >> 1][2 * (c & 1) + 1] = pack_bf16(s[4 * c + 2], s[4 * c + 3]);
     }
@@ -59,7 +59,7 @@ def _without_loads(src: str) -> str:
     head = "  auto load_step = [&](int s) {\n"
     if head not in src:
         raise ValueError("attention.cu changed: no load_step to cut")
-    return src.replace(head, head + "    if (s >= kStages) return;\n")
+    return src.replace(head, head + "    if (s >= kStagesW) return;\n")
 
 
 VARIANTS = {"as built": lambda s: s, "no elementwise work": _without_elementwise,
@@ -93,7 +93,7 @@ def _call(fn, q, k, v, bias, out, p, stats):
     strides = [*ak._strides(q), *ak._strides(k), *ak._strides(v), *ak._strides(out)]
     mode, seed, c0, thresh, plane0, keep_div, _, bits = ak._drop_args(q, p, 7, 1, None, 0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             b, nh, t, *strides, 1.0 / math.sqrt(hd), mode, seed, c0, thresh, plane0, keep_div,
+             b, nh, t, hd, *strides, 1.0 / math.sqrt(hd), mode, seed, c0, thresh, plane0, keep_div,
              bits,
              stats.data_ptr() if p else 0, torch.cuda.current_stream().cuda_stream)
     if err:

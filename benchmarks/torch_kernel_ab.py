@@ -8,6 +8,7 @@
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
     python3 benchmarks/torch_kernel_ab.py --other PATH --pool   # sentence pool (K4)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-int8   # int8 scan (K7)
+    python3 benchmarks/torch_kernel_ab.py --other PATH --wide   # K2, K5a, K5b at heads of 128-256
 
 PATH is another checkout (for instance the parent commit unpacked with `git
 archive` into a directory that .gitignore lists).  Each checkout builds its own
@@ -40,7 +41,10 @@ loss uses (a checkout without that mode prints that it refuses it).  The pooling
 (`sentence_sums`) at the encode shape [64, 256, 768] in bf16 and f32 with 20
 sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
 which the first kernel refused (a checkout that refuses a shape prints its
-error).  The int8 scan reading (`--scan-int8`) is K7
+error).  The wide reading (`--wide`) is K2, K5a and K5b as above at the ranges
+phase's 6 heads of 128 ([16, 6, 256, 128] forward, [30, 6, 512, 128] with
+dropout and backward) and at heads of 192 and 256, bf16, with the f32 wide
+kernels at [16, 6, 256, 128] and [4, 6, 512, 128].  The int8 scan reading (`--scan-int8`) is K7
 (`fused_l2max_scan_int8_batched`) on buckets of the shapes of the
 125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
 and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
@@ -73,6 +77,19 @@ SINKHORN_CASES = ((16, 20, 20, "global"), (30, 20, 20, "grouped"),
 BWD_CASES = tuple((shape, p, dtype) for shape, dtype in (
     ((30, 12, 512, 64), "bfloat16"), ((16, 12, 256, 64), "bfloat16"),
     ((30, 12, 512, 64), "float32"), ((4, 12, 512, 64), "float32")) for p in (0.1, 0.0))
+WIDE_CASES = (("forward", (16, 6, 256, 128), 0.0, "bfloat16"),
+              ("forward", (4, 4, 512, 192), 0.0, "bfloat16"),
+              ("forward", (2, 3, 512, 256), 0.0, "bfloat16"),
+              ("forward", (16, 6, 256, 128), 0.0, "float32"),
+              ("dropout", (30, 6, 512, 128), 0.1, "bfloat16"),
+              ("dropout", (4, 4, 512, 192), 0.1, "bfloat16"),
+              ("dropout", (4, 3, 512, 256), 0.1, "bfloat16"),
+              ("dropout", (4, 6, 512, 128), 0.1, "float32"),
+              ("backward", (30, 6, 512, 128), 0.1, "bfloat16"),
+              ("backward", (30, 6, 512, 128), 0.0, "bfloat16"),
+              ("backward", (4, 4, 512, 192), 0.1, "bfloat16"),
+              ("backward", (4, 3, 512, 256), 0.1, "bfloat16"),
+              ("backward", (4, 6, 512, 128), 0.1, "float32"))
 
 
 def _median_ms(fn, calls: int = 10, readings: int = 30) -> dict:
@@ -259,76 +276,112 @@ def _attention64(q, k, v, scale, p, keep):
     return probs @ v
 
 
-def measure(bwd: bool, dropout: bool) -> None:
+def _forward(b, nh, t, hd, dtype, dev) -> dict:
+    """K2: `fused_attention` at dropout_p = 0, no gradient."""
+    import torch
+    from aspire_tpu_torch.ops.attention_kernel import fused_attention
+    q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
+    bias = torch.zeros((b, t), device=dev)
+    fn = lambda: fused_attention(q, k, v, bias, 1.0 / math.sqrt(hd))
+    extra = {}
+    with torch.inference_mode():
+        if dtype == "float32":
+            s64 = q.double() @ k.double().transpose(-1, -2) / math.sqrt(hd)
+            extra["f64_max_abs_err"] = _f64_err(
+                fn(), torch.softmax(s64, dim=-1) @ v.double())
+            del s64
+        ms = _median_ms(fn)
+        by_kernel = _by_kernel(fn)
+    return {"shape": [b, nh, t, hd], "dtype": dtype, **ms, **extra,
+            "device_ms_by_kernel": by_kernel}
+
+
+def _dropout(b, nh, t, hd, dtype, dev) -> dict:
+    """K5a: `fused_attention` at dropout_p = 0.1 on inputs that require a
+    gradient (the forward leaves its row statistics)."""
     import torch
     import torch.nn.functional as F
     from aspire_tpu_torch.ops.attention_kernel import (attention_keep_mask,
                                                        fused_attention)
+    q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
+    bias = torch.zeros((b, t), device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fn = lambda: fused_attention(*leaves, bias, scale, 0.1, seed=7, site=1)
+    extra = {}
+    if dtype == "float32":
+        keep = attention_keep_mask(q.shape, 0.1, seed=7, site=1, device=dev)
+        with torch.no_grad():
+            extra["f64_max_abs_err"] = _f64_err(
+                fn(), _attention64(q, k, v, scale, 0.1, keep))
+        del keep
+    library = _median_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, dropout_p=0.1, scale=scale))["ms_median"]
+    return {"shape": [b, nh, t, hd], "dtype": dtype, "kernel": "forward",
+            "dropout_p": 0.1, **_median_ms(fn), "library_ms": library, **extra,
+            "device_ms_by_kernel": _by_kernel(fn)}
+
+
+def _backward(b, nh, t, hd, p, dtype, dev) -> dict:
+    """K5b: `torch.autograd.grad` of `fused_attention` (Philox mask)."""
+    import torch
+    import torch.nn.functional as F
+    from aspire_tpu_torch.ops.attention_kernel import (attention_keep_mask,
+                                                       fused_attention)
+    q, k, v, g = _inputs(b, nh, t, hd, dev, dtype)
+    bias = torch.zeros((b, t), device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fused_attention(*leaves, bias, scale, p, seed=7, site=1)
+    fn = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    extra = {}
+    if dtype == "float32":
+        keep = (attention_keep_mask(q.shape, p, seed=7, site=1, device=dev)
+                if p > 0 else None)
+        leaves64 = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+        want = torch.autograd.grad(_attention64(*leaves64, scale, p, keep),
+                                   leaves64, g.double())
+        extra["f64_max_abs_err"] = max(_f64_err(got, ref)
+                                       for got, ref in zip(fn(), want))
+        del keep, leaves64, want
+    ms = _median_ms(fn)
+    out_l = F.scaled_dot_product_attention(*leaves, dropout_p=p, scale=scale)
+    library = _median_ms(lambda: torch.autograd.grad(
+        out_l, leaves, g, retain_graph=True))["ms_median"]
+    del out_l
+    return {"shape": [b, nh, t, hd], "dtype": dtype, "kernel": "backward",
+            "dropout_p": p, **ms, "library_ms": library, **extra,
+            "device_ms_by_kernel": _by_kernel(fn)}
+
+
+def measure(bwd: bool, dropout: bool) -> None:
+    import torch
     dev = torch.device("cuda", 0)
     if dropout:
-        for (b, nh, t, hd), dtype in DROPOUT_CASES:
-            q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
-            bias = torch.zeros((b, t), device=dev)
-            scale = 1.0 / math.sqrt(hd)
-            leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-            fn = lambda: fused_attention(*leaves, bias, scale, 0.1, seed=7, site=1)
-            extra = {}
-            if dtype == "float32":
-                keep = attention_keep_mask(q.shape, 0.1, seed=7, site=1, device=dev)
-                with torch.no_grad():
-                    extra["f64_max_abs_err"] = _f64_err(
-                        fn(), _attention64(q, k, v, scale, 0.1, keep))
-                del keep
-            library = _median_ms(lambda: F.scaled_dot_product_attention(
-                *leaves, dropout_p=0.1, scale=scale))["ms_median"]
-            print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype,
-                              "kernel": "forward", "dropout_p": 0.1, **_median_ms(fn),
-                              "library_ms": library, **extra,
-                              "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
-        return
-    if not bwd:
-        for (b, nh, t, hd), dtype in SHAPES:
-            q, k, v, _ = _inputs(b, nh, t, hd, dev, dtype)
-            bias = torch.zeros((b, t), device=dev)
-            fn = lambda: fused_attention(q, k, v, bias, 1.0 / math.sqrt(hd))
-            extra = {}
-            with torch.inference_mode():
-                if dtype == "float32":
-                    s64 = q.double() @ k.double().transpose(-1, -2) / math.sqrt(hd)
-                    extra["f64_max_abs_err"] = _f64_err(
-                        fn(), torch.softmax(s64, dim=-1) @ v.double())
-                    del s64
-                ms = _median_ms(fn)
-                by_kernel = _by_kernel(fn)
-            print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype, **ms, **extra,
-                              "device_ms_by_kernel": by_kernel}), flush=True)
-        return
-    for (b, nh, t, hd), p, dtype in BWD_CASES:
-        q, k, v, g = _inputs(b, nh, t, hd, dev, dtype)
-        bias = torch.zeros((b, t), device=dev)
-        scale = 1.0 / math.sqrt(hd)
-        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-        out = fused_attention(*leaves, bias, scale, p, seed=7, site=1)
-        fn = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
-        extra = {}
-        if dtype == "float32":
-            keep = (attention_keep_mask(q.shape, p, seed=7, site=1, device=dev)
-                    if p > 0 else None)
-            leaves64 = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
-            want = torch.autograd.grad(_attention64(*leaves64, scale, p, keep),
-                                       leaves64, g.double())
-            extra["f64_max_abs_err"] = max(_f64_err(got, ref)
-                                           for got, ref in zip(fn(), want))
-            del keep, leaves64, want
-        ms = _median_ms(fn)
-        out_l = F.scaled_dot_product_attention(*leaves, dropout_p=p, scale=scale)
-        library = _median_ms(lambda: torch.autograd.grad(
-            out_l, leaves, g, retain_graph=True))["ms_median"]
-        del out_l
-        print(json.dumps({"shape": [b, nh, t, hd], "dtype": dtype,
-                          "kernel": "backward", "dropout_p": p, **ms,
-                          "library_ms": library, **extra,
-                          "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+        for shape, dtype in DROPOUT_CASES:
+            print(json.dumps(_dropout(*shape, dtype, dev)), flush=True)
+    elif not bwd:
+        for shape, dtype in SHAPES:
+            print(json.dumps(_forward(*shape, dtype, dev)), flush=True)
+    else:
+        for shape, p, dtype in BWD_CASES:
+            print(json.dumps(_backward(*shape, p, dtype, dev)), flush=True)
+
+
+def measure_wide() -> None:
+    """The wide heads: K2, K5a and K5b at the ranges phase's shapes (6 heads
+    of 128) and at 192 and 256, bf16, and the f32 wide kernels beside them."""
+    import torch
+    dev = torch.device("cuda", 0)
+    for kind, shape, p, dtype in WIDE_CASES:
+        if kind == "forward":
+            row = _forward(*shape, dtype, dev)
+        elif kind == "dropout":
+            row = _dropout(*shape, dtype, dev)
+        else:
+            row = _backward(*shape, p, dtype, dev)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
 
 
 def _by_kernel(fn, calls: int = 10) -> dict:
@@ -365,11 +418,14 @@ def main() -> int:
                         help="time the sentence-pool sums (K4) instead")
     parser.add_argument("--scan-int8", action="store_true",
                         help="time the int8 batched scan (K7) instead")
+    parser.add_argument("--wide", action="store_true",
+                        help="time K2, K5a and K5b at heads of 128 to 256 instead")
     parser.add_argument("--measure", action="store_true",
                         help="measure the checkout on sys.path (internal)")
     args = parser.parse_args()
     modes = {"ffn": measure_ffn, "sinkhorn": measure_sinkhorn,
-             "pool": measure_pool, "scan_int8": measure_scan_int8}
+             "pool": measure_pool, "scan_int8": measure_scan_int8,
+             "wide": measure_wide}
     if args.measure:
         chosen = [fn for name, fn in modes.items() if getattr(args, name)]
         for fn in chosen:
@@ -381,7 +437,7 @@ def main() -> int:
     other = pathlib.Path(args.other).resolve()
     argv = ["ab", "--measure"] + [
         "--" + flag.replace("_", "-")
-        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8")
+        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8", "wide")
         if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):

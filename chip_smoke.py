@@ -145,8 +145,9 @@ Phases, one JSON object a line:
            paths, with the counts set to 0 before: BERT-base width as 6
            heads of 128 -- a request encoded in bf16 and f32 through the wide
            K2 against 'naive', the flagship's first step against the plain
-           path in bf16 and f32 and two optimizer steps in bf16 (the wide K5a
-           and K5b, each step's launches counted), and `python -m
+           path in bf16 and f32 and four optimizer steps in bf16 (the wide K5a
+           and K5b, each step's launches counted, the warm steps' ms read
+           apart), and `python -m
            aspire_tpu_torch train --init-hf-dir` on a local BERT directory
            with such heads, two steps in a subprocess; then an index of 2,000
            documents of 240-1,200 sentences (768-d reps drawn on the card
@@ -404,7 +405,7 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     serving and query paths) and the loop's own potentials (extrapolate=False,
     the training loss); for the first, also the scores and plans of
     `wasserstein_dist` through the kernel against the PyTorch solver (both
-    against the PyTorch solver in f64, `f64_witness`; held for large pairs), and
+    against the PyTorch solver in f64, `f64_witness`, held on every route), and
     for the second the training distance through solver 'auto' against
     'torch'."""
     from aspire_tpu_torch.core.types import MultiVec
@@ -445,8 +446,8 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     kw64 = {**kw, "diameter_value": diam.double()} if diameter == "grouped" else kw
     sims_64, _ = wasserstein_dist(MultiVec(q.embed.double(), q.lens),
                                   MultiVec(c.embed.double(), c.lens), solver="torch", **kw64)
-    res["sims_f64"] = f64_witness("sinkhorn sims", sims_k, sims_t, sims_64,
-                                  hold=sk.sinkhorn_route(n, m) == "large")
+    res["sims_f64"] = f64_witness(f"sinkhorn sims {sk.sinkhorn_route(n, m)} B={bsz} "
+                                  f"{n}x{m}", sims_k, sims_t, sims_64)
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
@@ -461,17 +462,16 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     return res
 
 
-def f64_witness(name, kernel, plain, exact, hold: bool = True) -> dict:
+def f64_witness(name, kernel, plain, exact) -> dict:
     """OT scores of the kernel and of the PyTorch solver in f32 against the
     PyTorch solver in f64 on the same reps.  A score is a plan-weighted sum
     of costs with the plan exp((f + g - C) / blur): an f32 rounding of a
     cost or a potential near 60 (4e-6) is 1e-4 of a plan entry at blur 0.05,
-    so two f32 solvers part by ~1e-5 of a score.  With `hold`, the kernel
-    may be no more than twice the f32 solver's distance from f64, plus 1e-3
-    (the small and wide kernels are reported only)."""
+    so two f32 solvers part by ~1e-5 of a score.  The kernel may be no more
+    than twice the f32 solver's distance from f64, plus 1e-3."""
     err_k = float((kernel.double() - exact).abs().max())
     err_p = float((plain.double() - exact).abs().max())
-    if hold and not err_k <= 2 * err_p + 1e-3:
+    if not err_k <= 2 * err_p + 1e-3:
         raise AssertionError(f"{name}: the kernel is {err_k} from f64, the plain "
                              f"f32 solver {err_p}")
     return {"kernel_max_abs_err": err_k, "plain_f32_max_abs_err": err_p,
@@ -1137,16 +1137,21 @@ def range_kernel_cases(dev) -> dict:
         "attention_wide": [case_attention(16, 6, 256, 128, bf16, dev),
                            case_attention(16, 6, 256, 128, f32, dev),
                            case_attention(4, 8, 512, 96, bf16, dev),
+                           case_attention(4, 4, 512, 192, bf16, dev),
                            case_attention(2, 3, 512, 256, bf16, dev),
                            case_attention(2, 3, 200, 256, f32, dev)],
         "attention_dropout_wide": [case_attention_dropout(30, 6, 512, 128, bf16, dev),
                                    case_attention_dropout(4, 6, 512, 128, f32, dev),
                                    case_attention_dropout(4, 8, 512, 96, bf16, dev),
+                                   case_attention_dropout(4, 4, 512, 192, bf16, dev),
+                                   case_attention_dropout(4, 3, 512, 256, bf16, dev),
                                    case_attention_dropout(2, 3, 200, 256, f32, dev)],
         "attention_bwd_wide": [case_attention_bwd(30, 6, 512, 128, bf16, dev),
                                case_attention_bwd(4, 6, 512, 128, f32, dev),
                                case_attention_bwd(4, 6, 512, 128, bf16, dev, p=0.0),
                                case_attention_bwd(4, 8, 512, 96, bf16, dev),
+                               case_attention_bwd(4, 4, 512, 192, bf16, dev),
+                               case_attention_bwd(4, 3, 512, 256, bf16, dev),
                                case_attention_bwd(2, 3, 200, 256, f32, dev),
                                case_attention_bwd(2, 3, 200, 256, bf16, dev, p=0.0)],
         "sinkhorn_large": [case_sinkhorn(16, "pair", dev, 24, 1200),
@@ -3774,14 +3779,16 @@ def range_encode(cfg, dev) -> dict:
 def range_train(cfg, dev) -> dict:
     """The flagship (sbalisentbienc) with 6 heads of 128 on [10, 3, 512]
     superbatches: the first step through the kernels against the plain path,
-    bf16 and f32 (`kernel_against_plain_step`); then two optimizer steps in
+    bf16 and f32 (`kernel_against_plain_step`); then four optimizer steps in
     bf16 through Trainer, each step's launches counted (the wide K5a and
-    K5b, none of the 64-wide ones)."""
+    K5b, none of the 64-wide ones): the first step's ms, the warm steps'
+    (the second and third) and the last one's, which holds the trainer's
+    closing checkpoint saves."""
     import tempfile
     from aspire_tpu_torch.core.config import RunConfig, TrainHParams
     from aspire_tpu_torch.train.trainer import Trainer
     layers = cfg.num_hidden_layers
-    steps = [synth_superbatch(700 + i, 10, 3, 512, 20, cfg.vocab_size) for i in range(2)]
+    steps = [synth_superbatch(700 + i, 10, 3, 512, 20, cfg.vocab_size) for i in range(4)]
     seed = 31
     first = {str(dt).split(".")[-1]: kernel_against_plain_step(cfg, dev, steps[0], seed, dt)
              for dt in (torch.bfloat16, torch.float32)}
@@ -3799,8 +3806,8 @@ def range_train(cfg, dev) -> dict:
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         counts.append(read_counts())
-    # two encodes a step, two launches a wide backward (rows, keys)
-    want = {"attention_dropout_wide": 2 * layers, "attention_bwd_wide": 2 * 2 * layers,
+    # two encodes a step, three launches a wide bf16 backward (delta, keys, ds)
+    want = {"attention_dropout_wide": 2 * layers, "attention_bwd_wide": 3 * 2 * layers,
             "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2,
             "attention_dropout": 0, "attention_bwd": 0}
     for i, (a_, b_) in enumerate(zip(counts[:-1], counts[1:])):
@@ -3809,16 +3816,21 @@ def range_train(cfg, dev) -> dict:
             raise AssertionError(f"ranges train: step {i} launched {got}, "
                                  f"expected {want}")
     losses = trainer.loss_history
-    if state.step != 2 or not losses or not all(map(math.isfinite, losses)):
+    if state.step != 4 or not losses or not all(map(math.isfinite, losses)):
         raise AssertionError(f"ranges train: step {state.step}, losses {losses}")
     first_loss = sum(losses[:10])
     if abs(first_loss - first["bfloat16"]["loss_kernel"]) > 1e-2 * abs(first_loss):
         raise AssertionError(f"ranges train: first loss {first_loss} against "
                              f"{first['bfloat16']['loss_kernel']}")
-    out = {"superbatch": [10, 3, 512], "first_step": first,
-           "step_ms": [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])],
+    step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])]
+    out = {"superbatch": [10, 3, 512], "first_step": first, "step_ms": step_ms,
+           "first_step_ms": step_ms[0], "warm_step_ms": step_ms[1:3],
+           "last_step_with_checkpoints_ms": step_ms[3],
            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
            "launches_per_step": want, "first_loss": first_loss}
+    print(f"ranges train: {layers} layers of 6 heads of 128, bf16, first step "
+          f"{step_ms[0]:.1f} ms, warm steps {step_ms[1]:.1f} and {step_ms[2]:.1f} ms "
+          f"(host clock); {CARD}", flush=True)
     del model, trainer, state
     torch.cuda.empty_cache()
     return out
@@ -4214,11 +4226,13 @@ KERNELS = [
      "aspire_tpu/ops/pallas_scan.py:180"),
     ("scan_int8_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
      "aspire_tpu/ops/pallas_scan.py:180"),
-    ("attention_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+    # the wide rows' first cases are bf16 (attention.cu, attention_bwd.cu at
+    # the head's width); f32 wide heads run attention_wide.cu
+    ("attention_wide", "aspire_tpu_torch/csrc/attention.cu",
      "aspire_tpu/ops/pallas_attention.py:210"),
-    ("attention_dropout_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+    ("attention_dropout_wide", "aspire_tpu_torch/csrc/attention.cu",
      "aspire_tpu/ops/pallas_attention.py:210"),
-    ("attention_bwd_wide", "aspire_tpu_torch/csrc/attention_wide.cu",
+    ("attention_bwd_wide", "aspire_tpu_torch/csrc/attention_bwd.cu",
      "aspire_tpu/ops/pallas_attention.py:229"),
     ("sinkhorn_large", "aspire_tpu_torch/csrc/sinkhorn.cu",
      "aspire_tpu/ops/pallas_sinkhorn.py:164"),

@@ -11,7 +11,10 @@ rounded up to 64; keys and rows past t are zero-padded with a -inf key bias
 and (m, 1/l, delta) = (0, 1, 0)), then dq = ds . k from the scratch.  Its
 rounding is the kernels': probs in f32 with 1/l taken once a row, pd =
 bf16(probs) * 1/bf16(1 - p), dprobs = dpd * 1/(1 - p) in f32, ds cast to the
-compute dtype once for dk and dq alike.
+compute dtype once for dk and dq alike.  At the wide widths (128 and 256:
+the same kernels' wgmma design, csrc/attention_bwd.cu) the keys kernel keeps
+dv alone and dk is read from the scratch as dq is, dk = ds^T . q: the same
+bf16 ds, another launch.
 
 float32 atol 1e-5: another summation order and exp routine.  bfloat16 atol
 2e-2 + 2e-2 relative: gradients are sums of up to t products rounded to bf16
@@ -32,13 +35,14 @@ from aspire_tpu_torch.ops.attention_kernel import (attention_keep_mask,
                                                    fused_attention_plain)
 
 B, NH, HD, TILE = 2, 2, 64, 64
+WIDE = [128, 256]
 DTYPES = {"float32": (jnp.float32, torch.float32, dict(atol=1e-5, rtol=0.0)),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, dict(atol=2e-2, rtol=2e-2))}
 
 
-def _case(t, seed):
+def _case(t, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, NH, t, HD)).astype(np.float32)
+    q, k, v, g = (rng.standard_normal((B, NH, t, hd)).astype(np.float32)
                   for _ in range(4))
     keep = np.ones((B, t), bool)
     keep[0, t - t // 3:] = False        # padded keys
@@ -66,7 +70,7 @@ def keys_tile_probs(s_t, m, inv_l, keep_t, inv_keep, dtype):
 def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
     """dq, dk, dv and the ds^T scratch, in the order of the CUDA kernels."""
     dtype, f = q.dtype, torch.float32
-    b, nh, t, _ = q.shape
+    b, nh, t, hd = q.shape
     tp = -(-t // TILE) * TILE
     # the forward's row statistics (planes 0 and 1 of the kernels' stats)
     s = q.to(f) @ k.to(f).transpose(-1, -2) * scale + bias[:, None, None, :]
@@ -86,7 +90,7 @@ def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
         inv_keep32 = float(torch.tensor(1.0, dtype=f) / torch.tensor(1.0 - p, dtype=f))
     # the keys kernel: one 64-key tile at a time, all query rows
     scratch = torch.empty((b, nh, tp, tp), dtype=dtype)
-    dk, dv = torch.empty((b, nh, tp, HD), dtype=dtype), torch.empty((b, nh, tp, HD), dtype=dtype)
+    dk, dv = torch.empty((b, nh, tp, hd), dtype=dtype), torch.empty((b, nh, tp, hd), dtype=dtype)
     for k0 in range(0, tp, TILE):
         ks, vs = kp[..., k0:k0 + TILE, :], vp[..., k0:k0 + TILE, :]
         s_t = ks @ qp.transpose(-1, -2) * scale + bias_p[:, None, k0:k0 + TILE, None]
@@ -97,13 +101,18 @@ def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
             dprobs = torch.where(keep_t, dprobs * inv_keep32, 0.0)
         ds = ((probs * (dprobs - delta[..., None, :])) * scale).to(dtype)
         dv[..., k0:k0 + TILE, :] = (pd.to(dtype).to(f) @ gp).to(dtype)
-        dk[..., k0:k0 + TILE, :] = (ds.to(f) @ qp).to(dtype)
+        if hd == HD:
+            dk[..., k0:k0 + TILE, :] = (ds.to(f) @ qp).to(dtype)
         scratch[..., k0:k0 + TILE, :] = ds
-    # the dq kernel: dq = ds . k over the scratch, 64 query rows at a time
-    dq = torch.empty((b, nh, tp, HD), dtype=dtype)
+    # the dq kernel: dq = ds . k over the scratch, 64 query rows at a time;
+    # at the wide widths the same launch's other blocks take dk = ds^T . q, 64
+    # keys at a time
+    dq = torch.empty((b, nh, tp, hd), dtype=dtype)
     for q0 in range(0, tp, TILE):
         dq[..., q0:q0 + TILE, :] = (
             scratch[..., q0:q0 + TILE].transpose(-1, -2).to(f) @ kp).to(dtype)
+        if hd != HD:
+            dk[..., q0:q0 + TILE, :] = (scratch[..., q0:q0 + TILE, :].to(f) @ qp).to(dtype)
     return dq[..., :t, :], dk[..., :t, :], dv[..., :t, :], scratch
 
 
@@ -111,9 +120,21 @@ def decomposed_backward(q, k, v, bias, g, ctx, scale, p, keep):
 @pytest.mark.parametrize("p", [0.1, 0.0])
 @pytest.mark.parametrize("t", [128, 200])
 def test_decomposition_matches_pallas_and_autograd(dtype, p, t):
+    _check_decomposition(dtype, p, t, HD)
+
+
+@pytest.mark.parametrize("hd", WIDE)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("t", [128, 200])
+def test_wide_decomposition_matches_pallas_and_autograd(dtype, p, t, hd):
+    _check_decomposition(dtype, p, t, hd)
+
+
+def _check_decomposition(dtype, p, t, hd):
     jd, td, tol = DTYPES[dtype]
-    q, k, v, g, bias, bits = _case(t, seed=t + int(p * 10))
-    scale = 1.0 / math.sqrt(HD)
+    q, k, v, g, bias, bits = _case(t, seed=t + int(p * 10), hd=hd)
+    scale = 1.0 / math.sqrt(hd)
     tq, tk, tv, tg = (torch.from_numpy(a).to(td) for a in (q, k, v, g))
     tb = torch.from_numpy(bias)
     keep = attention_keep_mask(tq.shape, p, rng_bits=torch.from_numpy(

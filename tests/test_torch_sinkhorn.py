@@ -179,11 +179,11 @@ def test_kernel_plain_version_past_32_atoms_matches_pallas_interpret(rng, n, m):
 def test_what_the_cuda_wrapper_takes():
     """Which kernel takes a pair (`sinkhorn_route`): up to 32 atoms a side the
     small one (the cost in registers; shared memory holds two buffers of the
-    32 + 32 values of h and a table of 128 rounds' eps and 1/eps), up to 1024
-    atoms a side (registers) with the pair within one block's shared memory
-    the wide one (the cost with an odd pitch and two rows of potentials), and
-    every other pair the large one while its f, g and h fit a block's shared
-    memory; past that the route raises."""
+    32 + 32 values of h and a table of 128 rounds' log2(e) / eps and its
+    reciprocal), up to 1024 atoms a side (registers) with the pair within one
+    block's shared memory the wide one (the cost with an odd pitch and two
+    rows of potentials), and every other pair the large one while its f, g
+    and h fit a block's shared memory; past that the route raises."""
     assert pair_bytes(20, 20) == pair_bytes(32, 1) == 4 * (2 * (32 + 32) + 2 * 128)
     assert pair_bytes(48, 40) == 4 * (48 * 41 + 88)
     assert sinkhorn_route(20, 20) == sinkhorn_route(32, 32) == "small"
@@ -195,3 +195,46 @@ def test_what_the_cuda_wrapper_takes():
     assert sinkhorn_route(29_056 - 24, 24) == "large"
     with pytest.raises(ValueError, match="29033 x 24"):
         sinkhorn_route(29_033, 24)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_small_kernel_divided_softmin_is_closer_to_f64(seed, monkeypatch):
+    """The small-pair kernel's arithmetic in numpy f32
+    (test_torch_sinkhorn_order.kernel_order_solve) in its two softmin forms,
+    on a scoring batch of `chip_smoke.case_sinkhorn`'s kind (B=4, 20 x 20
+    sentences of 768-d reps, temp 5000, OT scores near -78): the OT scores
+    of the divided form -- -(log2(sum) + max) / inv2, inv2 the rounded
+    log2(e) / eps that scaled the terms -- are at least as close to the
+    PyTorch solver in f64 as those of the multiplied form, -eps ln 2 *
+    (log2(sum) + max), whose rounding of inv2 is common to every potential
+    and grows ~1,560x at blur 0.05."""
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.ops import distances
+    from test_torch_sinkhorn_order import kernel_order_solve
+    gen = np.random.default_rng(seed)
+
+    def side(smax=20, bsz=4, d=768):
+        lens = gen.integers(4, smax + 1, bsz)
+        emb = gen.standard_normal((bsz, smax, d)).astype(np.float32) * 2.0
+        emb *= (np.arange(smax)[None, :] < lens[:, None])[:, :, None]
+        return MultiVec(torch.from_numpy(emb), torch.from_numpy(lens))
+
+    q, c = side(), side()
+    cost = ts.pairwise_l2(q.embed, c.embed)
+    a, b, _ = distances.ot_marginals(q, c, temp=5000.0, cost=cost)
+    la, lb = ts.log_weights(a), ts.log_weights(b)
+    diam = ts.resolve_diameter(q.embed, c.embed, a, b, "global", None)
+    kw = dict(temp=5000.0, return_pair_sims=True)
+    exact, _ = distances.wasserstein_dist(
+        MultiVec(q.embed.double(), q.lens), MultiVec(c.embed.double(), c.lens),
+        solver="torch", **kw)
+    err = {}
+    for divide in (False, True):
+        f, g = kernel_order_solve(*(v.numpy() for v in (cost, la, lb, diam)),
+                                  divide=divide)
+        monkeypatch.setattr(distances, "sinkhorn_potentials_kernel",
+                            lambda *_, **__: (torch.from_numpy(f), torch.from_numpy(g)))
+        sims, _ = distances.wasserstein_dist(q, c, solver="kernel", **kw)
+        err[divide] = float((sims.double() - exact).abs().max())
+    assert float(exact.abs().max()) > 50.0
+    assert err[True] <= err[False], err

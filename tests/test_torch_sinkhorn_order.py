@@ -9,7 +9,9 @@ terms in that order, and the four partial sums meet by two butterfly
 shuffles, (s0 + s1) + (s2 + s3) on every thread.  The other side's h lies
 lane-major in shared memory (`hpos`), so a thread's values sit side by side.
 Exponentials are base 2: h2 = log2(e) * (log-weight + potential / eps), terms
-h2 - c * (log2(e) / eps), softmin = -eps ln 2 * (log2(sum) + max).  numpy has
+h2 - c * inv2 with inv2 = log2(e) / eps rounded, softmin = -(log2(sum) + max) /
+inv2 (`divide=False`: the form before the repair, -eps ln 2 * (log2(sum) +
+max), which scales every potential by the rounding of inv2).  numpy has
 no fused multiply-add and no ex2.approx, so the model holds the order, not
 the last bit: the card's kernel is held against the plain version by
 `chip_smoke.py`.
@@ -48,7 +50,8 @@ def butterfly_sum(parts: np.ndarray) -> np.ndarray:
     return parts[..., 0]
 
 
-def softmin2(c: np.ndarray, h2: np.ndarray, inv2: np.ndarray, eps: np.ndarray):
+def softmin2(c: np.ndarray, h2: np.ndarray, inv2: np.ndarray, eps: np.ndarray,
+             divide: bool = True):
     """c [B, A, K] (K the summed axis), h2 [B, K] -> [B, A] in the kernel's order."""
     bsz, atoms, k_len = c.shape
     per, _ = lane_slices(k_len)
@@ -62,12 +65,16 @@ def softmin2(c: np.ndarray, h2: np.ndarray, inv2: np.ndarray, eps: np.ndarray):
     for k in range(per):                       # a thread's own terms, in order
         parts = (parts + e[:, :, k, :]).astype(F32)
     s = butterfly_sum(parts)
-    return ((-eps * LN2)[:, None] * (np.log2(s) + mx)).astype(F32)
+    lse2 = (np.log2(s) + mx).astype(F32)
+    if divide:
+        return (-lse2 / inv2[:, None]).astype(F32)
+    return ((-eps * LN2)[:, None] * lse2).astype(F32)
 
 
 def kernel_order_solve(cost, log_a, log_b, diam, blur=0.05, scaling=0.9,
-                       max_iters=128, extrapolate=True):
-    """numpy float32 model of sinkhorn_small_kernel -> (f [B, n], g [B, m])."""
+                       max_iters=128, extrapolate=True, divide=True):
+    """numpy float32 model of sinkhorn_small_kernel -> (f [B, n], g [B, m]);
+    divide=False models the softmin before the repair (module docstring)."""
     cost, log_a, log_b, diam = (np.asarray(v, F32) for v in (cost, log_a, log_b, diam))
     log_s = F32(math.log(scaling))
     ratio = np.log(F32(blur) / np.maximum(diam, F32(1e-30))) / log_s
@@ -85,7 +92,8 @@ def kernel_order_solve(cost, log_a, log_b, diam, blur=0.05, scaling=0.9,
 
     def rounds(h_a2, h_b2, eps):
         inv2 = ((F32(1) / eps) * LOG2E).astype(F32)
-        return softmin2(cost, h_b2, inv2, eps), softmin2(cost_t, h_a2, inv2, eps)
+        return (softmin2(cost, h_b2, inv2, eps, divide),
+                softmin2(cost_t, h_a2, inv2, eps, divide))
 
     f, g = rounds(la2, lb2, eps_at(0))
     for it in range(int(iters.max())):
@@ -98,8 +106,11 @@ def kernel_order_solve(cost, log_a, log_b, diam, blur=0.05, scaling=0.9,
     if not extrapolate:
         return f, g
     blur32 = np.full_like(diam, F32(blur))
-    return rounds((la2 + (f / F32(blur)) * LOG2E).astype(F32),
-                  (lb2 + (g / F32(blur)) * LOG2E).astype(F32), blur32)
+    if not divide:
+        return rounds((la2 + (f / F32(blur)) * LOG2E).astype(F32),
+                      (lb2 + (g / F32(blur)) * LOG2E).astype(F32), blur32)
+    inv2 = (F32(1) / F32(blur)) * LOG2E        # the factor the final softmins take
+    return rounds((la2 + f * inv2).astype(F32), (lb2 + g * inv2).astype(F32), blur32)
 
 
 def hpos(j: int) -> int:
