@@ -68,10 +68,11 @@
 // started with this step's pd.v; pd packed by integer instructions too.
 //
 // f32 runs on the tensor cores as split-TF32 (3xTF32) mma.sync products at
-// f32 accuracy: attention_tf32x3_kernel walks the keys once (the inference
-// forward), attention_tf32x3_stats_kernel twice (the forward that leaves the
-// row statistics for the backward, and every forward with dropout); see the
-// f32 section below.
+// f32 accuracy, at every head width: at 64 attention_tf32x3_kernel walks the
+// keys once (the inference forward), attention_tf32x3_walk_kernel twice (the
+// forward that leaves the row statistics for the backward, and every forward
+// with dropout); at 128, 192 and 256 the walk kernel does both, instantiated
+// at the width; see the f32 section below.
 #include "attention_tile.cuh"
 
 namespace {
@@ -388,28 +389,59 @@ int launch_bf16_at(int hd, const FwdArgs& a, int b, int nh, void* stream) {
 // sit in shared memory (in registers they would take 64 a thread and push the
 // walk into spills).
 //
-// attention_tf32x3_stats_kernel (K5a in f32, and the f32 forward at p = 0
-// whose gradient is wanted) leaves each row's m and l for the backward and
-// walks the keys twice: pass 1 the online m and l, pass 2 the same scores
-// again, p = exp(s - m) * (1 / l) with the final m and l, the mask, p.v.  The
-// backward's rows kernel (attention_bwd.cu) recomputes p from those m and l
-// with the same score tile (tf32x3_scores) and the same arithmetic, so its p
-// is this kernel's bit for bit.  That is why not one walk: the one-walk p of a
-// key, e rescaled tile after tile, is a few ulps from exp(s - m) / l, and in a
-// row where one key takes nearly all the weight, delta = rowsum(g * ctx) then
-// carries that mismatch times g.v (of order 10) into every ds of the row: the
-// f32 backward's dq read 2.3e-6 of its largest value against a 2e-6 limit so
-// (PERF.md).  With dropout, pd = keep ? p * (1 / (1 - p_drop)) : 0, the
-// product taken before the select; the mask words come as in the bf16 kernel
-// (acc_bits).  Its products sum each k-step in a fresh accumulator added by
-// f32 additions (tf32x3_abT, mma3_add): the gradients are held to
-// 2e-6 of the f32 plain version's, and 8 truncating additions a score at the
-// score's size read 2.0e-6 of dk's largest value against f32 products whose
-// own error there is 1.1e-6 (PERF.md).  Pass 2 takes a tile in two halves of
-// 32 keys (registers).  q's fragments sit unsplit in shared memory and are
-// split at each use, which keeps the block at 88 KB: two blocks an SM.
+// attention_tf32x3_walk_kernel<64, kDrop, 2> (K5a in f32, and the f32 forward
+// at p = 0 whose gradient is wanted) leaves each row's m and l for the
+// backward and walks the keys twice: pass 1 the online m and l, pass 2 the
+// same scores again, p = exp(s - m) * (1 / l) with the final m and l, the
+// mask, p.v.  The backward's rows kernel (attention_bwd.cu) recomputes p from
+// those m and l with the same score tile (tf32x3_scores) and the same
+// arithmetic, so its p is this kernel's bit for bit.  That is why not one
+// walk: the one-walk p of a key, e rescaled tile after tile, is a few ulps
+// from exp(s - m) / l, and in a row where one key takes nearly all the weight,
+// delta = rowsum(g * ctx) then carries that mismatch times g.v (of order 10)
+// into every ds of the row: the f32 backward's dq read 2.3e-6 of its largest
+// value against a 2e-6 limit so (PERF.md).  With dropout, pd = keep ? p * (1 /
+// (1 - p_drop)) : 0, the product taken before the select; the mask words come
+// as in the bf16 kernel (acc_bits).  Its products sum each k-step in a fresh
+// accumulator added by f32 additions (tf32x3_abT, mma3_add): the gradients
+// are held to 2e-6 of the f32 plain version's, and 8 truncating additions a
+// score at the score's size read 2.0e-6 of dk's largest value against f32
+// products whose own error there is 1.1e-6 (PERF.md).  Pass 2 takes a tile in
+// two halves of 32 keys (registers).  q's fragments sit unsplit in shared
+// memory and are split at each use, which keeps the block at 88 KB: two
+// blocks an SM.
+//
+// Heads of 128, 192 and 256 run the same walk kernel at their width kW: both
+// walks as above for a forward with dropout or with statistics, and for the
+// inference forward (K2 in f32 at those widths) one walk with the online
+// softmax, summed as attention_tf32x3_kernel sums (the scores' cross terms
+// and hi.hi terms of all k-steps in two accumulators; the tile's e . v in a
+// fresh one, folded into the rescaled context), but an 8-column tile of the
+// context at a time: the 64-wide kernel's whole tile sum would be another kW /
+// 2 registers; divided by l at the end.  Every product is the 64-wide
+// kernels' split TF32 on mma.sync m16n8k8, none on the FP32 lanes.  A warp
+// owns 16 query rows and all kW columns of their context (kW / 2 registers a
+// thread: 64, 96, 128), a block 64 rows.  q's fragments stay unsplit in shared
+// memory (64 x kW floats: 32, 48, 64 KB; split they would be twice that), and
+// the key and value tiles, two stages of Tf32Cfg's keys at pitches kW + 8 and
+// kW + 4 (conflict-free float2 and scalar reads, as at 64), take the rest:
+//   - 128: 32-key tiles, 99 KB, two blocks an SM (8 warps, as at 64);
+//   - 192: 16-key tiles, 98 KB, two blocks an SM (32-key tiles: 147 KB);
+//   - 256: 16-key tiles, 130 KB, one block an SM (q alone is 64 KB; the
+//     context takes 128 registers a thread, and 32-key tiles spilled up to
+//     472 bytes).
+// The scores come from tf32x3_scores at the width: a score is the same
+// sequence of k-steps at any tile, so the backward's kernels, which tile the
+// keys otherwise, recompute these probabilities bit for bit.  The other
+// layouts considered for 192 and 256 -- two warps sharing 16 rows, each with
+// half the context's columns and the score tile handed over in shared memory,
+// or a grid axis of column halves recomputing the scores -- are not needed
+// while a warp's whole context fits beside a 16- or 32-key score tile.  Tried
+// at 128 and no faster (PERF.md): the inference forward with q's fragments
+// and each tile's keys and values split once in shared memory, 8 warps a
+// block of 128 rows, 16-key tiles (0.1349 ms against 0.1339 at [16, 6, 256,
+// 128]), though it issues about a third fewer instructions.
 constexpr int kLdKf = 72, kLdVf = 68;
-constexpr int kHalf = kBk / 16;        // the 8-key n-tiles of half a key tile
 constexpr int kStageTf32 = kBk * (kLdKf + kLdVf) + kBk;   // floats: keys, values, biases
 // 2: tile j + 1 loads while tile j is computed; 1: it loads after, and other
 // blocks on the SM fill the wait (kBlocksTf32 of them)
@@ -420,15 +452,43 @@ constexpr int kQFragTf32 = kWarps * (kHd / 8) * 2 * 32 * 4;
 constexpr size_t kSmemTf32 = ((size_t)kStagesTf32 * kStageTf32 + kQFragTf32) * sizeof(float);
 constexpr size_t kSmemStats = ((size_t)kStagesTf32 * kStageTf32 + kQFragTf32 / 2) * sizeof(float);
 
+// the walk kernel's tile at each width: keys a tile, keys a part of pass 2,
+// blocks an SM
+template <int kW> struct Tf32Cfg;
+template <> struct Tf32Cfg<64> { static constexpr int bk = kBk, part = 32, blocks = kBlocksTf32; };
+template <> struct Tf32Cfg<128> { static constexpr int bk = 32, part = 16, blocks = 2; };
+template <> struct Tf32Cfg<192> { static constexpr int bk = 16, part = 8, blocks = 2; };
+template <> struct Tf32Cfg<256> { static constexpr int bk = 16, part = 8, blocks = 1; };
+
+template <int kW> __host__ __device__ constexpr int ld_kf() { return kW + 8; }   // kLdKf at 64
+template <int kW> __host__ __device__ constexpr int ld_vf() { return kW + 4; }   // kLdVf at 64
+// floats of a stage: keys, values, biases
+template <int kW>
+__host__ __device__ constexpr int stage_tf32() {
+  return Tf32Cfg<kW>::bk * (ld_kf<kW>() + ld_vf<kW>() + 1);
+}
+// the stages, then q's unsplit A fragments [warp][k-step][lane][4]
+template <int kW>
+__host__ __device__ constexpr size_t smem_walk() {
+  return ((size_t)kStagesTf32 * stage_tf32<kW>() + kWarps * (kW / 8) * 32 * 4) * sizeof(float);
+}
+static_assert(stage_tf32<64>() == kStageTf32 && smem_walk<64>() == kSmemStats,
+              "the 64-wide forward keeps its layout");
+static_assert(2 * (smem_walk<128>() + 1024) <= 233472 && 2 * (smem_walk<192>() + 1024) <= 233472 &&
+                  smem_walk<256>() <= 232448,
+              "the wide forwards fit their blocks an SM");
+
 // the keys (and values) of the tile from key k0 on and their biases into a
 // stage, by cp.async (zeros and -inf past t)
+template <int kW>
 __device__ __forceinline__ void load_kv_tf32(float* kd, const float* kg, const float* vg,
                                              const float* bg, long long kst, long long vst, int k0,
                                              int t, bool values) {
-  load_tile_f32_async<kLdKf>(kd, kg, kst, k0, t);
-  if (values) load_tile_f32_async<kLdVf>(kd + kBk * kLdKf, vg, vst, k0, t);
-  float* bd = kd + kBk * (kLdKf + kLdVf);
-  if (threadIdx.x < kBk) {
+  constexpr int bk = Tf32Cfg<kW>::bk, ldk = ld_kf<kW>(), ldv = ld_vf<kW>();
+  load_tile_f32_async<ldk, bk, kW>(kd, kg, kst, k0, t);
+  if (values) load_tile_f32_async<ldv, bk, kW>(kd + bk * ldk, vg, vst, k0, t);
+  float* bd = kd + bk * (ldk + ldv);
+  if (threadIdx.x < bk) {
     if (k0 + (int)threadIdx.x < t) cp_async4(bd + threadIdx.x, bg + k0 + threadIdx.x);
     else bd[threadIdx.x] = -INFINITY;   // keys past t: zero weight, no part in the max
   }
@@ -436,7 +496,7 @@ __device__ __forceinline__ void load_kv_tf32(float* kd, const float* kg, const f
 
 // step j's stage once everyone's copies have landed; with two stages, step
 // j + 1's loads are started first
-template <typename Load>
+template <int kStage, typename Load>
 __device__ __forceinline__ const float* arrive_tf32(float* smem, int j, int steps, Load load) {
   if constexpr (kStagesTf32 == 2) {
     if (j + 1 < steps) load(j + 1);
@@ -446,7 +506,7 @@ __device__ __forceinline__ const float* arrive_tf32(float* smem, int j, int step
     cp_async_wait<0>();
   }
   __syncthreads();
-  return smem + (j % kStagesTf32) * kStageTf32;
+  return smem + (j % kStagesTf32) * kStage;
 }
 
 // after step j's reads: the stage is free (with one stage, step j + 1's loads
@@ -464,19 +524,20 @@ __device__ __forceinline__ void release_tf32(int j, int steps, Load load) {
 // scaled and biased scores, becomes e = exp(s - m') with m' the new running
 // max; l = l exp(m - m') + the tile's sum of e; corr = exp(m - m') (0 on the
 // first tile)
-__device__ __forceinline__ void online_softmax(float (&s)[kBk / 8][4], float (&m_run)[2],
+template <int kN>
+__device__ __forceinline__ void online_softmax(float (&s)[kN][4], float (&m_run)[2],
                                                float (&l_run)[2], float (&corr)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < kBk / 8; ++c) mx = fmaxf(mx, fmaxf(s[c][2 * h], s[c][2 * h + 1]));
+    for (int c = 0; c < kN; ++c) mx = fmaxf(mx, fmaxf(s[c][2 * h], s[c][2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m_run[h], mx);
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kBk / 8; ++c) {
+    for (int c = 0; c < kN; ++c) {
       s[c][2 * h] = expf(s[c][2 * h] - m_new);
       s[c][2 * h + 1] = expf(s[c][2 * h + 1] - m_new);
       sum += s[c][2 * h] + s[c][2 * h + 1];
@@ -669,13 +730,19 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int kDrop>
-__global__ void __launch_bounds__(kThreads, kBlocksTf32)
-attention_tf32x3_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ bias,
-                              float* __restrict__ out, int t, Strides qs, Strides ks, Strides vs,
-                              Strides os, float sm_scale, const Drop drop, float inv_keep,
-                              float* __restrict__ stats) {
+// kWalks 2: the forward that leaves m and l (stats, when not null) and every
+// forward with dropout; kWalks 1 (the wide widths only, kDrop 0): the
+// inference forward, one walk with the online softmax
+template <int kW, int kDrop, int kWalks>
+__global__ void __launch_bounds__(kThreads, Tf32Cfg<kW>::blocks)
+attention_tf32x3_walk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ bias,
+                             float* __restrict__ out, int t, Strides qs, Strides ks, Strides vs,
+                             Strides os, float sm_scale, const Drop drop, float inv_keep,
+                             float* __restrict__ stats) {
+  static_assert(kWalks == 2 || (kDrop == 0 && kW > kHd), "one walk: the wide inference forward");
+  constexpr int kBkW = Tf32Cfg<kW>::bk, kPart = Tf32Cfg<kW>::part / 8;   // n-tiles of a part
+  constexpr int kLdK = ld_kf<kW>(), kLdV = ld_vf<kW>(), kStage = stage_tf32<kW>();
   extern __shared__ __align__(16) float smem_tf32[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z;
@@ -684,27 +751,98 @@ attention_tf32x3_stats_kernel(const float* __restrict__ q, const float* __restri
   const float* kg = k + b * ks.b + head * ks.h;
   const float* vg = v + b * vs.b + head * vs.h;
   const float* bg = bias + (long long)b * t;
-  const int n = (t + kBk - 1) / kBk, steps = 2 * n;   // steps 0 .. n - 1 pass 1, then pass 2
+  // steps 0 .. n - 1 walk the key tiles, with two walks n .. 2n - 1 again
+  const int n = (t + kBkW - 1) / kBkW, steps = kWalks * n;
 
   auto load = [&](int j) {
-    load_kv_tf32(smem_tf32 + (j % kStagesTf32) * kStageTf32, kg, vg, bg, ks.t, vs.t,
-                 (j < n ? j : j - n) * kBk, t, j >= n);
+    load_kv_tf32<kW>(smem_tf32 + (j % kStagesTf32) * kStage, kg, vg, bg, ks.t, vs.t,
+                     (j < n ? j : j - n) * kBkW, t, kWalks == 1 || j >= n);
   };
   load(0);
   cp_async_commit();
   // each thread reads back only its own fragments: no barrier
-  float4* qfrag = reinterpret_cast<float4*>(smem_tf32 + kStagesTf32 * kStageTf32) +
-                  warp * (kHd / 8) * 32 + lane;
-  store_row_frags(qfrag, q + b * qs.b + head * qs.h, qs.t, row_g, t, tq);
+  float4* qfrag = reinterpret_cast<float4*>(smem_tf32 + kStagesTf32 * kStage) +
+                  warp * (kW / 8) * 32 + lane;
+  store_row_frags<kW>(qfrag, q + b * qs.b + head * qs.h, qs.t, row_g, t, tq);
   auto qa = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(qfrag[kk * 32], hi, lo); };
 
-  // pass 1: each row's max and sum
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  if constexpr (kWalks == 1) {
+    constexpr int kN = kBkW / 8;          // 8-key n-tiles of a tile
+    float o[kW / 8][4];
+#pragma unroll
+    for (int c = 0; c < kW / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float* kt = arrive_tf32<kStage>(smem_tf32, j, steps, load);
+      const float* vt = kt + kBkW * kLdK;
+      const float* bt = vt + kBkW * kLdV;
+      // the scores as the 64-wide inference kernel sums them: the cross
+      // terms of all k-steps in one accumulator, the hi.hi terms in another,
+      // the two met by one f32 addition
+      float s[kN][4], x[kN][4];
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[c][i] = x[c][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kW / 8; ++kk) {
+        float qh[4], ql[4];
+        qa(kk, qh, ql);
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          const float2 kv = *reinterpret_cast<const float2*>(kt + (8 * c + g) * kLdK + 8 * kk + 2 * tq);
+          mma_cross(x[c], qh, ql, kv.x, kv.y);
+          mma_hihi(s[c], qh, kv.x, kv.y);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * c + 2 * tq);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[c][i] = (s[c][i] + x[c][i]) * sm_scale + ((i & 1) ? bb.y : bb.x);
+      }
+      float corr[2];
+      online_softmax<kN>(s, m_run, l_run, corr);   // s: e = exp(s - m')
+      // e . v of the tile in a fresh accumulator an 8-column tile nn at a
+      // time (the cross terms over the tile, then hi.hi), folded into the
+      // rescaled context as the 64-wide kernel folds its tile sum
+      float eh[kN][4], el[kN][4];
+#pragma unroll
+      for (int c = 0; c < kN; ++c) split_frag(make_float4(s[c][0], s[c][2], s[c][1], s[c][3]), eh[c], el[c]);
+#pragma unroll
+      for (int nn = 0; nn < kW / 8; ++nn) {
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          const float* v0 = vt + (8 * c + 2 * tq) * kLdV + 8 * nn + g;
+          mma_cross(pv, eh[c], el[c], v0[0], v0[kLdV]);
+        }
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          const float* v0 = vt + (8 * c + 2 * tq) * kLdV + 8 * nn + g;
+          mma_hihi(pv, eh[c], v0[0], v0[kLdV]);
+        }
+        o[nn][0] = fmaf(o[nn][0], corr[0], pv[0]);
+        o[nn][1] = fmaf(o[nn][1], corr[0], pv[1]);
+        o[nn][2] = fmaf(o[nn][2], corr[1], pv[2]);
+        o[nn][3] = fmaf(o[nn][3], corr[1], pv[3]);
+      }
+      release_tf32(j, steps, load);
+    }
+#pragma unroll
+    for (int c = 0; c < kW / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[c][i] /= l_run[i >> 1];
+    store_rows_f32<kW>(o, out + b * os.b + head * os.h, os.t, row_g, t, tq);
+    return;
+  }
+
+  // pass 1: each row's max and sum
   for (int j = 0; j < n; ++j) {
-    const float* kt = arrive_tf32(smem_tf32, j, steps, load);
-    float s[kBk / 8][4], corr[2];
-    tf32x3_scores<kLdKf, kBk / 8>(s, qa, kt, kt + kBk * (kLdKf + kLdVf), sm_scale, g, tq);
-    online_softmax(s, m_run, l_run, corr);
+    const float* kt = arrive_tf32<kStage>(smem_tf32, j, steps, load);
+    float s[kBkW / 8][4], corr[2];
+    tf32x3_scores<kLdK, kBkW / 8, kW>(s, qa, kt, kt + kBkW * (kLdK + kLdV), sm_scale, g, tq);
+    online_softmax<kBkW / 8>(s, m_run, l_run, corr);
     release_tf32(j, steps, load);
   }
   if (stats != nullptr && tq == 0) {    // a training forward leaves them for the backward
@@ -722,24 +860,24 @@ attention_tf32x3_stats_kernel(const float* __restrict__ q, const float* __restri
 
   // pass 2: probabilities, mask, context
   const PhiloxRow prow = philox_row(drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
-  float o[kHd / 8][4];
+  float o[kW / 8][4];
 #pragma unroll
-  for (int c = 0; c < kHd / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  for (int c = 0; c < kW / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
   for (int j = n; j < steps; ++j) {
-    const float* kt = arrive_tf32(smem_tf32, j, steps, load);
-    const float* vt = kt + kBk * kLdKf;
+    const float* kt = arrive_tf32<kStage>(smem_tf32, j, steps, load);
+    const float* vt = kt + kBkW * kLdK;
 #pragma unroll 1
-    for (int c0 = 0; c0 < kBk / 8; c0 += kHalf) {
-      float s[kHalf][4];
-      tf32x3_scores<kLdKf, kHalf>(s, qa, kt + 8 * c0 * kLdKf,
-                                        kt + kBk * (kLdKf + kLdVf) + 8 * c0, sm_scale, g, tq);
+    for (int c0 = 0; c0 < kBkW / 8; c0 += kPart) {
+      float s[kPart][4];
+      tf32x3_scores<kLdK, kPart, kW>(s, qa, kt + 8 * c0 * kLdK,
+                                     kt + kBkW * (kLdK + kLdV) + 8 * c0, sm_scale, g, tq);
 #pragma unroll
-      for (int c = 0; c < kHalf; ++c) {
+      for (int c = 0; c < kPart; ++c) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[c][i] = expf(s[c][i] - m_run[i >> 1]) * inv_l[i >> 1];
         if constexpr (kDrop != 0) {
           unsigned bits[4];
-          acc_bits<kDrop>(drop, prow, plane, t, row_g, (j - n) * kBk + 8 * (c0 + c), lane, bits);
+          acc_bits<kDrop>(drop, prow, plane, t, row_g, (j - n) * kBkW + 8 * (c0 + c), lane, bits);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float kept = s[c][i] * inv_keep;   // before the select: no branch
@@ -751,17 +889,17 @@ attention_tf32x3_stats_kernel(const float* __restrict__ q, const float* __restri
       // pd's A fragment of step c is (s[c][0], s[c][2], s[c][1], s[c][3]), B
       // the value tile's rows 8 c + 2 tq, + 1 at column 8 nn + g
 #pragma unroll
-      for (int c = 0; c < kHalf; ++c) {
+      for (int c = 0; c < kPart; ++c) {
         float ph[4], pl[4];
         split_frag(make_float4(s[c][0], s[c][2], s[c][1], s[c][3]), ph, pl);
-        const float* v0 = vt + (8 * (c0 + c) + 2 * tq) * kLdVf + g;
+        const float* v0 = vt + (8 * (c0 + c) + 2 * tq) * kLdV + g;
 #pragma unroll
-        for (int nn = 0; nn < kHd / 8; ++nn) mma3_add(o[nn], ph, pl, v0[8 * nn], v0[kLdVf + 8 * nn]);
+        for (int nn = 0; nn < kW / 8; ++nn) mma3_add(o[nn], ph, pl, v0[8 * nn], v0[kLdV + 8 * nn]);
       }
     }
     release_tf32(j, steps, load);
   }
-  store_rows_f32(o, out + b * os.b + head * os.h, os.t, row_g, t, tq);
+  store_rows_f32<kW>(o, out + b * os.b + head * os.h, os.t, row_g, t, tq);
 }
 
 int launch_tf32x3(const void* q, const void* k, const void* v, const void* bias, void* out,
@@ -778,29 +916,47 @@ int launch_tf32x3(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <int kDrop>
-int launch_tf32x3_stats(const void* q, const void* k, const void* v, const void* bias, void* out,
-                        int b, int nh, int t, const long long* s, float sm_scale, const Drop& drop,
-                        void* stats, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_stats_kernel<kDrop>,
+template <int kW, int kDrop, int kWalks>
+int launch_walk(const void* q, const void* k, const void* v, const void* bias, void* out, int b,
+                int nh, int t, const long long* s, float sm_scale, const Drop& drop, void* stats,
+                void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32x3_walk_kernel<kW, kDrop, kWalks>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemStats);
+                                         (int)smem_walk<kW>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + kBq - 1) / kBq, nh, b);
-  attention_tf32x3_stats_kernel<kDrop><<<grid, kThreads, kSmemStats, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t,
-      Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
-      Strides{s[9], s[10], s[11]}, sm_scale, drop, 1.f / drop.keep_div, (float*)stats);
+  attention_tf32x3_walk_kernel<kW, kDrop, kWalks>
+      <<<grid, kThreads, smem_walk<kW>(), (cudaStream_t)stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out, t,
+          Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
+          Strides{s[9], s[10], s[11]}, sm_scale, drop, 1.f / drop.keep_div, (float*)stats);
   return (int)cudaGetLastError();
+}
+
+// the inference forward (no row statistics wanted) walks the keys once; the
+// forward that leaves m and l for the backward, and every forward with
+// dropout, twice
+template <int kW>
+int launch_f32_at(int mode, const void* q, const void* k, const void* v, const void* bias,
+                  void* out, int b, int nh, int t, const long long* s, float sm_scale,
+                  const Drop& drop, void* stats, void* stream) {
+  if (mode == 0 && stats == nullptr) {
+    if constexpr (kW == kHd) return launch_tf32x3(q, k, v, bias, out, b, nh, t, s, sm_scale, stream);
+    else return launch_walk<kW, 0, 1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  }
+  if (mode == 0) return launch_walk<kW, 0, 2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 1) return launch_walk<kW, 1, 2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  if (mode == 2 && drop.bits != nullptr)
+    return launch_walk<kW, 2, 2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65535 || b > 65535; }
 
 }  // namespace
 
-// hd: the head width, 64, 128, 192 or 256 (bf16; f32 takes 64 here and the
-// wider heads in attention_wide.cu); mode: 0 no dropout, 1 Philox bits from
-// (seed, c0), 2 bits from the operand;
+// hd: the head width, 64, 128, 192 or 256; mode: 0 no dropout, 1 Philox bits
+// from (seed, c0), 2 bits from the operand;
 // plane0: the place of plane 0 in the whole batch (its Philox counter);
 // keep_div: 1 - p rounded to the compute type; stats: null, or a [2 or more,
 // b * nh, t] f32 array that receives each row's max (plane 0) and sum (plane
@@ -828,24 +984,21 @@ extern "C" int aspire_attention_bf16(const void* q, const void* k, const void* v
 }
 
 extern "C" int aspire_attention_f32(const void* q, const void* k, const void* v, const void* bias,
-                                    void* out, int b, int nh, int t, long long qsb, long long qsh,
-                                    long long qst, long long ksb, long long ksh, long long kst,
-                                    long long vsb, long long vsh, long long vst, long long osb,
-                                    long long osh, long long ost, float sm_scale, int mode,
-                                    unsigned long long seed, unsigned c0, unsigned thresh,
-                                    unsigned plane0, float keep_div, const void* bits,
-                                    void* stats, void* stream) {
+                                    void* out, int b, int nh, int t, int hd, long long qsb,
+                                    long long qsh, long long qst, long long ksb, long long ksh,
+                                    long long kst, long long vsb, long long vsh, long long vst,
+                                    long long osb, long long osh, long long ost, float sm_scale,
+                                    int mode, unsigned long long seed, unsigned c0,
+                                    unsigned thresh, unsigned plane0, float keep_div,
+                                    const void* bits, void* stats, void* stream) {
   if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
   const Drop drop = {seed, c0, thresh, keep_div, keep_div, (const unsigned*)bits, plane0, 0u};
-  // the inference forward (no row statistics wanted) walks the keys once;
-  // the forward that leaves m and l for the backward, and every forward with
-  // dropout, twice
-  if (mode == 0 && stats == nullptr)
-    return launch_tf32x3(q, k, v, bias, out, b, nh, t, s, sm_scale, stream);
-  if (mode == 0) return launch_tf32x3_stats<0>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
-  if (mode == 1) return launch_tf32x3_stats<1>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
-  if (mode == 2 && bits != nullptr)
-    return launch_tf32x3_stats<2>(q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 64: return launch_f32_at<64>(mode, q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+    case 128: return launch_f32_at<128>(mode, q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+    case 192: return launch_f32_at<192>(mode, q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+    case 256: return launch_f32_at<256>(mode, q, k, v, bias, out, b, nh, t, s, sm_scale, drop, stats, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

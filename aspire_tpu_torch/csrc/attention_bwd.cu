@@ -68,9 +68,11 @@
 // The bias gets no gradient here (the wrapper returns none for it).
 //
 // f32 (training with --no-bf16-compute) runs two launches on the tensor cores
-// as split-TF32 products: a rows kernel (delta, dq) and a keys kernel (dk,
-// dv), each computing scores and dpd, seven products in all; see the f32
-// section below.
+// as split-TF32 products: at 64-wide heads a rows kernel (delta, dq) and a
+// keys kernel (dk, dv), each computing scores and dpd, seven products in all;
+// at 128, 192 and 256 a scores kernel (delta, then ds and pd of every tile
+// into an f32 scratch) and a gradients kernel (dq, dk, dv from the scratch),
+// five products; see the f32 sections below.
 #include "attention_tile.cuh"
 
 namespace {
@@ -85,7 +87,8 @@ struct BwdArgs {
   const float* bias;
   void *dq, *dk, *dv;
   float* stats;            // [3][b * heads][t]: m, l (from the forward), delta
-  bf16* scratch;           // bf16 only: ds^T, [b * heads][tp][tp]
+  bf16* scratch;           // bf16: ds^T, [b * heads][tp][tp]
+  float* scratch32;        // f32 at heads wider than 64: ds, then pd, [2][b * heads][tp][tp]
   int t;
   Strides qs, ks, vs, gs, os, dqs, dks, dvs;
   float sm_scale;
@@ -1034,6 +1037,284 @@ int launch_f32(void (*rows)(BwdArgs), void (*keys)(BwdArgs), const BwdArgs& a, i
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------- f32, heads of 128 to 256
+// Two launches, every product split TF32 on mma.sync m16n8k8 as at 64, none on
+// the FP32 lanes; five products of 2 t t kW (the scores, dpd, dq, dk, dv), each
+// computed once, with ds and pd handed over through an f32 scratch [2, b *
+// heads, tp, tp] (tp = t rounded up to 64; row-major: query rows, keys) that
+// the wrapper allocates and frees on return:
+//
+//   scores  bwd_scores_f32_kernel: one block of 8 warps per 64 query rows,
+//           walking the key tiles (keys, values, biases by cp.async, two
+//           stages): warp w owns rows 16 (w % 4) .. + 15 and half of each
+//           tile's keys.  delta = rowsum(g * ctx) of its rows first, then per
+//           tile the scores through tf32x3_scores -- the forward's own score
+//           function, so p = exp(s - m) * (1 / l) is the forward's bit for bit
+//           for all three gradients -- dpd = g . v^T, the mask, pd = keep ? p
+//           (1 / (1 - p_drop)) : 0 and ds = p (dprobs - delta) scale, both
+//           stored to the scratch by float2 stores straight from the
+//           accumulators.  No sum lives across the walk, so two warps share
+//           a row group's fragments and tiles: 8 warps an SM from one block.
+//   grads   bwd_grads_f32_kernel: blocks [0, tp / 64) dq = ds . k of 64 query
+//           rows, [tp / 64, 2 tp / 64) dk = ds^T . q of 64 keys, the rest dv =
+//           pd^T . g of 64 keys; a warp's 16 rows and all kW columns (kW / 2
+//           registers a thread), the contraction walked 32 rows at a time (a
+//           scratch tile and a tile of k, q or g, two stages by cp.async), each
+//           k-step of 8 in a fresh accumulator added in f32 (mma3_add).
+//
+// Why this split.  The 64-wide design cannot be instantiated wider: its keys
+// kernel holds dk and dv for a warp's 16 keys, kW floats a thread (256 at
+// 256), and its rows kernel dq beside the score tiles.  The bf16 wide split
+// (bwd_keys_wide_kernel) keeps dv in a transposed keys kernel, whose S^T = k .
+// q^T is another product order than the forward's scores; here every
+// probability comes from tf32x3_scores (ds for dq and dk, pd for dv), and the
+// kernel that makes them holds no sum, so its tile is set by shared memory
+// alone.  The price is pd
+// beside ds in the scratch: at [4, 6, 512, 128] 2 x 25 MB written once, ds
+// read twice and pd once, about 0.038 ms of bytes at 3.35 TB/s, in place of
+// two recomputed products (the 64-wide design's seven against five).  Shared
+// memory: the scores kernel's q and g fragments (2 x 64 x kW floats) and two
+// stages of key tiles (64 keys at 128, 32 at 192, 16 at 256): 201, 196 and 194
+// KB, one block an SM; the grads kernel 53, 69 and 85 KB, two blocks an SM.
+template <int kW> struct F32WideCfg;       // keys a tile of the scores kernel
+template <> struct F32WideCfg<128> { static constexpr int bk = 64; };
+template <> struct F32WideCfg<192> { static constexpr int bk = 32; };
+template <> struct F32WideCfg<256> { static constexpr int bk = 16; };
+constexpr int kThreadsScores = 2 * kThreads;   // 8 warps: two a row group
+
+template <int kW> __host__ __device__ constexpr int ld_scores() { return kW + 8; }   // float2 B reads
+template <int kW>
+__host__ __device__ constexpr int stage_scores() {
+  return F32WideCfg<kW>::bk * (2 * ld_scores<kW>() + 1);
+}
+template <int kW>
+__host__ __device__ constexpr size_t smem_scores() {
+  return ((size_t)2 * stage_scores<kW>() + 2 * kWarps * (kW / 8) * 32 * 4) * sizeof(float);
+}
+static_assert(smem_scores<128>() <= 232448 && smem_scores<192>() <= 232448 &&
+                  smem_scores<256>() <= 232448,
+              "the scores kernel fits one block");
+
+template <int kW, int kDrop>
+__global__ void __launch_bounds__(kThreadsScores, 1) bwd_scores_f32_kernel(BwdArgs a) {
+  constexpr int kBkS = F32WideCfg<kW>::bk, kLd = ld_scores<kW>(), kStage = stage_scores<kW>();
+  constexpr int kN = kBkS / 16;           // 8-key n-tiles of a warp's half tile
+  extern __shared__ __align__(16) float smem_sc[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int rw = warp & 3, half = warp >> 2;   // the warp's row group and half of a tile
+  const int q0 = blockIdx.x * kBq, head = blockIdx.y, b = blockIdx.z, t = a.t;
+  const int plane = b * gridDim.y + head, row_g = q0 + rw * kRows + g, tp = padded(t);
+  const long long planes_t = (long long)gridDim.z * gridDim.y * t;
+  const float* kg = head_ptr<float>(a.k, a.ks, b, head);
+  const float* vg = head_ptr<float>(a.v, a.vs, b, head);
+  const float* bg = a.bias + (long long)b * t;
+  const float* st = a.stats + (long long)plane * t;
+  float* ds_g = a.scratch32 + (long long)plane * tp * tp;                  // [rows][keys]
+  float* pd_g = ds_g + (long long)gridDim.z * gridDim.y * tp * tp;
+  const int n = tp / kBkS;                // every key of the scratch's rows gets written
+
+  auto load = [&](int j) {
+    float* kd = smem_sc + (j & 1) * kStage;
+    load_tile_f32_async<kLd, kBkS, kW, kThreadsScores>(kd, kg, a.ks.t, j * kBkS, t);
+    load_tile_f32_async<kLd, kBkS, kW, kThreadsScores>(kd + kBkS * kLd, vg, a.vs.t, j * kBkS, t);
+    float* bd = kd + 2 * kBkS * kLd;
+    if (threadIdx.x < kBkS) {
+      if (j * kBkS + (int)threadIdx.x < t) cp_async4(bd + threadIdx.x, bg + j * kBkS + threadIdx.x);
+      else bd[threadIdx.x] = -INFINITY;   // keys past t: zero weight
+    }
+  };
+  load(0);
+  cp_async_commit();
+  // the row groups' A fragments, q by warps 0-3 and g by warps 4-7; the first
+  // tile's barrier orders the stores before any read
+  float4* qfrag = reinterpret_cast<float4*>(smem_sc + 2 * kStage) + rw * (kW / 8) * 32 + lane;
+  float4* gfrag = qfrag + kWarps * (kW / 8) * 32;
+  const float* gsrc = head_ptr<float>(a.g, a.gs, b, head);
+  if (half == 0) store_row_frags<kW>(qfrag, head_ptr<float>(a.q, a.qs, b, head), a.qs.t, row_g, t, tq);
+  else store_row_frags<kW>(gfrag, gsrc, a.gs.t, row_g, t, tq);
+  auto qa = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(qfrag[kk * 32], hi, lo); };
+  auto ga = [&](int kk, float (&hi)[4], float (&lo)[4]) { split_frag(gfrag[kk * 32], hi, lo); };
+
+  // delta = rowsum(g * ctx) of rows row_g (h = 0) and row_g + 8: the thread's
+  // kW / 4 columns, then the quad's sum; the forward's m and 1 / l.  Rows past
+  // t (q and g are zero there) take (m, 1 / l, delta) = (0, 1, 0).
+  float m[2], inv_l[2], delta[2];
+  bool valid[2];
+  const float* ctx = head_ptr<float>(a.out, a.os, b, head);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    valid[h] = row < t;
+    float sum = 0.f;
+    if (valid[h]) {
+#pragma unroll
+      for (int i = 0; i < kW / 16; ++i) {
+        const int col = 4 * (tq + 4 * i);
+        const float4 gv = *reinterpret_cast<const float4*>(gsrc + (long long)row * a.gs.t + col);
+        const float4 ov = *reinterpret_cast<const float4*>(ctx + (long long)row * a.os.t + col);
+        sum += gv.x * ov.x + gv.y * ov.y + gv.z * ov.z + gv.w * ov.w;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    m[h] = valid[h] ? st[row] : 0.f;
+    inv_l[h] = valid[h] ? 1.f / st[planes_t + row] : 1.f;   // the forward's 1 / l
+    delta[h] = sum;
+  }
+
+  const PhiloxRow prow = philox_row(a.drop, plane, row_g + 8 * (tq & 1));   // this thread's calls
+  for (int j = 0; j < n; ++j) {
+    if (j + 1 < n) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                      // tile j's copies, everyone's
+    const float* kt = smem_sc + (j & 1) * kStage + half * 8 * kN * kLd;   // the warp's keys
+    const float* vt = kt + kBkS * kLd;
+    const float* bt = smem_sc + (j & 1) * kStage + 2 * kBkS * kLd + half * 8 * kN;
+    const int key0 = j * kBkS + half * 8 * kN;
+    float s[kN][4], dp[kN][4];
+    tf32x3_abT<kLd, kN, kW>(dp, ga, vt, g, tq);                      // dpd = g.v^T
+    tf32x3_scores<kLd, kN, kW>(s, qa, kt, bt, a.sm_scale, g, tq);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      unsigned bits[4];
+      if constexpr (kDrop != 0)
+        acc_bits<kDrop>(a.drop, prow, plane, t, row_g, key0 + 8 * c, lane, bits);
+      float pd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float probs = expf(s[c][i] - m[i >> 1]) * inv_l[i >> 1];
+        float dprobs = dp[c][i];
+        pd[i] = probs;
+        if constexpr (kDrop != 0) {
+          const bool keep = bits[i] >= a.drop.thresh;
+          const float kept_p = probs * a.inv_keep, kept_d = dprobs * a.inv_keep32;
+          pd[i] = keep ? kept_p : 0.f;
+          dprobs = keep ? kept_d : 0.f;
+        }
+        if (!valid[i >> 1]) pd[i] = 0.f;     // rows past t: dv must not see them
+        s[c][i] = (probs * (dprobs - delta[i >> 1])) * a.sm_scale;   // ds
+      }
+      const int key = key0 + 8 * c + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long at = (long long)(row_g + 8 * h) * tp + key;
+        *reinterpret_cast<float2*>(ds_g + at) = make_float2(s[c][2 * h], s[c][2 * h + 1]);
+        *reinterpret_cast<float2*>(pd_g + at) = make_float2(pd[2 * h], pd[2 * h + 1]);
+      }
+    }
+    __syncthreads();                      // the stage is reloaded with tile j + 2
+  }
+}
+
+constexpr int kStepG = 32;                // contraction rows a step of the grads kernel
+constexpr int kLdGA = 40;                 // dq's A tile [64 rows][32 keys]: float2 reads
+constexpr int kLdGAT = 68;                // dk's, dv's [32 query rows][64 keys]: scalar reads
+constexpr int kTileGA = 64 * kLdGA;       // floats of either A tile (>= 32 x 68)
+template <int kW>
+__host__ __device__ constexpr int stage_grads() { return kTileGA + kStepG * (kW + 4); }
+template <int kW>
+__host__ __device__ constexpr size_t smem_grads() {
+  return (size_t)2 * stage_grads<kW>() * sizeof(float);
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kThreads, 2) bwd_grads_f32_kernel(BwdArgs a) {
+  constexpr int kLdB = kW + 4, kStage = stage_grads<kW>();   // B: conflict-free scalar reads
+  extern __shared__ __align__(16) float smem_gr[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int head = blockIdx.y, b = blockIdx.z, t = a.t;
+  const int plane = b * gridDim.y + head, tp = padded(t), n64 = tp / 64;
+  const int role = blockIdx.x / n64;      // 0: dq, 1: dk, 2: dv
+  const int r0 = (blockIdx.x % n64) * 64; // the block's query rows (dq) or keys
+  const float* src = a.scratch32 + (long long)plane * tp * tp +
+                     (role == 2 ? (long long)gridDim.z * gridDim.y * tp * tp : 0);   // ds or pd
+  const float* bsrc = role == 0 ? head_ptr<float>(a.k, a.ks, b, head)
+                    : role == 1 ? head_ptr<float>(a.q, a.qs, b, head)
+                                : head_ptr<float>(a.g, a.gs, b, head);
+  const long long bstride = role == 0 ? a.ks.t : role == 1 ? a.qs.t : a.gs.t;
+
+  // step i: the contraction's rows i * 32 .. of the scratch tile (dq: rows r0
+  // .., keys i * 32 ..; dk, dv: query rows i * 32 .., keys r0 ..) and of k,
+  // q or g
+  auto load = [&](int i) {
+    float* d = smem_gr + (i & 1) * kStage;
+    if (role == 0) load_tile_f32_async<kLdGA, 64, kStepG>(d, src + i * kStepG, tp, r0, tp);
+    else load_tile_f32_async<kLdGAT, kStepG, 64>(d, src + r0, tp, i * kStepG, tp);
+    load_tile_f32_async<kLdB, kStepG, kW>(d + kTileGA, bsrc, bstride, i * kStepG, t);
+  };
+  float acc[kW / 8][4];
+#pragma unroll
+  for (int c = 0; c < kW / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  load(0);
+  cp_async_commit();
+  const int n = tp / kStepG;
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                      // step i's copies, everyone's
+    const float* at = smem_gr + (i & 1) * kStage;
+    const float* bt = at + kTileGA;
+#pragma unroll 1
+    for (int c = 0; c < kStepG / 8; ++c) {   // not unrolled: its loads spilled at 192 and 256
+      // the A fragment of k-step c: (row g, element 2 tq), (row g + 8, 2 tq),
+      // (row g, 2 tq + 1), (row g + 8, 2 tq + 1) of the warp's 16 rows
+      float4 av;
+      if (role == 0) {
+        const float2 x0 = *reinterpret_cast<const float2*>(at + (warp * 16 + g) * kLdGA + 8 * c + 2 * tq);
+        const float2 x1 = *reinterpret_cast<const float2*>(at + (warp * 16 + g + 8) * kLdGA + 8 * c + 2 * tq);
+        av = make_float4(x0.x, x1.x, x0.y, x1.y);
+      } else {
+        const float* x = at + (8 * c + 2 * tq) * kLdGAT + warp * 16 + g;
+        av = make_float4(x[0], x[8], x[kLdGAT], x[kLdGAT + 8]);
+      }
+      float ah[4], al[4];
+      split_frag(av, ah, al);
+      const float* b0 = bt + (8 * c + 2 * tq) * kLdB + g;
+#pragma unroll
+      for (int nn = 0; nn < kW / 8; ++nn) mma3_add(acc[nn], ah, al, b0[8 * nn], b0[kLdB + 8 * nn]);
+    }
+    __syncthreads();                      // the stage is reloaded with step i + 2
+  }
+  float* dst = role == 0 ? head_ptr<float>(a.dq, a.dqs, b, head)
+             : role == 1 ? head_ptr<float>(a.dk, a.dks, b, head)
+                         : head_ptr<float>(a.dv, a.dvs, b, head);
+  const long long dstride = role == 0 ? a.dqs.t : role == 1 ? a.dks.t : a.dvs.t;
+  store_rows_f32<kW>(acc, dst, dstride, r0 + warp * 16 + g, t, tq);
+}
+
+template <int kW, int kDrop>
+int launch_f32_wide(const BwdArgs& a, int b, int nh, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(bwd_scores_f32_kernel<kW, kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_scores<kW>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_grads_f32_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_grads<kW>());
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (a.t + 63) / 64;
+  bwd_scores_f32_kernel<kW, kDrop><<<dim3(tiles, nh, b), kThreadsScores, smem_scores<kW>(), s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_grads_f32_kernel<kW><<<dim3(3 * tiles, nh, b), kThreads, smem_grads<kW>(), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int kDrop>
+int launch_f32_at(int hd, const BwdArgs& a, int b, int nh, void* stream) {
+  switch (hd) {
+    case 64:
+      return launch_f32(bwd_rows_tf32x3_kernel<kDrop>, bwd_keys_tf32x3_kernel<kDrop>, a, b, nh,
+                        stream);
+    case 128: return launch_f32_wide<128, kDrop>(a, b, nh, stream);
+    case 192: return launch_f32_wide<192, kDrop>(a, b, nh, stream);
+    case 256: return launch_f32_wide<256, kDrop>(a, b, nh, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* bias, const void* g,
                   const void* out, void* dq, void* dk, void* dv, void* stats, void* scratch, int t,
                   const long long* strides, float sm_scale, unsigned long long seed, unsigned c0,
@@ -1041,7 +1322,9 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* bias,
                   const void* bits) {
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.g = g; a.out = out; a.bias = (const float*)bias;
-  a.dq = dq; a.dk = dk; a.dv = dv; a.stats = (float*)stats; a.scratch = (bf16*)scratch; a.t = t;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.stats = (float*)stats; a.t = t;
+  a.scratch = (bf16*)scratch;
+  a.scratch32 = (float*)scratch;
   Strides* dst[8] = {&a.qs, &a.ks, &a.vs, &a.gs, &a.os, &a.dqs, &a.dks, &a.dvs};
   for (int i = 0; i < 8; ++i)
     *dst[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -1058,11 +1341,12 @@ bool bad_grid(int b, int nh, int t) { return b < 1 || nh < 1 || t < 1 || nh > 65
 
 // strides: (batch, head, token) of q, k, v, g, out, dq, dk, dv; stats: the
 // [3, b * nh, t] f32 array whose planes 0 and 1 the forward filled (plane 2
-// receives delta); scratch: bf16 [b * nh, tp, tp] with tp = t rounded up to 64
-// (ds^T, bf16 only); hd (bf16): the head width, 64, 128, 192 or 256 (f32
-// takes 64 here and the wider heads in attention_wide.cu); mode and plane0 as
-// in the forward.  bf16 launches three kernels (delta, keys, dq; at the wide
-// widths delta, keys, ds), f32 two (rows, keys).
+// receives delta where a kernel hands it on); hd: the head width, 64, 128, 192
+// or 256; scratch: bf16 [b * nh, tp, tp] (ds^T) in bf16, f32 [2, b * nh, tp,
+// tp] (ds, pd) in f32 at heads wider than 64, ignored (may be null) in f32 at
+// 64, with tp = t rounded up to 64; mode and plane0 as in the forward.  bf16
+// launches three kernels (delta, keys, dq; at the wide widths delta, keys,
+// ds), f32 two (rows, keys; at the wide widths scores, grads).
 extern "C" int aspire_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                          const void* bias, const void* g, const void* out,
                                          void* dq, void* dk, void* dv, void* stats, void* scratch,
@@ -1082,19 +1366,17 @@ extern "C" int aspire_attention_bwd_bf16(const void* q, const void* k, const voi
 
 extern "C" int aspire_attention_bwd_f32(const void* q, const void* k, const void* v,
                                         const void* bias, const void* g, const void* out, void* dq,
-                                        void* dk, void* dv, void* stats, int b, int nh, int t,
-                                        const long long* strides, float sm_scale, int mode,
-                                        unsigned long long seed, unsigned c0, unsigned thresh,
-                                        unsigned plane0, float keep_div, float keep_div32,
-                                        const void* bits, void* stream) {
-  if (bad_grid(b, nh, t)) return (int)cudaErrorInvalidValue;
-  const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, nullptr, t, strides,
+                                        void* dk, void* dv, void* stats, void* scratch, int b,
+                                        int nh, int t, int hd, const long long* strides,
+                                        float sm_scale, int mode, unsigned long long seed,
+                                        unsigned c0, unsigned thresh, unsigned plane0,
+                                        float keep_div, float keep_div32, const void* bits,
+                                        void* stream) {
+  if (bad_grid(b, nh, t) || (hd != kHd && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  const BwdArgs a = make_args(q, k, v, bias, g, out, dq, dk, dv, stats, scratch, t, strides,
                               sm_scale, seed, c0, thresh, plane0, keep_div, keep_div32, bits);
-  if (mode == 0)
-    return launch_f32(bwd_rows_tf32x3_kernel<0>, bwd_keys_tf32x3_kernel<0>, a, b, nh, stream);
-  if (mode == 1)
-    return launch_f32(bwd_rows_tf32x3_kernel<1>, bwd_keys_tf32x3_kernel<1>, a, b, nh, stream);
-  if (mode == 2 && bits != nullptr)
-    return launch_f32(bwd_rows_tf32x3_kernel<2>, bwd_keys_tf32x3_kernel<2>, a, b, nh, stream);
+  if (mode == 0) return launch_f32_at<0>(hd, a, b, nh, stream);
+  if (mode == 1) return launch_f32_at<1>(hd, a, b, nh, stream);
+  if (mode == 2 && bits != nullptr) return launch_f32_at<2>(hd, a, b, nh, stream);
   return (int)cudaErrorInvalidValue;
 }

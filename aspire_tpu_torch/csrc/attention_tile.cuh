@@ -2,7 +2,7 @@
 // share: tile sizes, the tile loaders (asynchronous bf16 into the padded or
 // the wgmma layout, asynchronous f32), the mma.sync product of a warp's 16 rows
 // with a 64-row tile that the backward's dq kernel runs, and the f32 kernels'
-// split-TF32 products, the score tile among them.
+// split-TF32 products at every head width, the score tile among them.
 #pragma once
 
 #include <math.h>
@@ -134,14 +134,17 @@ __device__ __forceinline__ void split_frag(const float4 x, float (&hi)[4], float
 }
 
 // The A fragments of a warp's 16 rows (rows row_g and row_g + 8 of this
-// thread) of a [t, 64] f32 matrix, unsplit, into shared memory at frag (this
+// thread) of a [t, kW] f32 matrix, unsplit, into shared memory at frag (this
 // warp's, + lane): k-step kk at frag[kk * 32], slots (row g dim 2t, row g + 8
 // dim 2t, row g dim 2t + 1, row g + 8 dim 2t + 1) of dims 8 kk ..; rows past t
-// are zero.  One float4 a step and a lane, read without bank conflicts.
+// are zero.  One float4 a step and a lane, read without bank conflicts.  The
+// f32 helpers from here on take the head width kW (64, 128, 192, 256; 64 by
+// default, where each is the code the 64-wide kernels were built from).
+template <int kW = kHd>
 __device__ __forceinline__ void store_row_frags(float4* frag, const float* src, long long stride,
                                                 int row_g, int t, int tq) {
 #pragma unroll
-  for (int kk = 0; kk < kHd / 8; ++kk) {
+  for (int kk = 0; kk < kW / 8; ++kk) {
     float2 x[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -153,13 +156,14 @@ __device__ __forceinline__ void store_row_frags(float4* frag, const float* src, 
   }
 }
 
-// rows [row0, row0 + 64) of a [t, 64] f32 matrix with row pitch `stride` into
-// a [64][ld] tile by cp.async, joining the thread's open group; zero past t
-template <int ld>
+// rows [row0, row0 + kTileRows) of a [t, kW] f32 matrix with row pitch
+// `stride` into a [kTileRows][ld] tile by cp.async, joining the thread's open
+// group; zero past t.  The block's first kNThreads threads share the copies.
+template <int ld, int kTileRows = kBk, int kW = kHd, int kNThreads = kThreads>
 __device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src, long long stride,
                                                     int row0, int t) {
-  for (int idx = threadIdx.x; idx < kBk * (kHd / 4); idx += kThreads) {
-    const int r = idx / (kHd / 4), c = (idx % (kHd / 4)) * 4;
+  for (int idx = threadIdx.x; idx < kTileRows * (kW / 4); idx += kNThreads) {
+    const int r = idx / (kW / 4), c = (idx % (kW / 4)) * 4;
     const bool valid = row0 + r < t;
     cp_async16(dst + r * ld + c, valid ? src + (long long)(row0 + r) * stride + c : src, valid);
   }
@@ -175,34 +179,53 @@ __device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src
 // has no bias, which the training kernels need, whose gradients carry a
 // score's bias into every ds.  (K2 in f32, whose context averages the scores,
 // sums all k-steps in one accumulator, attention.cu.)
-template <int kLdB, int kN, typename AFrag>
+template <int kLdB, int kN, int kW = kHd, typename AFrag>
 __device__ __forceinline__ void tf32x3_abT(float (&s)[kN][4], AFrag a, const float* bt, int g,
                                            int tq) {
 #pragma unroll
   for (int c = 0; c < kN; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[c][i] = 0.f;
+  if constexpr (kW == kHd) {
 #pragma unroll
-  for (int kk = 0; kk < kHd / 8; ++kk) {
-    float ah[4], al[4];
-    a(kk, ah, al);
+    for (int kk = 0; kk < kW / 8; ++kk) {
+      float ah[4], al[4];
+      a(kk, ah, al);
 #pragma unroll
-    for (int c = 0; c < kN; ++c) {
-      const float2 bv = *reinterpret_cast<const float2*>(bt + (8 * c + g) * kLdB + 8 * kk + 2 * tq);
-      mma3_add(s[c], ah, al, bv.x, bv.y);
+      for (int c = 0; c < kN; ++c) {
+        const float2 bv = *reinterpret_cast<const float2*>(bt + (8 * c + g) * kLdB + 8 * kk + 2 * tq);
+        mma3_add(s[c], ah, al, bv.x, bv.y);
+      }
+    }
+  } else {
+    // the same, eight k-steps unrolled at a time (the 64-wide kernels keep
+    // the whole unroll, and their code): wider, a whole unroll hoisted the
+    // tile's loads into spills
+#pragma unroll 8
+    for (int kk = 0; kk < kW / 8; ++kk) {
+      float ah[4], al[4];
+      a(kk, ah, al);
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        const float2 bv = *reinterpret_cast<const float2*>(bt + (8 * c + g) * kLdB + 8 * kk + 2 * tq);
+        mma3_add(s[c], ah, al, bv.x, bv.y);
+      }
     }
   }
 }
 
 // The scores of a warp's 16 query rows and 8 kN keys (kt: their rows of
 // kLdK f32, bt: their biases), q.k^T * sm_scale + bias in the accumulator
-// layout.  The forward and the backward's rows kernel both take their scores
-// from here, so that the backward's recomputed probabilities are the
-// forward's bit for bit (an element's arithmetic does not depend on kN).
-template <int kLdK, int kN, typename QFrag>
+// layout.  The forward and the backward kernel that recomputes its
+// probabilities (the rows kernel at 64, the scores kernel wider) take their
+// scores from here, so that the backward's probabilities are the forward's bit
+// for bit (an element's arithmetic does not depend on kN, the tile or the
+// pitch: the k-steps of kW columns in order, each a fresh accumulator added in
+// f32).
+template <int kLdK, int kN, int kW = kHd, typename QFrag>
 __device__ __forceinline__ void tf32x3_scores(float (&s)[kN][4], QFrag qa, const float* kt,
                                               const float* bt, float sm_scale, int g, int tq) {
-  tf32x3_abT<kLdK, kN>(s, qa, kt, g, tq);
+  tf32x3_abT<kLdK, kN, kW>(s, qa, kt, g, tq);
 #pragma unroll
   for (int c = 0; c < kN; ++c) {
     const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * c + 2 * tq);
@@ -211,16 +234,17 @@ __device__ __forceinline__ void tf32x3_scores(float (&s)[kN][4], QFrag qa, const
   }
 }
 
-// a warp's [16, 64] f32 accumulator (rows row_g, row_g + 8 of this thread,
+// a warp's [16, kW] f32 accumulator (rows row_g, row_g + 8 of this thread,
 // dims 8 c + 2 t, + 1), the rows below t, by float2 stores
-__device__ __forceinline__ void store_rows_f32(const float (&o)[kHd / 8][4], float* dst,
+template <int kW = kHd>
+__device__ __forceinline__ void store_rows_f32(const float (&o)[kW / 8][4], float* dst,
                                                long long stride, int row_g, int t, int tq) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row_g + 8 * h;
     if (row >= t) continue;
 #pragma unroll
-    for (int c = 0; c < kHd / 8; ++c)
+    for (int c = 0; c < kW / 8; ++c)
       *reinterpret_cast<float2*>(dst + (long long)row * stride + 8 * c + 2 * tq) =
           make_float2(o[c][2 * h], o[c][2 * h + 1]);
   }

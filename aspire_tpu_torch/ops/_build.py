@@ -40,25 +40,19 @@ SIGNATURES = {
     "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
     # the same with the transposed cost [B, m, n] after the cost (large pairs)
     "aspire_sinkhorn_large_f32": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _I, _P],
-    # q, k, v, bias, out, b, nh, t, (bf16: the padded head width,) q/k/v/out
-    # strides (batch, head, token) x4, sm_scale, dropout mode.., 1 - p in the
-    # compute dtype, bits, row statistics for the backward (or null), stream
+    # q, k, v, bias, out, b, nh, t, the padded head width, q/k/v/out strides
+    # (batch, head, token) x4, sm_scale, dropout mode.., 1 - p in the compute
+    # dtype, bits, row statistics for the backward (or null), stream
     "aspire_attention_bf16": [_P] * 5 + [_I] * 4 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
-    "aspire_attention_f32": [_P] * 5 + [_I] * 3 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
-    # q, k, v, bias, g, out, dq, dk, dv, stats, (bf16: ds scratch,) b, nh, t,
-    # (bf16: the padded head width,) 24 strides (q, k, v, g, out, dq, dk, dv),
-    # sm_scale, dropout mode.., 1 - p in the compute dtype and in f32, bits,
-    # stream
+    "aspire_attention_f32": [_P] * 5 + [_I] * 4 + [_LL] * 12 + [_F] + _DROP + [_F, _P, _P, _P],
+    # q, k, v, bias, g, out, dq, dk, dv, stats, scratch (bf16: ds^T; f32 at
+    # heads wider than 64: ds and pd; else null), b, nh, t, the padded head
+    # width, 24 strides (q, k, v, g, out, dq, dk, dv), sm_scale, dropout
+    # mode.., 1 - p in the compute dtype and in f32, bits, stream
     "aspire_attention_bwd_bf16": [_P] * 11 + [_I] * 4 + [ctypes.POINTER(_LL), _F] + _DROP
                                  + [_F, _F, _P, _P],
-    "aspire_attention_bwd_f32": [_P] * 10 + [_I] * 3 + [ctypes.POINTER(_LL), _F] + _DROP
+    "aspire_attention_bwd_f32": [_P] * 11 + [_I] * 4 + [ctypes.POINTER(_LL), _F] + _DROP
                                 + [_F, _F, _P, _P],
-    # the wide f32 heads (csrc/attention_wide.cu): as above with the padded
-    # head width after t and the strides as one array (12 forward, 24 backward)
-    "aspire_attention_wide_f32": [_P] * 5 + [_I] * 4 + [ctypes.POINTER(_LL), _F] + _DROP
-                                 + [_F, _P, _P, _P],
-    "aspire_attention_wide_bwd_f32": [_P] * 10 + [_I] * 4 + [ctypes.POINTER(_LL), _F] + _DROP
-                                     + [_F, _F, _P, _P],
     # x, out, bits, rows, h, dropout mode.., scale, stream
     "aspire_dropout_bf16": [_P] * 3 + [_LL, _I] + _DROP + [_F, _P],
     "aspire_dropout_f32": [_P] * 3 + [_LL, _I] + _DROP + [_F, _P],

@@ -42,13 +42,16 @@ words keyed on the element's position (``ops/philox.py``).
 Heads narrower than 64 (``BertConfig.tiny()`` has 8) are zero-padded to 64
 columns on the way in and the output sliced back (`with_padded_heads`).  Heads
 wider than 64, up to 256, are padded to the next multiple of 64
-(`head_route`): in bf16 they run the same kernels instantiated at that width
-(128, 192, 256: every product on wgmma, the tile set by the width's shared
-memory and registers; the backward hands dq and dk to one kernel that reads
-ds^T from the scratch), in f32 ``csrc/attention_wide.cu`` (products on the
-FP32 lanes in true f32); their launches are counted apart
-(``wide_launches``, ``wide_dropout_launches``, ``wide_bwd_launches``).
-Wider heads are refused on a CUDA tensor.
+(`head_route`) and run the same C functions at that width (128, 192, 256), the
+tile set by the width's shared memory and registers: in bf16 every product on
+wgmma, the backward handing dq and dk to one kernel that reads ds^T from the
+scratch; in f32 every product split TF32 on mma.sync as at 64, the forward's
+walks instantiated at the width, the backward a scores kernel (ds and pd into
+an f32 [2, b * nh, tp, tp] scratch, transient like the bf16 one) and a
+gradients kernel (dq, dk, dv from it).  Their launches are counted apart, bf16
+(``wide_launches``, ``wide_dropout_launches``, ``wide_bwd_launches``) and f32
+(``f32_wide_launches``, ``f32_wide_dropout_launches``,
+``f32_wide_bwd_launches``).  Wider heads are refused on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -99,9 +102,9 @@ def attention_keep_mask(shape, dropout_p: float, *, seed=None, site: int = 0,
 
 def head_route(hd: int) -> tuple:
     """(padded width, 'narrow' or 'wide') of a head of width hd on the card:
-    up to 64 the 64-wide kernels, above it the wide ones (bf16: attention.cu
-    and attention_bwd.cu at that width; f32: attention_wide.cu) at the next
-    multiple of 64, up to WIDE_MAX; wider heads raise."""
+    up to 64 the 64-wide kernels, above it the kernels of attention.cu and
+    attention_bwd.cu instantiated at the next multiple of 64, up to WIDE_MAX;
+    wider heads raise."""
     if 1 <= hd <= HEAD_DIM:
         return HEAD_DIM, "narrow"
     if HEAD_DIM < hd <= WIDE_MAX:
@@ -164,34 +167,34 @@ def _forward_cuda(q, k, v, bias, sm_scale, dropout_p, seed, site, bits,
     mode, seed, c0, thresh, plane0, keep_div, _, bits_ptr = _drop_args(
         q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
-    wide = hd > HEAD_DIM
-    if q.dtype == torch.bfloat16:       # every width: csrc/attention.cu
-        name, shape = "aspire_attention_bf16", (b, nh, t, hd, *strides)
-    elif wide:                          # csrc/attention_wide.cu
-        name = "aspire_attention_wide_f32"
-        shape = (b, nh, t, hd, (ctypes.c_longlong * 12)(*strides))
-    else:
-        name, shape = "aspire_attention_f32", (b, nh, t, *strides)
+    # every width, csrc/attention.cu
+    name = "aspire_attention_bf16" if q.dtype == torch.bfloat16 \
+        else "aspire_attention_f32"
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), *shape, float(sm_scale), mode, seed,
+            out.data_ptr(), b, nh, t, hd, *strides, float(sm_scale), mode, seed,
             c0, thresh, plane0, keep_div, bits_ptr,
             0 if stats is None else stats.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    if wide:
-        if mode == 0:
-            fused_attention.wide_launches += 1
-        else:
-            fused_attention.wide_dropout_launches += 1
-    elif mode == 0:
-        fused_attention.launches += 1
-    elif q.dtype == torch.float32:
-        fused_attention.f32_dropout_launches += 1
-    else:
-        fused_attention.dropout_launches += 1
+    _count("launches" if mode == 0 else "dropout_launches", q.dtype, hd)
     return out
+
+
+def _count(kind: str, dtype, hd: int, n: int = 1) -> None:
+    """Adds n to the counter of `kind` (launches, dropout_launches,
+    bwd_launches) for the dtype and width: 64-wide bf16 under the plain name
+    (the deterministic forward of either dtype too), 64-wide f32 with an
+    ``f32_`` prefix, wider heads with ``wide_`` (bf16) or ``f32_wide_``."""
+    f32 = dtype == torch.float32
+    if hd > HEAD_DIM:
+        name = ("f32_wide_" if f32 else "wide_") + kind
+    elif f32 and kind != "launches":
+        name = "f32_" + kind
+    else:
+        name = kind
+    setattr(fused_attention, name, getattr(fused_attention, name) + n)
 
 
 def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
@@ -200,8 +203,10 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
     dq kernel; at heads wider than 64 delta, keys kernel for dv, one kernel
     for dq and dk), with ds^T handed between the last two through a bf16
     scratch allocated here and freed on return.  f32: two launches (rows
-    kernel for delta and dq, keys kernel for dk and dv).  out and stats are
-    the forward's."""
+    kernel for delta and dq, keys kernel for dk and dv; at heads wider than
+    64 a scores kernel for ds and pd, a gradients kernel for dq, dk and dv,
+    the two handed over through an f32 scratch allocated here and freed on
+    return).  out and stats are the forward's."""
     b, nh, t, hd = q.shape
     try:
         _strides(g)
@@ -215,34 +220,28 @@ def _backward_cuda(q, k, v, bias, out, stats, g, sm_scale, dropout_p, seed,
         _drop_args(q, dropout_p, seed, site, bits, plane0)
     lib = _build.load()
     bf16 = q.dtype == torch.bfloat16
-    wide = hd > HEAD_DIM
-    scratch = []                        # held until the launches are queued
-    if bf16:                            # every width: csrc/attention_bwd.cu
-        name, width = "aspire_attention_bwd_bf16", (hd,)
-        tp = -(-t // 64) * 64
-        scratch = [torch.empty((b * nh, tp, tp), dtype=torch.bfloat16,
-                               device=q.device)]
-    elif wide:                          # csrc/attention_wide.cu
-        name, width = "aspire_attention_wide_bwd_f32", (hd,)
-    else:
-        name, width = "aspire_attention_bwd_f32", ()
+    # every width, csrc/attention_bwd.cu; the scratch is held until the
+    # launches are queued
+    name = "aspire_attention_bwd_bf16" if bf16 else "aspire_attention_bwd_f32"
+    tp = -(-t // 64) * 64
+    scratch = None
+    if bf16:                            # ds^T
+        scratch = torch.empty((b * nh, tp, tp), dtype=torch.bfloat16,
+                              device=q.device)
+    elif hd > HEAD_DIM:                 # ds, then pd
+        scratch = torch.empty((2, b * nh, tp, tp), dtype=torch.float32,
+                              device=q.device)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             g.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(),
-            *(x.data_ptr() for x in scratch), b, nh, t, *width,
+            0 if scratch is None else scratch.data_ptr(), b, nh, t, hd,
             (ctypes.c_longlong * 24)(*strides),
             float(sm_scale), mode, seed, c0, thresh, plane0, keep_div,
             keep_div32, bits_ptr, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    launched = 3 if bf16 else 2         # what the C function launches
-    if wide:
-        fused_attention.wide_bwd_launches += launched
-    elif bf16:
-        fused_attention.bwd_launches += launched
-    else:
-        fused_attention.f32_bwd_launches += launched
+    _count("bwd_launches", q.dtype, hd, 3 if bf16 else 2)   # what it launches
     return dq, dk, dv
 
 
@@ -346,8 +345,8 @@ def _attention_cuda(q, k, v, *args):
 # launches of the deterministic forward (either dtype), of the forward with
 # dropout and of the backward's kernels, bf16 (three a backward: delta, keys,
 # dq) and f32 (two: rows, keys) apart; then those of the wide kernels (heads
-# above 64, either dtype; a backward three in bf16, delta, keys, ds, and two
-# in f32, rows, keys)
+# above 64), bf16 (a backward three: delta, keys, ds) and f32 (a backward two:
+# scores, grads) apart (`_count`)
 fused_attention.launches = 0
 fused_attention.dropout_launches = 0
 fused_attention.bwd_launches = 0
@@ -356,3 +355,6 @@ fused_attention.f32_bwd_launches = 0
 fused_attention.wide_launches = 0
 fused_attention.wide_dropout_launches = 0
 fused_attention.wide_bwd_launches = 0
+fused_attention.f32_wide_launches = 0
+fused_attention.f32_wide_dropout_launches = 0
+fused_attention.f32_wide_bwd_launches = 0

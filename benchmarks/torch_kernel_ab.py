@@ -43,8 +43,10 @@ sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
 which the first kernel refused (a checkout that refuses a shape prints its
 error).  The wide reading (`--wide`) is K2, K5a and K5b as above at the ranges
 phase's 6 heads of 128 ([16, 6, 256, 128] forward, [30, 6, 512, 128] with
-dropout and backward) and at heads of 192 and 256, bf16, with the f32 wide
-kernels at [16, 6, 256, 128] and [4, 6, 512, 128].  The int8 scan reading (`--scan-int8`) is K7
+dropout and backward) and at heads of 192 and 256, bf16 and f32 (f32 also at
+[4, 6, 512, 128] with dropout and backward, p = 0.1 and 0), with the 64-wide
+f32 kernels beside them (K2 [8, 12, 512, 64], K5a and K5b [30, 12, 512, 64]),
+which share the wide f32 kernels' code.  The int8 scan reading (`--scan-int8`) is K7
 (`fused_l2max_scan_int8_batched`) on buckets of the shapes of the
 125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
 and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
@@ -52,8 +54,10 @@ at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
 scan (K8) on the same rows in bf16 at B = 1 beside it.  The f32 readings (K2
 and K3) also give the largest error of the checkout's kernel against an f64
 product of the same inputs (`f64_max_abs_err`).
-The modes may be combined.  One JSON object a line, then the card's name and
-power limit.
+The modes may be combined.  One JSON object a line, a checkout's first
+process adds its kernels' registers and spills from the build log
+(`ptxas_registers_spill_stores_loads`, mangled names), then the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -89,7 +93,20 @@ WIDE_CASES = (("forward", (16, 6, 256, 128), 0.0, "bfloat16"),
               ("backward", (30, 6, 512, 128), 0.0, "bfloat16"),
               ("backward", (4, 4, 512, 192), 0.1, "bfloat16"),
               ("backward", (4, 3, 512, 256), 0.1, "bfloat16"),
-              ("backward", (4, 6, 512, 128), 0.1, "float32"))
+              ("forward", (4, 4, 512, 192), 0.0, "float32"),
+              ("forward", (2, 3, 512, 256), 0.0, "float32"),
+              ("dropout", (30, 6, 512, 128), 0.1, "float32"),
+              ("dropout", (4, 4, 512, 192), 0.1, "float32"),
+              ("dropout", (4, 3, 512, 256), 0.1, "float32"),
+              ("backward", (4, 6, 512, 128), 0.1, "float32"),
+              ("backward", (4, 6, 512, 128), 0.0, "float32"),
+              ("backward", (30, 6, 512, 128), 0.1, "float32"),
+              ("backward", (4, 4, 512, 192), 0.1, "float32"),
+              ("backward", (4, 3, 512, 256), 0.1, "float32"),
+              # the 64-wide f32 kernels, whose code the wide ones share
+              ("forward", (8, 12, 512, 64), 0.0, "float32"),
+              ("dropout", (30, 12, 512, 64), 0.1, "float32"),
+              ("backward", (30, 12, 512, 64), 0.1, "float32"))
 
 
 def _median_ms(fn, calls: int = 10, readings: int = 30) -> dict:
@@ -370,7 +387,7 @@ def measure(bwd: bool, dropout: bool) -> None:
 
 def measure_wide() -> None:
     """The wide heads: K2, K5a and K5b at the ranges phase's shapes (6 heads
-    of 128) and at 192 and 256, bf16, and the f32 wide kernels beside them."""
+    of 128) and at 192 and 256, bf16 and f32, and the 64-wide f32 kernels."""
     import torch
     dev = torch.device("cuda", 0)
     for kind, shape, p, dtype in WIDE_CASES:
@@ -403,6 +420,19 @@ def _by_kernel(fn, calls: int = 10) -> dict:
     return out
 
 
+def _ptxas() -> dict:
+    """Registers and spill bytes of each kernel of the checkout's library,
+    from its build log (empty when this process loaded a library built
+    before)."""
+    from aspire_tpu_torch.ops import _build
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers",
+                         _build.build_log, re.S):
+        out[m.group(1)] = [int(m.group(4)), int(m.group(2)), int(m.group(3))]
+    return {"ptxas_registers_spill_stores_loads": out}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", help="another checkout of the repo")
@@ -432,6 +462,7 @@ def main() -> int:
             fn()
         if not chosen:
             measure(args.bwd, args.dropout)
+        print(json.dumps(_ptxas()), flush=True)
         return 0
     this = pathlib.Path(__file__).resolve().parent.parent
     other = pathlib.Path(args.other).resolve()

@@ -50,9 +50,10 @@ import chip_smoke  # noqa: E402  (the weight and batch generators)
 
 CLASSES = (
     ("sinkhorn (K1)", ("sinkhorn_",)),
-    ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_tf32x3_stats_kernel",
+    ("attention_dropout (K5a)", ("attention_bf16_kernel", "attention_tf32x3_walk_kernel",
                                  "attention_f32_kernel")),
-    ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_")),
+    ("attention_bwd (K5b)", ("bwd_delta_", "bwd_keys_", "bwd_dq_", "bwd_rows_", "bwd_ds_",
+                             "bwd_scores_", "bwd_grads_")),
     ("dropout (K6)", ("dropout_kernel",)),
     ("ffn (K3)", ("ffn_bf16_kernel", "ffn_tf32x3_kernel", "split_tf32_kernel")),
     ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),

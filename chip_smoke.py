@@ -716,6 +716,12 @@ def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
     again = grads(kernel)
     if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
         raise AssertionError("attention_bwd: two runs differ")
+    f64 = {}
+    if dtype == torch.float32:
+        f64 = {"f64_max_abs_of_max": bwd_f64_errors(
+            q, k, v, bias, g, scale, p, keep if p > 0 else None, got,
+            grads(lambda q_, k_, v_: ak.fused_attention_plain(
+                q_, k_, v_, bias, scale, p, keep if p > 0 else None)))}
 
     mask = bias[:, None, None, :].to(dtype)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
@@ -732,7 +738,7 @@ def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
     size = q.element_size()
     res = dict(worst, atol=tol["atol"], rtol=tol["rtol"],
                norm_rel_limit=norm_tol["rel"],
-               max_abs_limit_of_max=norm_tol["abs_of_max"])
+               max_abs_limit_of_max=norm_tol["abs_of_max"], **f64)
     res.update(
         case=f"[{b},{nh},{t},{hd}] {str(dtype).split('.')[-1]} p={p}",
         kernel_ms=bwd_ms(out_k), plain_ms=bwd_ms(out_p),
@@ -743,6 +749,30 @@ def case_attention_bwd(b, nh, t, hd, dtype, dev, p=0.1, site=3) -> dict:
                 10.0 * b * nh * t * t * hd,
                 product_peak(dtype)))
     return res
+
+
+def bwd_f64_errors(q, k, v, bias, g, scale, p, keep, kernel, plain) -> dict:
+    """The largest error of the kernel's and of the f32 plain version's dq,
+    dk, dv against an f64 backward of the same inputs and mask, over the
+    largest f64 value (the worst of the three), the fully padded example
+    left out (uniform in f32, where -1e9 + s rounds to -1e9, but not in
+    f64).  Reported beside check_norm's limit, which holds the kernel to the
+    f32 plain version, whose own error is of the same order."""
+    leaves = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) * scale + bias.double()[:, None, None, :]
+    probs = torch.softmax(s, dim=-1)
+    if keep is not None:
+        probs = torch.where(keep, probs / (1.0 - p), torch.zeros_like(probs))
+    (probs @ leaves[2]).backward(g.double())
+    n = q.shape[0] - 1
+    out = {"kernel": 0.0, "plain": 0.0}
+    for x, a_, b_ in zip(leaves, kernel, plain):
+        ref = x.grad[:n]
+        peak = float(ref.abs().max())
+        out["kernel"] = max(out["kernel"], float((a_[:n].double() - ref).abs().max()) / peak)
+        out["plain"] = max(out["plain"], float((b_[:n].double() - ref).abs().max()) / peak)
+    del s, probs, leaves
+    return out
 
 
 def bwd_sensitivity(dev, b=4, nh=12, t=512, hd=64, p=0.1) -> dict:
@@ -1135,25 +1165,33 @@ def range_kernel_cases(dev) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
         "attention_wide": [case_attention(16, 6, 256, 128, bf16, dev),
-                           case_attention(16, 6, 256, 128, f32, dev),
                            case_attention(4, 8, 512, 96, bf16, dev),
                            case_attention(4, 4, 512, 192, bf16, dev),
-                           case_attention(2, 3, 512, 256, bf16, dev),
-                           case_attention(2, 3, 200, 256, f32, dev)],
+                           case_attention(2, 3, 512, 256, bf16, dev)],
         "attention_dropout_wide": [case_attention_dropout(30, 6, 512, 128, bf16, dev),
-                                   case_attention_dropout(4, 6, 512, 128, f32, dev),
                                    case_attention_dropout(4, 8, 512, 96, bf16, dev),
                                    case_attention_dropout(4, 4, 512, 192, bf16, dev),
-                                   case_attention_dropout(4, 3, 512, 256, bf16, dev),
-                                   case_attention_dropout(2, 3, 200, 256, f32, dev)],
+                                   case_attention_dropout(4, 3, 512, 256, bf16, dev)],
         "attention_bwd_wide": [case_attention_bwd(30, 6, 512, 128, bf16, dev),
-                               case_attention_bwd(4, 6, 512, 128, f32, dev),
                                case_attention_bwd(4, 6, 512, 128, bf16, dev, p=0.0),
                                case_attention_bwd(4, 8, 512, 96, bf16, dev),
                                case_attention_bwd(4, 4, 512, 192, bf16, dev),
                                case_attention_bwd(4, 3, 512, 256, bf16, dev),
-                               case_attention_bwd(2, 3, 200, 256, f32, dev),
                                case_attention_bwd(2, 3, 200, 256, bf16, dev, p=0.0)],
+        # f32 (the evaluation's encode; training with --no-bf16-compute): the
+        # ranges encode's and step's shapes first
+        "attention_wide_f32": [case_attention(16, 6, 256, 128, f32, dev),
+                               case_attention(4, 4, 512, 192, f32, dev),
+                               case_attention(2, 3, 200, 256, f32, dev)],
+        "attention_dropout_wide_f32": [case_attention_dropout(30, 6, 512, 128, f32, dev),
+                                       case_attention_dropout(4, 6, 512, 128, f32, dev),
+                                       case_attention_dropout(4, 4, 512, 192, f32, dev),
+                                       case_attention_dropout(2, 3, 200, 256, f32, dev)],
+        "attention_bwd_wide_f32": [case_attention_bwd(30, 6, 512, 128, f32, dev),
+                                   case_attention_bwd(4, 6, 512, 128, f32, dev),
+                                   case_attention_bwd(4, 6, 512, 128, f32, dev, p=0.0),
+                                   case_attention_bwd(4, 4, 512, 192, f32, dev),
+                                   case_attention_bwd(2, 3, 200, 256, f32, dev)],
         "sinkhorn_large": [case_sinkhorn(16, "pair", dev, 24, 1200),
                            case_sinkhorn(16, "pair", dev, 300, 1200),
                            case_sinkhorn(16, "pair", dev, 240, 240),
@@ -1333,6 +1371,9 @@ def counters() -> dict:
             "attention_wide": (fused_attention, "wide_launches"),
             "attention_dropout_wide": (fused_attention, "wide_dropout_launches"),
             "attention_bwd_wide": (fused_attention, "wide_bwd_launches"),
+            "attention_wide_f32": (fused_attention, "f32_wide_launches"),
+            "attention_dropout_wide_f32": (fused_attention, "f32_wide_dropout_launches"),
+            "attention_bwd_wide_f32": (fused_attention, "f32_wide_bwd_launches"),
             "sinkhorn_large": (sinkhorn_solve, "large_launches")}
 
 
@@ -3766,7 +3807,8 @@ def range_encode(cfg, dev) -> dict:
                                         if v != before[k]}
             del enc
         got = outs["auto_launches"]
-        if got.get("attention_wide") != cfg.num_hidden_layers or "attention" in got \
+        wide = "attention_wide" if dtype == torch.bfloat16 else "attention_wide_f32"
+        if got.get(wide) != cfg.num_hidden_layers or "attention" in got \
                 or outs["naive_launches"]:
             raise AssertionError(f"ranges encode: launches {got}, naive "
                                  f"{outs['naive_launches']}")
@@ -3779,20 +3821,47 @@ def range_encode(cfg, dev) -> dict:
 def range_train(cfg, dev) -> dict:
     """The flagship (sbalisentbienc) with 6 heads of 128 on [10, 3, 512]
     superbatches: the first step through the kernels against the plain path,
-    bf16 and f32 (`kernel_against_plain_step`); then four optimizer steps in
-    bf16 through Trainer, each step's launches counted (the wide K5a and
-    K5b, none of the 64-wide ones): the first step's ms, the warm steps'
-    (the second and third) and the last one's, which holds the trainer's
-    closing checkpoint saves."""
-    import tempfile
-    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
-    from aspire_tpu_torch.train.trainer import Trainer
+    bf16 and f32 (`kernel_against_plain_step`); then four optimizer steps
+    through Trainer in bf16, and four in f32 (the model `train
+    --no-bf16-compute` builds), each step's launches counted (the wide K5a
+    and K5b of the step's dtype, none of the 64-wide ones nor of the other
+    dtype): the first step's ms, the warm steps' (the second and third) and
+    the last one's, which holds the trainer's closing checkpoint saves."""
     layers = cfg.num_hidden_layers
     steps = [synth_superbatch(700 + i, 10, 3, 512, 20, cfg.vocab_size) for i in range(4)]
     seed = 31
     first = {str(dt).split(".")[-1]: kernel_against_plain_step(cfg, dev, steps[0], seed, dt)
              for dt in (torch.bfloat16, torch.float32)}
-    hp, model = flagship(cfg, dev)
+    quiet = ("attention_dropout", "attention_bwd", "attention_dropout_f32",
+             "attention_bwd_f32", "attention_dropout_wide", "attention_bwd_wide",
+             "attention_dropout_wide_f32", "attention_bwd_wide_f32")
+    out = {"superbatch": [10, 3, 512], "first_step": first}
+    for dtype, suffix, loss_rel in ((torch.bfloat16, "", 1e-2), (torch.float32, "_f32", 1e-4)):
+        # two encodes a step; a wide backward is three launches in bf16
+        # (delta, keys, ds), two in f32 (scores, grads)
+        want = dict.fromkeys(quiet, 0)
+        want.update({"attention_dropout_wide" + suffix: 2 * layers,
+                     "attention_bwd_wide" + suffix: (2 if suffix else 3) * 2 * layers,
+                     "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2})
+        label = str(dtype).split(".")[-1]
+        out[label] = _range_trainer_steps(cfg, dev, dtype, steps, seed, want,
+                                          first[label]["loss_kernel"], loss_rel)
+    # the contract's keys, the bf16 steps' as before
+    out.update({k: out["bfloat16"][k] for k in (
+        "step_ms", "first_step_ms", "warm_step_ms", "last_step_with_checkpoints_ms",
+        "peak_memory_mb", "launches_per_step", "first_loss")})
+    return out
+
+
+def _range_trainer_steps(cfg, dev, dtype, steps, seed, want, first_kernel_loss,
+                         loss_rel) -> dict:
+    """len(steps) optimizer steps of the flagship in `dtype` through Trainer,
+    each step's launches held to `want`, the first step's loss to the one
+    held against the plain path."""
+    import tempfile
+    from aspire_tpu_torch.core.config import RunConfig, TrainHParams
+    from aspire_tpu_torch.train.trainer import Trainer
+    hp, model = flagship(cfg, dev, dtype=dtype)
     tp = TrainHParams(batch_size=3, accumulated_batch_size=30,
                       update_rule="adam", learning_rate=2e-5,
                       lr_decay_method="warmuplin", num_warmup_steps=20,
@@ -3806,31 +3875,27 @@ def range_train(cfg, dev) -> dict:
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         counts.append(read_counts())
-    # two encodes a step, three launches a wide bf16 backward (delta, keys, ds)
-    want = {"attention_dropout_wide": 2 * layers, "attention_bwd_wide": 3 * 2 * layers,
-            "dropout": 2 * 2 * (1 + 2 * layers), "sinkhorn": 2,
-            "attention_dropout": 0, "attention_bwd": 0}
+    label = str(dtype).split(".")[-1]
     for i, (a_, b_) in enumerate(zip(counts[:-1], counts[1:])):
         got = {k: b_[k] - a_[k] for k in want}
         if got != want:
-            raise AssertionError(f"ranges train: step {i} launched {got}, "
+            raise AssertionError(f"ranges train {label}: step {i} launched {got}, "
                                  f"expected {want}")
     losses = trainer.loss_history
-    if state.step != 4 or not losses or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"ranges train: step {state.step}, losses {losses}")
+    if state.step != len(steps) or not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ranges train {label}: step {state.step}, losses {losses}")
     first_loss = sum(losses[:10])
-    if abs(first_loss - first["bfloat16"]["loss_kernel"]) > 1e-2 * abs(first_loss):
-        raise AssertionError(f"ranges train: first loss {first_loss} against "
-                             f"{first['bfloat16']['loss_kernel']}")
+    if abs(first_loss - first_kernel_loss) > loss_rel * abs(first_loss):
+        raise AssertionError(f"ranges train {label}: first loss {first_loss} against "
+                             f"{first_kernel_loss}")
     step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(marks[:-1], marks[1:])]
-    out = {"superbatch": [10, 3, 512], "first_step": first, "step_ms": step_ms,
-           "first_step_ms": step_ms[0], "warm_step_ms": step_ms[1:3],
-           "last_step_with_checkpoints_ms": step_ms[3],
+    out = {"dtype": label, "step_ms": step_ms, "first_step_ms": step_ms[0],
+           "warm_step_ms": step_ms[1:3], "last_step_with_checkpoints_ms": step_ms[3],
            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
            "launches_per_step": want, "first_loss": first_loss}
-    print(f"ranges train: {layers} layers of 6 heads of 128, bf16, first step "
-          f"{step_ms[0]:.1f} ms, warm steps {step_ms[1]:.1f} and {step_ms[2]:.1f} ms "
-          f"(host clock); {CARD}", flush=True)
+    print(f"ranges train: {cfg.num_hidden_layers} layers of 6 heads of 128, {label}, "
+          f"first step {step_ms[0]:.1f} ms, warm steps {step_ms[1]:.1f} and "
+          f"{step_ms[2]:.1f} ms (host clock); {CARD}", flush=True)
     del model, trainer, state
     torch.cuda.empty_cache()
     return out
@@ -4086,7 +4151,7 @@ def range_rank(root: str, big: dict, add, dev) -> dict:
     after = read_counts()
     add(before, after)
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    if not got.get("sinkhorn_large") or not got.get("attention_wide") \
+    if not got.get("sinkhorn_large") or not got.get("attention_wide_f32") \
             or got.get("attention"):
         raise AssertionError(f"ranges rank: launched {got}")
     before = read_counts()
@@ -4226,13 +4291,19 @@ KERNELS = [
      "aspire_tpu/ops/pallas_scan.py:180"),
     ("scan_int8_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
      "aspire_tpu/ops/pallas_scan.py:180"),
-    # the wide rows' first cases are bf16 (attention.cu, attention_bwd.cu at
-    # the head's width); f32 wide heads run attention_wide.cu
+    # the wide heads (attention.cu, attention_bwd.cu at the head's width),
+    # bf16 and f32 apart
     ("attention_wide", "aspire_tpu_torch/csrc/attention.cu",
      "aspire_tpu/ops/pallas_attention.py:210"),
     ("attention_dropout_wide", "aspire_tpu_torch/csrc/attention.cu",
      "aspire_tpu/ops/pallas_attention.py:210"),
     ("attention_bwd_wide", "aspire_tpu_torch/csrc/attention_bwd.cu",
+     "aspire_tpu/ops/pallas_attention.py:229"),
+    ("attention_wide_f32", "aspire_tpu_torch/csrc/attention.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_dropout_wide_f32", "aspire_tpu_torch/csrc/attention.cu",
+     "aspire_tpu/ops/pallas_attention.py:210"),
+    ("attention_bwd_wide_f32", "aspire_tpu_torch/csrc/attention_bwd.cu",
      "aspire_tpu/ops/pallas_attention.py:229"),
     ("sinkhorn_large", "aspire_tpu_torch/csrc/sinkhorn.cu",
      "aspire_tpu/ops/pallas_sinkhorn.py:164"),
@@ -4259,6 +4330,8 @@ PATH_KERNELS = {
     "mesh": ("sinkhorn", "scan_bf16", "scan_int8_wide", "attention_dropout",
              "attention_bwd", "dropout", "pool", "attention", "ffn"),
     "ranges": ("attention_wide", "attention_dropout_wide", "attention_bwd_wide",
+               "attention_wide_f32", "attention_dropout_wide_f32",
+               "attention_bwd_wide_f32",
                "sinkhorn_large", "scan_bf16", "scan_int8_wide", "sinkhorn",
                "ffn", "dropout", "pool"),
 }

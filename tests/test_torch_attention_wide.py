@@ -1,7 +1,7 @@
 """Heads wider than 64 columns: the wrapper pads a head of width 64 < hd <=
-256 to the next multiple of 64 (`head_route`) and a CUDA tensor runs the wide
-kernels (bf16: csrc/attention.cu and csrc/attention_bwd.cu at that width;
-f32: csrc/attention_wide.cu).  Here the pad and slice run around the
+256 to the next multiple of 64 (`head_route`) and a CUDA tensor runs the
+kernels of csrc/attention.cu and csrc/attention_bwd.cu at that width, bf16
+and f32.  Here the pad and slice run around the
 plain version, forward and ordinary autograd backward, against the JAX
 package's fused_dropout_attention (Pallas forward and backward in interpret
 mode, which takes whole heads of any width) at hd 96, 128 and 256, with

@@ -18,7 +18,9 @@ weights, scores) are far from that range.
 
 The FFN and the one-walk attention forward built on these products are held
 against the JAX package's Pallas kernels in interpret mode and the port's plain
-versions, on the same numpy inputs.
+versions, on the same numpy inputs; the one-walk forward also at heads wider
+than 64 (csrc/attention.cu attention_tf32x3_walk_kernel at one walk), on the
+key tiles its kernel takes there.
 """
 import math
 
@@ -149,25 +151,25 @@ def test_ffn_3xtf32(against):
         assert err <= 4 * plain_err, (err, plain_err)
 
 
-def attention_one_walk(q, k, v, bias, scale):
-    """The f32 attention kernel without dropout: 64-key tiles walked once,
-    online max and sum, the context rescaled and divided by the sum at the
-    end; both products 3xTF32."""
+def attention_one_walk(q, k, v, bias, scale, tile=TILE):
+    """The f32 attention kernel without dropout: key tiles of `tile` walked
+    once, online max and sum, the context rescaled and divided by the sum at
+    the end; both products 3xTF32."""
     b, nh, t, hd = q.shape
-    tp = -(-t // TILE) * TILE
+    tp = -(-t // tile) * tile
     kp, vp = (F.pad(x, (0, 0, 0, tp - t)) for x in (k, v))   # zero rows past t
     bias_p = F.pad(bias, (0, tp - t), value=-math.inf)
     m = torch.full((b, nh, t), -math.inf)
     l = torch.zeros((b, nh, t))
     ctx = torch.zeros((b, nh, t, hd))
-    for k0 in range(0, tp, TILE):
-        s = (matmul_3xtf32(q, kp[..., k0:k0 + TILE, :].transpose(-1, -2)) * scale
-             + bias_p[:, None, None, k0:k0 + TILE])
+    for k0 in range(0, tp, tile):
+        s = (matmul_3xtf32(q, kp[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
+             + bias_p[:, None, None, k0:k0 + tile])
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
         e = torch.exp(s - m_new[..., None])
         l = l * corr + e.sum(-1)
-        ctx = ctx * corr[..., None] + matmul_3xtf32(e, vp[..., k0:k0 + TILE, :])
+        ctx = ctx * corr[..., None] + matmul_3xtf32(e, vp[..., k0:k0 + tile, :])
         m = m_new
     return ctx / l[..., None]
 
@@ -190,5 +192,35 @@ def test_attention_one_walk_3xtf32(t):
     want = fused_attention_plain(tq, tk, tv, tb, scale).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0,
                                err_msg="against the plain version")
+    uniform = tv[1].mean(-2, keepdim=True).expand(got[1].shape)
+    np.testing.assert_allclose(got[1], uniform.numpy(), atol=1e-5, rtol=0)
+
+
+# padded head width -> keys a tile of the one-walk forward
+WIDE_TILES = {128: 32, 192: 16, 256: 16}
+
+
+@pytest.mark.parametrize("hd", [96, 128, 192, 256])
+def test_attention_one_walk_3xtf32_wide(hd):
+    """At t = 200 (several key tiles, the last one partial), padded keys in
+    one row and a fully padded row, the head zero-padded to its kernel's
+    width: the first hd columns against the Pallas forward at width hd and
+    the plain version (atol 1e-5, as at 64)."""
+    t, width = 200, -(-hd // 64) * 64
+    q, k, v, bias, _ = _case(t, seed=t + hd, hd=hd)
+    tq, tk, tv = (F.pad(torch.from_numpy(a), (0, width - hd)) for a in (q, k, v))
+    tb = torch.from_numpy(bias)
+    scale = 1.0 / math.sqrt(hd)
+    got = attention_one_walk(tq, tk, tv, tb, scale, WIDE_TILES[width]).numpy()
+    want_jax = fused_dropout_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias),
+        jnp.zeros((1,), jnp.uint32), dropout_p=0.0, sm_scale=float(scale),
+        interpret=True)
+    np.testing.assert_allclose(got[..., :hd], np.asarray(want_jax, np.float32), atol=1e-5,
+                               rtol=0, err_msg="against the Pallas forward")
+    want = fused_attention_plain(tq, tk, tv, tb, scale).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0,
+                               err_msg="against the plain version")
+    assert not got[..., hd:].any()
     uniform = tv[1].mean(-2, keepdim=True).expand(got[1].shape)
     np.testing.assert_allclose(got[1], uniform.numpy(), atol=1e-5, rtol=0)

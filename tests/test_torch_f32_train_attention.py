@@ -1,4 +1,4 @@
-"""The f32 training attention (csrc/attention.cu attention_tf32x3_stats_kernel,
+"""The f32 training attention (csrc/attention.cu attention_tf32x3_walk_kernel,
 csrc/attention_bwd.cu bwd_rows_tf32x3_kernel and bwd_keys_tf32x3_kernel),
 written out in plain PyTorch on the CPU: the arithmetic of the kernels that
 `train --no-bf16-compute` runs, held against the JAX package's
@@ -17,6 +17,14 @@ delta) scale and sums dq = ds . k a k-step of 8 keys at a time; the keys kernel
 walks 64-row query tiles with the tile transposed (S^T = k . q^T, dpd^T = v .
 g^T) and sums dv = pd^T . g and dk = ds^T . q 8 rows at a time.  Rows and keys
 past t are zero-padded, with a -inf key bias and (m, 1 / l, delta) = (0, 1, 0).
+
+Heads wider than 64 (96 padded to 128, 128, 192, 256) run the same forward at
+their width with the key tiles their kernel takes (WIDE_TILES), and another
+backward: a scores kernel walks the key tiles of its own size for 64 query
+rows, recomputes each tile's probabilities with the forward's score tile and
+writes ds and pd (zero in rows past t) to a [tp, tp] scratch, keys past t
+included; a gradients kernel sums dq = ds . k, dk = ds^T . q and dv = pd^T . g
+from it, a k-step of 8 at a time (`backward_scratch`, `backward_grads`).
 
 float32 atol 1e-5 (the existing decomposition tests' tolerance): other
 summation orders, the split products (about 2^-22 of each product) and exp
@@ -41,6 +49,10 @@ from test_torch_f32_split import matmul_3xtf32
 TILE, STEP = 64, 8
 TOL = dict(atol=1e-5, rtol=0.0)
 CASES = [(p, t) for p in (0.0, 0.1) for t in (64, 200)]
+# padded head width -> (the forward's key tile, the backward scores kernel's)
+WIDE_TILES = {128: (32, 64), 192: (16, 32), 256: (16, 16)}
+WIDE_CASES = [(hd, p) for hd in (96, 128, 192, 256) for p in (0.0, 0.1)]
+WIDE_T = 200
 
 
 def _pad(x, tp, value=0.0):
@@ -53,23 +65,24 @@ def _keep_factors(p):
     return float(torch.tensor(1.0, dtype=torch.float32) / keep_div)
 
 
-def forward_two_walks(q, k, v, bias, scale, p, keep):
+def forward_two_walks(q, k, v, bias, scale, p, keep, tile=TILE):
     """ctx, the row statistics m and l, and the probabilities of pass 2 ([b,
-    nh, t, tp]), as attention_tf32x3_stats_kernel computes them."""
+    nh, t, tp]), as attention_tf32x3_walk_kernel computes them on key tiles
+    of `tile`."""
     b, nh, t, _ = q.shape
-    tp = -(-t // TILE) * TILE
+    tp = -(-t // tile) * tile
     kp, vp = _pad(k, tp), _pad(v, tp)
     bias_p = F.pad(bias, (0, tp - t), value=-math.inf)
     keep_p = None if keep is None else F.pad(keep, (0, tp - t), value=True)
     inv_keep = _keep_factors(p) if p > 0 else None
 
     def scores(k0):                 # the shared score tile: split q.k^T, scaled, biased
-        return (matmul_3xtf32(q, kp[..., k0:k0 + TILE, :].transpose(-1, -2)) * scale
-                + bias_p[:, None, None, k0:k0 + TILE])
+        return (matmul_3xtf32(q, kp[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
+                + bias_p[:, None, None, k0:k0 + tile])
 
     m = torch.full((b, nh, t), -math.inf)
     l = torch.zeros((b, nh, t))
-    for k0 in range(0, tp, TILE):   # pass 1
+    for k0 in range(0, tp, tile):   # pass 1
         s = scores(k0)
         m_new = torch.maximum(m, s.amax(-1))
         l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
@@ -77,12 +90,12 @@ def forward_two_walks(q, k, v, bias, scale, p, keep):
     inv_l = 1.0 / l
     ctx = torch.zeros_like(q)
     probs = torch.empty((b, nh, t, tp))
-    for k0 in range(0, tp, TILE):   # pass 2
+    for k0 in range(0, tp, tile):   # pass 2
         pt = torch.exp(scores(k0) - m[..., None]) * inv_l[..., None]
-        probs[..., k0:k0 + TILE] = pt
+        probs[..., k0:k0 + tile] = pt
         if keep_p is not None:
-            pt = torch.where(keep_p[..., k0:k0 + TILE], pt * inv_keep, 0.0)
-        for c in range(k0, k0 + TILE, STEP):   # a fresh accumulator a k-step
+            pt = torch.where(keep_p[..., k0:k0 + tile], pt * inv_keep, 0.0)
+        for c in range(k0, k0 + tile, STEP):   # a fresh accumulator a k-step
             ctx = ctx + matmul_3xtf32(pt[..., c - k0:c - k0 + STEP], vp[..., c:c + STEP, :])
     return ctx, m, l, probs
 
@@ -149,8 +162,54 @@ def backward_keys(q, k, v, bias, g, m, l, delta, scale, p, keep):
     return dk, dv
 
 
-def _inputs(p, t):
-    q, k, v, g, bias, bits = _case(t, seed=100 + t + int(p * 10))
+def backward_scratch(q, k, v, bias, g, ctx, m, l, scale, p, keep, tile):
+    """ds and pd [b, nh, tp, tp] (tp = t rounded up to 64; zero in rows past
+    t) and the recomputed probabilities of the rows below t, as
+    bwd_scores_f32_kernel writes them, walking key tiles of `tile` up to tp."""
+    b, nh, t, _ = q.shape
+    tp = -(-t // 64) * 64
+    qp, kp, vp, gp = (_pad(x, tp) for x in (q, k, v, g))
+    bias_p = F.pad(bias, (0, tp - t), value=-math.inf)
+    keep_p = None if keep is None else F.pad(keep, (0, tp - t, 0, tp - t), value=True)
+    m_p, inv_l_p, delta_p = _row_stats(m, l, (g * ctx).sum(-1), tp)
+    real = (torch.arange(tp) < t)[:, None]
+    ds = torch.empty((b, nh, tp, tp))
+    pd = torch.empty((b, nh, tp, tp))
+    for k0 in range(0, tp, tile):
+        cols = slice(k0, k0 + tile)
+        s = (matmul_3xtf32(qp, kp[..., cols, :].transpose(-1, -2)) * scale
+             + bias_p[:, None, None, cols])
+        pt = torch.exp(s - m_p[..., None]) * inv_l_p[..., None]
+        dprobs = matmul_3xtf32(gp, vp[..., cols, :].transpose(-1, -2))
+        pdt = pt
+        if keep_p is not None:
+            pdt = torch.where(keep_p[..., cols], pt * _keep_factors(p), 0.0)
+            dprobs = torch.where(keep_p[..., cols], dprobs * _keep_factors(p), 0.0)
+        ds[..., cols] = (pt * (dprobs - delta_p[..., None])) * scale
+        pd[..., cols] = torch.where(real, pdt, 0.0)
+        if k0 == 0:
+            probs = torch.empty((b, nh, t, tp))
+        probs[..., cols] = pt[..., :t, :]
+    return ds, pd, probs
+
+
+def backward_grads(ds, pd, q, k, g):
+    """dq = ds . k, dk = ds^T . q, dv = pd^T . g from the scratch, as
+    bwd_grads_f32_kernel sums them: a k-step of 8 of the contraction at a
+    time, each in a fresh accumulator added in f32."""
+    t, tp = q.shape[-2], ds.shape[-1]
+    qp, kp, gp = (_pad(x, tp) for x in (q, k, g))
+    dq, dk, dv = (torch.zeros_like(qp) for _ in range(3))
+    for j in range(0, tp, STEP):
+        rows = slice(j, j + STEP)
+        dq = dq + matmul_3xtf32(ds[..., :, rows], kp[..., rows, :])
+        dk = dk + matmul_3xtf32(ds[..., rows, :].transpose(-1, -2), qp[..., rows, :])
+        dv = dv + matmul_3xtf32(pd[..., rows, :].transpose(-1, -2), gp[..., rows, :])
+    return dq[..., :t, :], dk[..., :t, :], dv[..., :t, :]
+
+
+def _inputs(p, t, hd=64):
+    q, k, v, g, bias, bits = _case(t, seed=100 + t + int(p * 10) + hd - 64, hd=hd)
     tq, tk, tv, tg, tb = (torch.from_numpy(a) for a in (q, k, v, g, bias))
     keep = attention_keep_mask(tq.shape, p, rng_bits=torch.from_numpy(
         bits.view(np.int32))) if p > 0 else None
@@ -254,3 +313,71 @@ def test_cpu_tensors_count_no_f32_launch():
     assert tq.grad is not None and bool(torch.isfinite(tq.grad).all())
     assert before == (fused_attention.f32_dropout_launches,
                       fused_attention.f32_bwd_launches)
+
+
+def _wide(p, hd):
+    """The inputs at the head's padded width (zero columns past hd), the
+    unpadded arrays for the JAX package, the mask, the scale of width hd and
+    the kernels' two key tiles."""
+    arrs, tens, keep = _inputs(p, WIDE_T, hd)
+    width = -(-hd // 64) * 64
+    padded = [F.pad(x, (0, width - hd)) for x in tens[:4]] + [tens[4]]
+    return arrs, padded, keep, 1.0 / math.sqrt(hd), WIDE_TILES[width]
+
+
+@pytest.mark.parametrize("hd,p", WIDE_CASES)
+def test_forward_two_walks_wide(hd, p):
+    """The two walks at the head's width and key tile: ctx (its first hd
+    columns; the padded ones zero) against the Pallas forward at width hd
+    and the plain version; m and l the rows' softmax max and sum."""
+    arrs, (tq, tk, tv, _, tb), keep, scale, (tile, _) = _wide(p, hd)
+    ctx, m, l, _ = forward_two_walks(tq, tk, tv, tb, scale, p, keep, tile)
+    want_jax, _ = _jax_attention(arrs, p, scale)
+    np.testing.assert_allclose(ctx[..., :hd].numpy(), np.asarray(want_jax, np.float32),
+                               **TOL, err_msg="against the Pallas forward")
+    np.testing.assert_allclose(ctx.numpy(), fused_attention_plain(
+        tq, tk, tv, tb, scale, p, keep).numpy(), **TOL, err_msg="against the plain version")
+    assert not bool(ctx[..., hd:].any())
+    s = tq @ tk.transpose(-1, -2) * scale + tb[:, None, None, :]
+    torch.testing.assert_close(m, s.amax(-1), atol=1e-5, rtol=0)
+    torch.testing.assert_close(l, torch.exp(s - s.amax(-1, keepdim=True)).sum(-1),
+                               atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hd,p", WIDE_CASES)
+def test_backward_through_the_scratch_wide(hd, p):
+    """dq, dk, dv through the ds and pd scratch at the head's width, from the
+    forward's ctx, m and l, against the Pallas backward at width hd and
+    autograd of the plain version; ds and pd are zero in the scratch's rows
+    and keys past t."""
+    arrs, (tq, tk, tv, tg, tb), keep, scale, (tile_f, tile_b) = _wide(p, hd)
+    ctx, m, l, _ = forward_two_walks(tq, tk, tv, tb, scale, p, keep, tile_f)
+    ds, pd, _ = backward_scratch(tq, tk, tv, tb, tg, ctx, m, l, scale, p, keep, tile_b)
+    assert not bool(ds[..., WIDE_T:, :].any() or pd[..., WIDE_T:, :].any())
+    assert not bool(ds[..., WIDE_T:].any() or pd[..., WIDE_T:].any())
+    got = backward_grads(ds, pd, tq, tk, tg)
+    _, vjp = _jax_attention(arrs, p, scale)
+    want_jax = vjp(jnp.asarray(arrs[3]))
+    leaves = [x.detach().clone().requires_grad_(True) for x in (tq, tk, tv)]
+    fused_attention_plain(*leaves, tb, scale, p, keep).backward(tg)
+    for name, x, wj, leaf in zip(("dq", "dk", "dv"), got, want_jax, leaves):
+        assert bool(torch.isfinite(x).all()), name
+        np.testing.assert_allclose(x[..., :hd].numpy(), np.asarray(wj, np.float32), **TOL,
+                                   err_msg=f"{name} against the Pallas backward")
+        np.testing.assert_allclose(x.numpy(), leaf.grad.numpy(), **TOL,
+                                   err_msg=f"{name} against autograd of the plain version")
+
+
+@pytest.mark.parametrize("hd,p", WIDE_CASES)
+def test_recomputed_probabilities_are_the_forwards_wide(hd, p):
+    """The scores kernel's key tiles are not the forward's at 128 and 192 (64
+    against 32, 32 against 16; 16 both at 256), and it walks the keys up to
+    t rounded to 64 where the forward stops at the last tile with a key;
+    its probabilities, from the forward's m and l and the same score tile,
+    are the forward's bit for bit all the same."""
+    _, (tq, tk, tv, tg, tb), keep, scale, (tile_f, tile_b) = _wide(p, hd)
+    ctx, m, l, fwd_probs = forward_two_walks(tq, tk, tv, tb, scale, p, keep, tile_f)
+    _, _, bwd_probs = backward_scratch(tq, tk, tv, tb, tg, ctx, m, l, scale, p, keep, tile_b)
+    width = fwd_probs.shape[-1]
+    assert torch.equal(fwd_probs.view(torch.int32), bwd_probs[..., :width].view(torch.int32))
+    assert not bool(bwd_probs[..., width:].any())

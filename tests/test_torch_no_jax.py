@@ -122,7 +122,7 @@ def test_h5py_only_inside_the_encodings_cache():
 def test_kernel_sources_ship_with_the_package():
     csrc = REPO / "aspire_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "sinkhorn.cu", "attention.cu", "attention_bwd.cu", "attention_wide.cu",
+        "sinkhorn.cu", "attention.cu", "attention_bwd.cu",
         "dropout.cu", "ffn.cu", "pool.cu", "scan.cu", "scan_int8.cu"}
     text = (REPO / "pyproject.toml").read_text()
     assert "aspire_tpu_torch" in text and "csrc" in text
