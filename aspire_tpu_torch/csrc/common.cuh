@@ -4,6 +4,7 @@
 // cudaError_t of the launch.
 #pragma once
 
+#include <math.h>
 #include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled_v12000
 #include <cuda_bf16.h>
@@ -487,6 +488,62 @@ __device__ __forceinline__ float round_bf16(float x) {
 __device__ __forceinline__ float drop_prob_bf16(float p, bool keep, float inv_keep) {
   const float kept = round_bf16(p) * inv_keep;   // taken either way: a select, not a branch
   return keep ? kept : 0.f;
+}
+
+// ---- corpus scans (scan.cu, scan_int8.cu): spans of rows ---------------------
+// max into a float in shared or device memory (holding -inf or a value), by
+// the ordering of the bit patterns: as signed ints for values >= 0, reversed
+// as unsigned for < 0
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  v += 0.f;                            // -0 -> +0
+  if (v >= 0.f)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+// A scan's unit of work is a span of the bucket's flat [n_docs * S] rows,
+// `span` rows long whatever S is (ops/scan_kernel.span_rows), so that a
+// bucket of a few hundred long documents still gives every SM its share.  A
+// span keeps the maxima of the documents it touches in shared memory, at
+// most kSpanDocs of them; a document that straddles two spans is merged
+// across them in device memory.
+constexpr int kSpanDocs = 66;
+
+struct Span {
+  int row0, doc0;                      // its first row and the document that holds it
+  int rows, docs;                      // its rows and the documents they touch
+  int off;                             // the place of its first row in that document: row
+                                       // r of the span lies in its document (off + r) / S
+};
+
+// 32-bit throughout: the launchers take at most 2^31 - 1 rows a bucket
+__device__ __forceinline__ Span span_of(int unit, int span, int total_rows, int S) {
+  Span sp;
+  sp.row0 = unit * span;
+  sp.rows = min(span, total_rows - sp.row0);
+  sp.doc0 = sp.row0 / S;
+  sp.off = sp.row0 - sp.doc0 * S;
+  sp.docs = (sp.off + sp.rows - 1) / S + 1;
+  return sp;
+}
+
+// The span's maxima docmax [docs][qg] into out [n_docs, out_cols] at columns
+// col0 ..: a document wholly inside the span is stored, one that straddles
+// spans is merged by an atomic max (the caller fills out with -inf first);
+// each slot goes back to -inf.  Thread tid of nthreads.
+__device__ __forceinline__ void flush_span(const Span& sp, int S, float* docmax, int qg,
+                                           float* out, int out_cols, int col0, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < sp.docs * qg; i += nthreads) {
+    const int d = i / qg, start = d * S - sp.off;   // the document's first row in the span
+    float* o = out + (size_t)(sp.doc0 + d) * out_cols + col0 + i % qg;
+    if (start >= 0 && start + S <= sp.rows)
+      *o = docmax[i];
+    else
+      atomic_max_float(o, docmax[i]);
+    docmax[i] = -INFINITY;
+  }
 }
 
 }  // namespace aspire

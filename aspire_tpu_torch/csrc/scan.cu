@@ -20,9 +20,11 @@
 // What bounds it: one query column group reads every row once, so a single
 // query is bound by device memory; at 32 queries of 16 sentences the product
 // (2 * rows * D * 512 operations) passes the memory time and the tensor cores
-// bound it.  The design: a block owns 64 whole documents and one group of up
-// to 128 query columns, which it keeps in shared memory for its whole life.
-// Its eight warps take the block's rows 32 at a time.  A warp reads its rows'
+// bound it.  The design: a block owns one span of the bucket's flat rows
+// (common.cuh: `span` rows whatever S is, so that a bucket of a few hundred
+// documents of 1,200 sentences still fills the card) and one group of up to
+// 128 query columns, which it keeps in shared memory for its whole life.  Its
+// eight warps take the span's rows 32 at a time.  A warp reads its rows'
 // fragments straight from device memory -- 16 contiguous bytes a lane for
 // bf16, 8 for int8, converted in registers by integer and FP32-pipe
 // instructions (`int8x4_to_bf16x2`, common.cuh) -- by pairing k indices so that
@@ -32,8 +34,14 @@
 // registers while the rows go by once.  Blocks that share rows and differ in
 // column group are neighbours in the grid, so the groups after the first find
 // the rows in the L2 cache.  Per row and query the maximum over the query's
-// columns is taken in registers and across the four lanes of a quad, then
-// merged per document in shared memory.
+// columns is taken in registers and across the four lanes of a quad; where a
+// warp's 32 rows lie in one document they are merged across the warp by
+// shuffles and one atomic a query, else each row's goes to its document by a
+// shared-memory atomic.  A span's document maxima leave once, stored where
+// the document lies wholly inside it and merged by a device-memory atomic max
+// where it straddles two spans (ops/scan_kernel.py fills the output with -inf).
+// Queries wider than a group (csrc/scan_int8.cu takes full groups up to
+// D = 768) are several column groups of one launch.
 //
 // f32 rows (scan_f32_kernel, a check path: the index's scan stores bf16 or
 // int8) take the true-f32 product by FMAs, never TF32, with the query kept
@@ -50,20 +58,10 @@ using namespace aspire;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDocs = 64;             // documents a block
+constexpr int kDocs = 64;             // documents a span of short ones, a block of the f32 scan
 constexpr int kPad = 32;              // bf16 added to a query row's pitch: with D % 64 == 0 the
                                       // eight lanes of a 16-byte load phase hit 32 distinct banks
 constexpr float kNeg = -1e30f;
-
-// max into a float in shared memory (initialised to -inf), by the ordering of
-// the bit patterns: as signed ints for values >= 0, reversed as unsigned for < 0
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  v += 0.f;                            // -0 -> +0
-  if (v >= 0.f)
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else
-    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-}
 
 // A fragments of rows `lo` (g) and `hi` (g + 8) for the two mma steps of one
 // 32-wide k chunk: a lane's eight elements k = 8t .. 8t+7 stand for the
@@ -87,23 +85,27 @@ __device__ __forceinline__ void load_a(const signed char* lo, const signed char*
 }
 
 // sents: [n_docs, S, D] of T; scales (int8 only), norms: [n_docs, S];
-// q: [groups * 8 * NT, D] bf16; qadd: [groups * 8 * NT]; out: [n_docs, out_cols].
-// A query holds `tq` neighbouring 8-column tiles (tq even, NT % tq == 0).
-template <typename T, int NT>
+// q: [groups * 8 * NT, D] bf16; qadd: [groups * 8 * NT]; out: [n_docs, out_cols]
+// holding -inf.  A query holds `tq` neighbouring 8-column tiles (tq even,
+// NT % tq == 0).  Block b takes span b / groups and column group b % groups.
+// kLong: spans of `span` rows whose documents may straddle two spans, and a
+// warp's 32 rows may lie in one document; else (documents of fewer than 32
+// rows, span = kDocs * S) spans of kDocs whole documents, the first design's
+// blocks, by its code.
+template <typename T, int NT, bool kLong>
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
             const float* __restrict__ norms, const __nv_bfloat16* __restrict__ q,
             const float* __restrict__ qadd, float* __restrict__ out, int n_docs, int S, int D,
-            int tq, int groups, int out_cols) {
+            int tq, int groups, int out_cols, int span) {
   constexpr bool kInt8 = sizeof(T) == 1;
   constexpr int kColsGroup = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int pitch = D + kPad;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);            // [kColsGroup][pitch]
   float* qadd_s = reinterpret_cast<float*>(qs + (size_t)kColsGroup * pitch);   // [kColsGroup]
-  float* docmax = qadd_s + kColsGroup;                                   // [kDocs][qg]
+  float* docmax = qadd_s + kColsGroup;                                   // [kSpanDocs][qg]
   const int group = blockIdx.x % groups;
-  const long long doc0 = (long long)(blockIdx.x / groups) * kDocs;
   const int qg = NT / tq;              // queries a group
   const int tid = threadIdx.x;
 
@@ -115,13 +117,23 @@ scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
         *reinterpret_cast<const uint4*>(qsrc + (size_t)r * D + c);
   }
   for (int i = tid; i < kColsGroup; i += kThreads) qadd_s[i] = qadd[group * kColsGroup + i];
-  for (int i = tid; i < kDocs * qg; i += kThreads) docmax[i] = -INFINITY;
+  for (int i = tid; i < kSpanDocs * qg; i += kThreads) docmax[i] = -INFINITY;
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int docs_here = (int)min((long long)kDocs, n_docs - doc0);
-  const int rows_here = docs_here * S;
-  const long long row0 = doc0 * S;
+  Span sp;                             // kLong
+  long long doc0 = 0, row0;            // else: the span's first document; its first row
+  int rows_here, off = 0;              // row r of the span lies in document (off + r) / S
+  if constexpr (kLong) {
+    sp = span_of(blockIdx.x / groups, span, n_docs * S, S);
+    rows_here = sp.rows;
+    off = sp.off;
+    row0 = sp.row0;
+  } else {
+    doc0 = (long long)(blockIdx.x / groups) * kDocs;
+    rows_here = (int)min((long long)kDocs, n_docs - doc0) * S;
+    row0 = doc0 * S;
+  }
 
   for (int chunk = warp; chunk * 32 < rows_here; chunk += kWarps) {
     float acc[2][NT][4];
@@ -132,7 +144,7 @@ scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
 
-    // rows past the block's last are read as its last and left out below
+    // rows past the span's last are read as its last and left out below
     int rl[4];
     const T* rowp[4];
 #pragma unroll
@@ -160,17 +172,48 @@ scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
 
     // a lane holds rows g (+ 8) of each 16-row tile at columns 2t, 2t+1 of
     // each 8-column tile
+    const int c0 = off + chunk * 32;          // the chunk's first row, from its document's start
+    if (kLong && chunk * 32 + 31 < rows_here && c0 / S == (c0 + 31) / S) {
+      // the warp's 32 rows lie in one document: each query's maximum over
+      // them by shuffles, one atomic a query
+      float w[NT / 2];
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) w[p] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long row = row0 + rl[i];
+        const float norm = norms[row];
+        float rs = 2.f, rb = -norm;
+        if constexpr (kInt8) {
+          rs = 2.f * scales[row];
+          rb = isfinite(norm) ? -norm : kNeg;
+        }
+        const int m = i >> 1, h = (i & 1) * 2;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          w[j / 2] = fmaxf(w[j / 2], rs * acc[m][j][h] + rb + qadd_s[j * 8 + 2 * t]);
+          w[j / 2] = fmaxf(w[j / 2], rs * acc[m][j][h + 1] + rb + qadd_s[j * 8 + 2 * t + 1]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) w[p] = fmaxf(w[p], __shfl_xor_sync(0xffffffffu, w[p], o));
+        if (lane == 0) atomic_max_float(&docmax[c0 / S * qg + 2 * p / tq], w[p]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const bool valid = rl[i] < rows_here;
-      const long long row = row0 + min(rl[i], rows_here - 1);
-      const float norm = norms[row];
+      const int r = min(rl[i], rows_here - 1);
+      const float norm = norms[row0 + r];
       float rs = 2.f, rb = -norm;
       if constexpr (kInt8) {
-        rs = 2.f * scales[row];
+        rs = 2.f * scales[row0 + r];
         rb = isfinite(norm) ? -norm : kNeg;
       }
-      const int doc = min(rl[i], rows_here - 1) / S;
+      const int doc = (off + r) / S;          // of the span's documents
       const int m = i >> 1, h = (i & 1) * 2;
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
@@ -187,8 +230,12 @@ scan_kernel(const T* __restrict__ sents, const float* __restrict__ scales,
     }
   }
   __syncthreads();
-  for (int i = tid; i < docs_here * qg; i += kThreads)
-    out[(size_t)(doc0 + i / qg) * out_cols + group * qg + i % qg] = docmax[i];
+  if constexpr (kLong) {
+    flush_span(sp, S, docmax, qg, out, out_cols, group * qg, tid, kThreads);
+  } else {
+    for (int i = tid; i < rows_here / S * qg; i += kThreads)
+      out[(size_t)(doc0 + i / qg) * out_cols + group * qg + i % qg] = docmax[i];
+  }
 }
 
 constexpr int kF32Rows = 256;         // rows of a chunk of the f32 scan
@@ -296,35 +343,38 @@ scan_f32_kernel(const float* __restrict__ sents, const float* __restrict__ norms
 template <typename T, int NT>
 int launch_nt(const void* sents, const float* scales, const float* norms, const void* q,
               const float* qadd, float* out, int n_docs, int S, int D, int tq, int groups,
-              int out_cols, cudaStream_t stream) {
+              int out_cols, int span, cudaStream_t stream) {
   const size_t smem = (size_t)8 * NT * (D + kPad) * sizeof(__nv_bfloat16) + 8 * NT * sizeof(float) +
-                      (size_t)kDocs * (NT / tq) * sizeof(float);
+                      (size_t)kSpanDocs * (NT / tq) * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = scan_kernel<T, NT>;
+  auto kernel = S < 32 && span == kDocs * S ? scan_kernel<T, NT, false> : scan_kernel<T, NT, true>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)groups * ((n_docs + kDocs - 1) / kDocs);
+  const long long spans = ((long long)n_docs * S + span - 1) / span;
+  const long long blocks = (long long)groups * spans;
   if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       (const T*)sents, scales, norms, (const __nv_bfloat16*)q, qadd, out, n_docs, S, D, tq,
-      groups, out_cols);
+      groups, out_cols, span);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* sents, const float* scales, const float* norms, const void* q,
            const float* qadd, float* out, int n_docs, int S, int D, int nt, int tq, int groups,
-           int out_cols, void* stream) {
+           int out_cols, int span, void* stream) {
+  // a span touches at most (span + S - 2) / S + 1 documents
   if (n_docs < 1 || S < 1 || D < 32 || D % 32 != 0 || tq < 2 || tq % 2 != 0 || nt % tq != 0 ||
-      groups < 1 || out_cols < groups * (nt / tq))
+      groups < 1 || out_cols < groups * (nt / tq) || span < 1 ||
+      ((long long)span + S - 2) / S + 1 > kSpanDocs || (long long)n_docs * S > 0x7fffffffll)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nt) {
-    case 2: return launch_nt<T, 2>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
-    case 4: return launch_nt<T, 4>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
-    case 8: return launch_nt<T, 8>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
-    case 16: return launch_nt<T, 16>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, s);
+    case 2: return launch_nt<T, 2>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, span, s);
+    case 4: return launch_nt<T, 4>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, span, s);
+    case 8: return launch_nt<T, 8>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, span, s);
+    case 16: return launch_nt<T, 16>(sents, scales, norms, q, qadd, out, n_docs, S, D, tq, groups, out_cols, span, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -347,20 +397,23 @@ int launch_f32(const float* sents, const float* norms, const float* q, const flo
 }  // namespace
 
 // nt: 8-column tiles a group (2, 4, 8 or 16); tq: tiles a query; groups: column
-// groups; out: [n_docs, out_cols] with out_cols >= groups * nt / tq.
+// groups; out: [n_docs, out_cols] filled with -inf, out_cols >= groups * nt /
+// tq; span: rows a span, touching at most kSpanDocs documents.
 extern "C" int aspire_scan_bf16(const void* sents, const void* norms, const void* q,
                                 const void* qadd, void* out, int n_docs, int S, int D, int nt,
-                                int tq, int groups, int out_cols, void* stream) {
+                                int tq, int groups, int out_cols, int span, void* stream) {
   return launch<__nv_bfloat16>(sents, nullptr, (const float*)norms, q, (const float*)qadd,
-                               (float*)out, n_docs, S, D, nt, tq, groups, out_cols, stream);
+                               (float*)out, n_docs, S, D, nt, tq, groups, out_cols, span,
+                               stream);
 }
 
 extern "C" int aspire_scan_int8(const void* sents, const void* scales, const void* norms,
                                 const void* q, const void* qadd, void* out, int n_docs, int S,
-                                int D, int nt, int tq, int groups, int out_cols, void* stream) {
+                                int D, int nt, int tq, int groups, int out_cols, int span,
+                                void* stream) {
   return launch<signed char>(sents, (const float*)scales, (const float*)norms, q,
                              (const float*)qadd, (float*)out, n_docs, S, D, nt, tq, groups,
-                             out_cols, stream);
+                             out_cols, span, stream);
 }
 
 extern "C" int aspire_scan_f32(const void* sents, const void* norms, const void* q,

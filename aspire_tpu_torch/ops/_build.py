@@ -67,12 +67,15 @@ SIGNATURES = {
     "aspire_pool_bf16": [_P] * 3 + [_I] * 6 + [_P],
     "aspire_pool_f32": [_P] * 3 + [_I] * 6 + [_P],
     # sents, (scales,) norms, q, qadd, out, n_docs, S, D, 8-column tiles a
-    # group, tiles a query, groups, out's row length, stream
-    "aspire_scan_bf16": [_P] * 5 + [_I] * 7 + [_P],
-    "aspire_scan_int8": [_P] * 6 + [_I] * 7 + [_P],
-    # sents, scales, norms, q (k permuted), qadd, out, n_docs, S, D, tiles a
-    # query, groups of 128 columns, out's row length, stream
-    "aspire_scan_int8_wide": [_P] * 6 + [_I] * 6 + [_P],
+    # group, tiles a query, groups, out's row length, rows a span, stream
+    "aspire_scan_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    "aspire_scan_int8": [_P] * 6 + [_I] * 8 + [_P],
+    # sents, (scales,) norms, q (k permuted), qadd, out, n_docs, S, D, tiles a
+    # query, groups of 128 columns, out's row length, rows a span, a group's
+    # blocks, stream
+    "aspire_scan_int8_wide": [_P] * 6 + [_I] * 8 + [_P],
+    "aspire_scan_bf16_wide": [_P] * 5 + [_I] * 8 + [_P],
+    # the same as aspire_scan_bf16 without the span (units of 64 documents)
     "aspire_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
 }
 

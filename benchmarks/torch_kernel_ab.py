@@ -8,6 +8,7 @@
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
     python3 benchmarks/torch_kernel_ab.py --other PATH --pool   # sentence pool (K4)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-int8   # int8 scan (K7)
+    python3 benchmarks/torch_kernel_ab.py --other PATH --scan-long   # K8, K7 on full-text buckets
     python3 benchmarks/torch_kernel_ab.py --other PATH --wide   # K2, K5a, K5b at heads of 128-256
 
 PATH is another checkout (for instance the parent commit unpacked with `git
@@ -51,7 +52,13 @@ which share the wide f32 kernels' code.  The int8 scan reading (`--scan-int8`) i
 125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
 and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
 at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
-scan (K8) on the same rows in bf16 at B = 1 beside it.  The f32 readings (K2
+scan (K8) on the same rows in bf16 at B = 1 beside it.  The long scan reading
+(`--scan-long`) is K8 (`fused_l2max_scan`, one query of 300 sentences) and
+K7 (a batch of 8 queries of 300) on buckets of the shapes of the ranges
+phase's full-text index (2,000 documents of 240-1,200 sentences, numpy seed
+45, buckets 400, 800 and 1,200: [368, 400, 768], [800, 800, 768] and [840,
+1200, 768]; rows made on the card as above, K8 on them in bf16), then the
+`--scan-int8` reading.  The f32 readings (K2
 and K3) also give the largest error of the checkout's kernel against an f64
 product of the same inputs (`f64_max_abs_err`).
 The modes may be combined.  One JSON object a line, a checkout's first
@@ -230,13 +237,25 @@ def measure_pool() -> None:
                           "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
 
 
-def int8_buckets(dev, n_docs: int = 125_000, buckets=(12, 24), d: int = 768):
-    """Buckets of the shapes `chip_smoke.build_large_index` gives, made on the
-    card: per-sentence int8 rows and scales from a seed, norms of the stored
-    vectors, +inf norms (and zero rows) at pads, docs padded to a multiple of 8."""
+LONG_BUCKETS = (400, 800, 1200)
+
+
+def long_lengths():
+    """The sentence counts of the ranges phase's full-text index
+    (`chip_smoke.build_long_index`: 2,000 documents, numpy seed 45)."""
+    import numpy as np
+    return np.random.default_rng(45).integers(240, 1201, 2000)
+
+
+def int8_buckets(dev, lens=None, buckets=(12, 24), d: int = 768):
+    """Buckets of the shapes `chip_smoke.build_large_index` gives (or of the
+    sentence counts `lens`), made on the card: per-sentence int8 rows and
+    scales from a seed, norms of the stored vectors, +inf norms (and zero
+    rows) at pads, docs padded to a multiple of 8."""
     import numpy as np
     import torch
-    lens = np.clip(np.random.default_rng(0).poisson(9, n_docs), 3, 20)
+    if lens is None:
+        lens = np.clip(np.random.default_rng(0).poisson(9, 125_000), 3, 20)
     gen = torch.Generator(device=dev).manual_seed(0)
     out, lo = [], 0
     for s in buckets:
@@ -281,6 +300,31 @@ def measure_scan_int8() -> None:
                           "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
         del rows
         torch.cuda.empty_cache()
+
+
+def measure_scan_long() -> None:
+    import numpy as np
+    import torch
+    from aspire_tpu_torch.ops import scan_kernel as sk
+    dev = torch.device("cuda", 0)
+    for sents, scales, norms in int8_buckets(dev, long_lengths(), LONG_BUCKETS):
+        n, s, d = sents.shape
+        rng = np.random.default_rng(300 + s)
+        q = torch.from_numpy(rng.standard_normal((8, 300, d)).astype(np.float32) * 2.0).to(dev)
+        q_lens = torch.full((8,), 300, dtype=torch.int64, device=dev)
+        fn = lambda: sk.fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens, 300)
+        print(json.dumps({"bucket": [n, s, d], "batch": 8, "qmax": 300,
+                          "kernel": "scan_int8", **_median_ms(fn, calls=3, readings=15),
+                          "device_ms_by_kernel": _by_kernel(fn, calls=3)}), flush=True)
+        rows, q1 = sents.to(torch.bfloat16), q[0]
+        qadd = -(q1 * q1).sum(dim=1)
+        fn = lambda: sk.fused_l2max_scan(rows, q1, norms, 300, qadd)
+        print(json.dumps({"bucket": [n, s, d], "batch": 1, "qmax": 300,
+                          "kernel": "scan_bf16", **_median_ms(fn, calls=3, readings=15),
+                          "device_ms_by_kernel": _by_kernel(fn, calls=3)}), flush=True)
+        del rows, sents, scales, norms
+        torch.cuda.empty_cache()
+    measure_scan_int8()
 
 
 def _attention64(q, k, v, scale, p, keep):
@@ -448,6 +492,8 @@ def main() -> int:
                         help="time the sentence-pool sums (K4) instead")
     parser.add_argument("--scan-int8", action="store_true",
                         help="time the int8 batched scan (K7) instead")
+    parser.add_argument("--scan-long", action="store_true",
+                        help="time K8 and K7 on full-text buckets, then as --scan-int8")
     parser.add_argument("--wide", action="store_true",
                         help="time K2, K5a and K5b at heads of 128 to 256 instead")
     parser.add_argument("--measure", action="store_true",
@@ -455,7 +501,7 @@ def main() -> int:
     args = parser.parse_args()
     modes = {"ffn": measure_ffn, "sinkhorn": measure_sinkhorn,
              "pool": measure_pool, "scan_int8": measure_scan_int8,
-             "wide": measure_wide}
+             "scan_long": measure_scan_long, "wide": measure_wide}
     if args.measure:
         chosen = [fn for name, fn in modes.items() if getattr(args, name)]
         for fn in chosen:
@@ -468,7 +514,8 @@ def main() -> int:
     other = pathlib.Path(args.other).resolve()
     argv = ["ab", "--measure"] + [
         "--" + flag.replace("_", "-")
-        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8", "wide")
+        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8", "scan_long",
+                     "wide")
         if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):

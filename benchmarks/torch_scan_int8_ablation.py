@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Takes the wide int8 scan (K7, csrc/scan_int8.cu) apart on one card.
+"""Takes the wide int8 scan (K7, csrc/scan_int8.cu on int8 rows) apart on one card.
 
     python3 benchmarks/torch_scan_int8_ablation.py      # needs one GPU and nvcc
 
@@ -37,12 +37,12 @@ from aspire_tpu_torch.ops import _build, scan_kernel as sk  # noqa: E402
 EPILOGUE = ("      for (int h = 0; h < 2; ++h) {\n#pragma unroll\n        for (int p = 0;",
             "      for (int h = 0; h < (acc[0] == 1234.5f ? 2 : 0); ++h) {\n"
             "#pragma unroll\n        for (int p = 0;")
-DOC_PASS = ("i < ((last - 1) / S - d0 + 1) * qg;", "i < 0;")
+DOC_PASS = ("i < ((e - 1) / S - d0 + 1) * qg;", "i < 0;")
 PRODUCTS = ("      wgmma_m64n128k16<0>(acc, cur[j], sw128_desc(qc + j * 16), c > 0 || j > 0);",
-            "      if (lw[j] == 0x12345678u)\n"
+            "      if (cur[j][0] == 0x12345678u)\n"
             "        wgmma_m64n128k16<0>(acc, cur[j], sw128_desc(qc + j * 16), c > 0 || j > 0);")
 ROW_READS = ("    lo = *reinterpret_cast<const uint4*>(src);\n"
-             "    hi = *reinterpret_cast<const uint4*>(src + 8 * kK);",
+             "    hi = *reinterpret_cast<const uint4*>(src + 8 * kRowBytes);",
              "    lo = make_uint4(s, 0, 0, 0);\n    hi = lo;")
 VARIANTS = {"as_built": (), "no_epilogue": (EPILOGUE, DOC_PASS),
             "no_products": (PRODUCTS,),

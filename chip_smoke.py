@@ -152,7 +152,8 @@ Phases, one JSON object a line:
            with such heads, two steps in a subprocess; then an index of 2,000
            documents of 240-1,200 sentences (768-d reps drawn on the card
            from a seed, bf16 and int8, buckets 400 / 800 / 1,200), a fused query of 300
-           sentences on bf16 (K8 a group of 128 rows at a time, K1's large
+           sentences on bf16 (K8, its three groups of 128 rows in one
+           launch a bucket on csrc/scan_int8.cu's bf16 kernel, K1's large
            pairs) and a batch of 8 on int8 (K7 with the groups as extra
            queries), each against the plain scan and solver='torch', and
            `rank --rerank ot --max-sents 1200` (the pool protocol, one facet)
@@ -324,6 +325,10 @@ def kernel_entry(mangled: str) -> str:
         if mangled.startswith("Li", i):
             j = mangled.index("E", i)
             args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled.startswith("Lb", i):
+            j = mangled.index("E", i)
+            args.append("true" if mangled[i + 2:j] == "1" else "false")
             i = j + 1
         elif mangled[i].isdigit():
             j = i
@@ -984,26 +989,43 @@ def _scan_queries(bsz, qmax, seed, dev):
     return q, q_lens
 
 
+def _by_docs(fn, n: int, chunk: int):
+    """fn(lo, hi) over the documents [lo, hi) of a bucket in chunks,
+    concatenated: a plain version whose [rows, columns] product would not fit
+    the card at once."""
+    return torch.cat([fn(i, min(i + chunk, n)) for i in range(0, n, chunk)], dim=0)
+
+
 def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
     """K8 on one bf16 (or f32) bucket, as the TPU kernel computes it (no
-    qadd) and as the index needs it (qadd = -|q_j|^2 inside the max)."""
+    qadd) and as the index needs it (qadd = -|q_j|^2 inside the max).  A
+    query of full column groups (65 or more sentences) runs csrc/scan_int8.cu's
+    bf16 kernel, narrower ones csrc/scan.cu's; either way one launch."""
     from aspire_tpu_torch.ops import scan_kernel as sk
     sents, norms = bucket["sents"], bucket["norms"]
     n, s, d = sents.shape
     q = _scan_queries(1, qmax, 53 + s, dev)[0][0]
     qadd = -(q * q).sum(dim=1)
     live = bucket["doc_idx"] >= 0
+    cap = sk.query_cap(sents.dtype, d)
+    groups = -(-qmax // cap)
+    wide = sents.dtype == torch.bfloat16 and sk.scan_wide(groups, min(qmax, cap), d)
+    fn = sk.fused_l2max_scan
     # bf16 operands are exact in f32 on both sides (f32 rows: true f32 on
     # both); sums of 768 products of O(4) values in another order, against
     # scores of O(1e3)
     tol = dict(atol=1e-2, rtol=1e-4)
-    got = sk.fused_l2max_scan(sents, q, norms, q_n)
+    before = (fn.launches, fn.wide_launches)
+    got = fn(sents, q, norms, q_n)
     torch.cuda.synchronize()
+    if (fn.launches - before[0], fn.wide_launches - before[1]) != ((0, 1) if wide else (1, 0)):
+        raise AssertionError(f"scan_bf16: {qmax} query sentences did not run the "
+                             f"{'wide' if wide else 'narrow'} kernel once")
     want = sk.fused_l2max_scan_plain(sents, q, norms, q_n)
     res = check_close("scan_bf16", got, want, mask=live, **tol)
     if not bool((got[~live] <= sk.NEG).all()):
         raise AssertionError("scan_bf16: a padded document scored")
-    got_q = sk.fused_l2max_scan(sents, q, norms, q_n, qadd)
+    got_q = fn(sents, q, norms, q_n, qadd)
     res_q = check_close("scan_bf16 qadd", got_q,
                         sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd),
                         mask=live, **tol)
@@ -1016,9 +1038,10 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
 
     res.update(
         case=f"{label}: [{n},{s},{d}] {dtype}, {q_n} of {qmax} query sentences",
-        query_groups=-(-qmax // sk.query_cap(sents.dtype, d)),
+        query_groups=groups,
+        source="aspire_tpu_torch/csrc/" + ("scan_int8.cu" if wide else "scan.cu"),
         qadd_max_abs_err=res_q["max_abs_err"],
-        kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan(sents, q, norms, q_n, qadd)),
+        kernel_ms=cuda_ms(lambda: fn(sents, q, norms, q_n, qadd)),
         plain_ms=cuda_ms(lambda: sk.fused_l2max_scan_plain(sents, q, norms, q_n, qadd)),
         library_ms=cuda_ms(library),
         **bound(sents.element_size() * (n * s * d + qmax * d) + 4.0 * n * s + 4.0 * n,
@@ -1027,17 +1050,19 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
     return res
 
 
-def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
-    """K7 on one int8 bucket against its plain version."""
+def case_scan_int8(bucket, label, bsz, dev, qmax=16, doc_chunk=None) -> dict:
+    """K7 on one int8 bucket against its plain version (and the library call)
+    computed `doc_chunk` documents at a time where given."""
     from aspire_tpu_torch.ops import scan_kernel as sk
     sents, scales, norms = bucket["sents"], bucket["scales"], bucket["norms"]
     n, s, d = sents.shape
     q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev)
     live = bucket["doc_idx"] >= 0
     fn = sk.fused_l2max_scan_int8_batched
+    docs = doc_chunk or n
     # more query sentences than a launch takes: the groups join the batch
-    groups = -(-qmax // sk.query_cap(torch.int8, d))
-    wide = sk.int8_wide(bsz * groups, min(qmax, sk.query_cap(torch.int8, d)), d)
+    rows, groups = sk.int8_groups(qmax, d)
+    wide = sk.scan_wide(bsz * groups, rows, d)
     before = (fn.launches, fn.wide_launches)
     got = fn(sents, scales, norms, q, q_lens, qmax)
     torch.cuda.synchronize()
@@ -1045,25 +1070,31 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
         raise AssertionError(f"scan_int8: B={bsz} x {qmax} did not run the "
                              f"{'wide' if wide else 'narrow'} kernel")
     chunk = 8                                   # bounds the plain [rows, B qmax] f32
-    want = torch.cat([sk.fused_l2max_scan_int8_batched_plain(
-        sents, scales, norms, q[i:i + chunk], q_lens[i:i + chunk], qmax)
-        for i in range(0, bsz, chunk)], dim=1)
+
+    def plain():
+        return _by_docs(lambda a, b: torch.cat([sk.fused_l2max_scan_int8_batched_plain(
+            sents[a:b], scales[a:b], norms[a:b], q[i:i + chunk], q_lens[i:i + chunk], qmax)
+            for i in range(0, bsz, chunk)], dim=1), n, docs)
+
+    want = plain()
     # int8 and bf16 operands are exact in f32 on both sides; sums of 768
     # products in another order, times a scale, against scores of O(1e3)
     res = check_close("scan_int8", got[live], want[live], atol=1e-2, rtol=2e-4)
     if not bool((got[~live] <= 0.5 * sk.NEG).all()):
         raise AssertionError("scan_int8: a padded document scored")
     qb = q.to(torch.bfloat16).reshape(bsz * qmax, d)
-    rows_b = sents.reshape(n * s, d)
 
     def library():
-        out = []
-        for i in range(0, bsz, chunk):
-            cols = qb[i * qmax:(i + chunk) * qmax]
-            sims = torch.matmul(rows_b.to(torch.bfloat16), cols.t()).float()
-            sc = 2.0 * scales.reshape(-1, 1) * sims - norms.reshape(-1, 1)
-            out.append(sc.reshape(n, s, -1, qmax).amax(dim=(1, 3)))
-        return torch.cat(out, dim=1)
+        def part(a, b):
+            rows_b = sents[a:b].reshape(-1, d).to(torch.bfloat16)
+            out = []
+            for i in range(0, bsz, chunk):
+                cols = qb[i * qmax:(i + chunk) * qmax]
+                sims = torch.matmul(rows_b, cols.t()).float()
+                sc = 2.0 * scales[a:b].reshape(-1, 1) * sims - norms[a:b].reshape(-1, 1)
+                out.append(sc.reshape(b - a, s, -1, qmax).amax(dim=(1, 3)))
+            return torch.cat(out, dim=1)
+        return _by_docs(part, n, docs)
 
     res.update(
         case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}",
@@ -1071,13 +1102,36 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16) -> dict:
         source="aspire_tpu_torch/csrc/" + ("scan_int8.cu" if wide else "scan.cu"),
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan_int8_batched(
             sents, scales, norms, q, q_lens, qmax)),
-        plain_ms=cuda_ms(lambda: [sk.fused_l2max_scan_int8_batched_plain(
-            sents, scales, norms, q[i:i + chunk], q_lens[i:i + chunk], qmax)
-            for i in range(0, bsz, chunk)]),
+        plain_ms=cuda_ms(plain),
         library_ms=cuda_ms(library),
         **bound(1.0 * n * s * d + 8.0 * n * s + 2.0 * bsz * qmax * d
                 + 4.0 * n * bsz, 2.0 * n * s * d * bsz * qmax, PEAK_BF16))
     return res
+
+
+def long_bucket(dev, n=840, s=1200, lo=801, pad_docs=4, seed=47) -> dict:
+    """One bucket of full-text documents, the shape of the long index's last
+    bucket: n documents of lo..s sentences of 768-d reps (lengths from numpy
+    seed `seed`, reps drawn on the card by a generator seeded `seed`), zero
+    pad rows with +inf norms, the last `pad_docs` documents pads only
+    (doc_idx -1); bf16 rows and their norms, and the int8 form from
+    quantize_sentences with the norms of the stored vectors."""
+    from aspire_tpu_torch.index.dense import quantize_sentences
+    lens = np.random.default_rng(seed).integers(lo, s + 1, n)
+    lens[n - pad_docs:] = 0
+    lens_t = torch.from_numpy(lens).to(dev)
+    live = torch.arange(s, device=dev)[None, :] < lens_t[:, None]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    reps = torch.randn((n, s, 768), generator=gen, device=dev) * 2.0 * live[:, :, None]
+    inf = torch.tensor(float("inf"), device=dev)
+    doc_idx = torch.where(lens_t > 0, torch.arange(n, device=dev), -1)
+    sents = reps.to(torch.bfloat16)
+    norms = torch.where(live, (sents.float() ** 2).sum(dim=2), inf)
+    xi, sc = quantize_sentences(reps)
+    del reps
+    norms8 = torch.where(live, (xi.float() ** 2).sum(dim=2) * sc * sc, inf)
+    return {"bfloat16": {"sents": sents, "norms": norms, "doc_idx": doc_idx},
+            "int8": {"sents": xi, "scales": sc, "norms": norms8, "doc_idx": doc_idx}}
 
 
 def phase_kernels(dev) -> dict:
@@ -1160,8 +1214,10 @@ def range_kernel_cases(dev) -> dict:
     case of each wide or large kernel is the ranges phase's shape (a
     BERT-base encode with 6 heads of 128; the rank CLI's 24-sentence queries
     against candidates of up to 1,200 sentences).  The scans at 300 query
-    sentences run K8 a group at a time and K7 with the groups as extra
-    queries, on one bucket of 4,000 documents of up to 24 sentences."""
+    sentences, their groups as extra column groups of one launch (K8 on
+    csrc/scan_int8.cu's bf16 kernel, K7 on its int8 one), on a bucket of the
+    long index's shape (`long_bucket`) and on one of 4,000 documents of up to
+    24 sentences."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
         "attention_wide": [case_attention(16, 6, 256, 128, bf16, dev),
@@ -1198,12 +1254,26 @@ def range_kernel_cases(dev) -> dict:
                            case_sinkhorn(16, "pair", dev, 512, 512),
                            case_sinkhorn(30, "grouped", dev, 300, 300)],
     }
+    # the scans at 300 query sentences, the long index's bucket of 1,200
+    # first: K8 on the wide kernel (three groups of one launch), K7 with the
+    # groups as extra queries; an abstract's query of 16 on the same rows
+    # (csrc/scan.cu); then one bucket of 4,000 documents of up to 24 sentences
+    long = long_bucket(dev)
+    label = "the long index's bucket of 1,200"
+    cases["scan_bf16_wide"] = [case_scan_bf16(long["bfloat16"], label, dev, qmax=300,
+                                              q_n=300)]
+    cases["scan_int8_grouped"] = [case_scan_int8(long["int8"], label, 8, dev, qmax=300,
+                                                 doc_chunk=105)]
+    cases["scan_long_narrow"] = [case_scan_bf16(long["bfloat16"], label, dev),
+                                 case_scan_int8(long["int8"], label, 1, dev)]
+    del long
+    torch.cuda.empty_cache()
     one = build_large_index(dev, 4000, buckets=(24,))["buckets"]
     label = "bucket 24 of 4,000 documents"
-    cases["scan_bf16_grouped"] = [case_scan_bf16(one["bfloat16"][0], label, dev,
-                                                 qmax=300, q_n=300)]
-    cases["scan_int8_grouped"] = [case_scan_int8(one["int8"][0], label, 8, dev,
-                                                 qmax=300)]
+    cases["scan_bf16_wide"].append(case_scan_bf16(one["bfloat16"][0], label, dev,
+                                                  qmax=300, q_n=300))
+    cases["scan_int8_grouped"].append(case_scan_int8(one["int8"][0], label, 8, dev,
+                                                     qmax=300))
     del one
     torch.cuda.empty_cache()
     return cases
@@ -1368,6 +1438,7 @@ def counters() -> dict:
             "scan_bf16": (fused_l2max_scan, "launches"),
             "scan_int8": (fused_l2max_scan_int8_batched, "launches"),
             "scan_int8_wide": (fused_l2max_scan_int8_batched, "wide_launches"),
+            "scan_bf16_wide": (fused_l2max_scan, "wide_launches"),
             "attention_wide": (fused_attention, "wide_launches"),
             "attention_dropout_wide": (fused_attention, "wide_dropout_launches"),
             "attention_bwd_wide": (fused_attention, "wide_bwd_launches"),
@@ -2063,7 +2134,7 @@ def build_large_index(dev, n_docs: int, buckets=(12, 24),
 def scan_kernel_cases(big: dict, dev) -> dict:
     """K8 and K7 against their plain versions on the large index's buckets;
     the first case of each is the query path's shape.  K7 runs two kernels,
-    chosen by shape (`int8_wide`): csrc/scan.cu's for the single query
+    chosen by shape (`scan_wide`): csrc/scan.cu's for the single query
     (first case B=1) and four queries of 16, csrc/scan_int8.cu's for full
     column groups (first case the batch of 32; B=5 x 20 sentences)."""
     int8 = big["buckets"]["int8"]
@@ -4000,9 +4071,10 @@ def build_long_index(dev, pids: list, save_dir: str, plants: dict) -> dict:
 
 def range_fused_queries(big: dict, dev, add) -> list:
     """Full-text queries of RANGE_QUERY sentences (an unplanted document's
-    own first sentences plus unit noise) on the long index: one on bf16 (K8
-    a group of 128 rows at a time, then K1's large pairs, 300 x up to 1,200) and a batch of 8
-    on int8 (K7 with the groups as extra queries, one K1 launch), each held
+    own first sentences plus unit noise) on the long index: one on bf16 (K8,
+    its three groups of 128 rows in one launch a bucket, then K1's large
+    pairs, 300 x up to 1,200) and a batch of 8 on int8 (K7 with the groups as
+    extra queries, one K1 launch), each held
     to the same search with the plain scan and solver='torch' (the ids, the
     first-stage and the OT scores, `compare_answers`), the document itself
     first, and its rerank to the plain solver in f64 (`_rerank_witness`)."""
@@ -4033,7 +4105,7 @@ def range_fused_queries(big: dict, dev, add) -> list:
             fn_k = make_fused_query(nb, **kw)
             fn_p = make_fused_query(nb, scan="torch", solver="torch", **kw)
             call = lambda fn: tuple(x[None] for x in fn(q_all[0], RANGE_QUERY, *flat, *pos))
-            want = {"scan_bf16": nb * groups, "sinkhorn_large": 1}
+            want = {"scan_bf16_wide": nb, "sinkhorn_large": 1}
         else:
             fn_k = make_fused_query_batched(nb, **kw)
             fn_p = make_fused_query_batched(nb, scan="torch", solver="torch",
@@ -4291,6 +4363,9 @@ KERNELS = [
      "aspire_tpu/ops/pallas_scan.py:180"),
     ("scan_int8_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
      "aspire_tpu/ops/pallas_scan.py:180"),
+    # K8 on bf16 rows for queries of full column groups (full-text queries)
+    ("scan_bf16_wide", "aspire_tpu_torch/csrc/scan_int8.cu",
+     "aspire_tpu/ops/pallas_scan.py:77"),
     # the wide heads (attention.cu, attention_bwd.cu at the head's width),
     # bf16 and f32 apart
     ("attention_wide", "aspire_tpu_torch/csrc/attention.cu",
@@ -4332,7 +4407,7 @@ PATH_KERNELS = {
     "ranges": ("attention_wide", "attention_dropout_wide", "attention_bwd_wide",
                "attention_wide_f32", "attention_dropout_wide_f32",
                "attention_bwd_wide_f32",
-               "sinkhorn_large", "scan_bf16", "scan_int8_wide", "sinkhorn",
+               "sinkhorn_large", "scan_bf16_wide", "scan_int8_wide", "sinkhorn",
                "ffn", "dropout", "pool"),
 }
 

@@ -133,7 +133,7 @@ def test_int8_batches_go_to_the_wide_kernel_by_shape(bsz, qmax, d, wide):
     three 8 KB row stages, a tile's row maxima [128, 8], the unit's maxima
     [64, 8] and the barriers, within a block's 227 KB; the rest run
     csrc/scan.cu."""
-    assert sk.int8_wide(bsz, qmax, d) is wide
+    assert sk.scan_wide(bsz, qmax, d) is wide
     assert wide == (sk._tiling(bsz, qmax)[0] == sk.MAX_TILES and d <= 768)
     dp = -(-d // 64) * 64
     smem = 1024 + 128 * dp * 2 + 3 * 8192 + 128 * 8 * 4 + 64 * 8 * 4 + 7 * 8
