@@ -56,18 +56,38 @@
 //
 // Every other pair (a side past 1024 atoms, or a cost past one block's shared
 // memory: 240 x 240 and up, a query against a full-text document):
-// sinkhorn_large_kernel, one block of 1024 threads a pair.  The cost stays in
-// global memory, where L2 holds it, and is read at every half-round: the rows
-// of cost for f, the rows of its transpose (a copy the wrapper makes) for g,
-// so that both softmins read contiguous memory.  One warp a softmin, each
-// lane an online (max, sum) of base-2 exponentials (ex2.approx / lg2.approx,
-// log2(e) folded into 1 / eps, as the small kernel, and the sum's log divided
-// by that same factor) merged by butterfly shuffles; f, g and h of both sides in shared memory, 8 (n + m) bytes (so
-// n + m up to 29,056 atoms).  Same schedule, trip count and rounds as the
-// other two.
+// sinkhorn_cluster_kernel, a pair spread over a thread-block cluster of c <= 8
+// blocks (ops/sinkhorn_kernel.cluster_plan picks c from the batch, so that
+// B c fills the card's SMs where B allows).  The blocks split the pair's longer
+// side L into slices; each holds the whole other side O and keeps its slice
+// of the cost in shared memory for the whole loop, read from device memory
+// once a call -- or, where the slice does not fit, keeps the rows that fit
+// and reads the rest from device memory (L2 at a query's batches) each
+// round.  A thread an L atom walks a column of the slice (its whole softmin
+// over O), a team of lanes an O atom walks a row (a partial softmin over the
+// slice), so no transposed copy is needed.  The O atoms' partials (max, sum)
+// are merged across the cluster through distributed shared memory: cluster
+// barrier, block r merges its share of the O atoms over the c blocks in rank
+// order (max first, then the sum) and writes their h into every block,
+// cluster barrier -- two barriers a round, each split into arrive and wait
+// so that a block's own L atoms' update runs while the others arrive.  The
+// L and the O walks run side by side on separate warps.  A
+// softmin keeps 16 terms in registers: their max first, one rescale of the
+// running sum a chunk, the exponentials (ex2.approx, log2(e) folded into
+// 1 / eps) summed as a tree; its log-sum is divided by the factor that scaled
+// its terms, as in the other kernels.  Same schedule, trip count and rounds;
+// n + m up to 29,056 atoms (the route's limit), each n x m < 2^31.
+// What bounds it: the walks' instruction issue (7-9 instructions a term, the
+// exponentials 2 n m a round on the special-function unit among them) and the
+// two cluster barriers a round; spreading a pair over c blocks is what puts a
+// query's batch of 16-20 pairs on every SM.
 #include <math.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -371,121 +391,369 @@ int launch_wide(const float* cost, const float* log_a, const float* log_b, const
 }
 
 // ---------------------------------------------------------------- large pairs
-constexpr int kLargeThreads = 1024;
+constexpr int kClusterThreads = 512;   // threads a block of the large-pair kernel
+constexpr int kClusterMax = 8;         // blocks a pair: the portable cluster size
+constexpr int kChunk = 16;             // terms a thread holds in registers at once
 
-// -log2 sum_k 2^(h2[k] - c[k] inv2) / inv2 over `count` terms, by one warp:
-// lane l an online (max, sum) over k = l, l + 32, ..., then a butterfly merge
-// (every lane ends with the same value).  Dividing by the inv2 that scaled the
-// terms, rather than multiplying by eps ln 2, keeps the rounding of inv2 from
-// scaling every potential alike: at blur 0.05 that common factor (5e-8) put
-// the OT scores of a 300 x 1,200 pair 6e-3 from f64, 6x the PyTorch solver.
-__device__ __forceinline__ float warp_softmin(const float* __restrict__ c, const float* h2,
-                                              int count, float inv2, int lane) {
-  float mx = -INFINITY, sum = 0.f;
-  for (int k = lane; k < count; k += 32) {
-    const float x = fmaf(-c[k], inv2, h2[k]);
-    if (x > mx) {
-      sum = sum * ex2(mx - x) + 1.f;
-      mx = x;
-    } else {
-      sum += ex2(x - mx);
-    }
-  }
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) {
-    const float m2 = __shfl_xor_sync(kFull, mx, w), s2 = __shfl_xor_sync(kFull, sum, w);
-    const float top = fmaxf(mx, m2);   // a lane without terms holds (-inf, 0)
-    sum = (mx == top ? sum : sum * ex2(mx - top)) + (m2 == top ? s2 : s2 * ex2(m2 - top));
-    mx = top;
-  }
-  return -(lg2(sum) + mx) / inv2;
+__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
+
+// the largest power of two up to 32 whose `rows` teams of lanes, beside the
+// L atoms' units, fit a block's threads (at least 32 lanes of O units)
+__host__ __device__ inline int team_for(int rows, int lw) {
+  const int lw32 = (lw + 31) / 32 * 32;
+  const int avail = kClusterThreads - lw32 > 32 ? kClusterThreads - lw32 : 32;
+  int team = 32;
+  while (team > 1 && rows * team > avail) team >>= 1;
+  return team;
 }
 
-__global__ void __launch_bounds__(kLargeThreads)
-sinkhorn_large_kernel(const float* __restrict__ cost, const float* __restrict__ cost_t,
-                      const float* __restrict__ log_a, const float* __restrict__ log_b,
-                      const float* __restrict__ diam, float* __restrict__ f_out,
-                      float* __restrict__ g_out, int n, int m, float blur, float log_scaling,
-                      int max_iters, int extrapolate) {
-  extern __shared__ float smem_large[];
-  float* f = smem_large;                   // [n]
-  float* g = f + n;                        // [m]
-  float* ha = g + m;                       // log2(e) (log_a + f / eps), [n]
-  float* hb = ha + n;                      // log2(e) (log_b + g / eps), [m]
-  const int pair = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const float* cg = cost + (size_t)pair * n * m;      // [n][m]: row i is f_i's
-  const float* ctg = cost_t + (size_t)pair * n * m;   // [m][n]: row j is g_j's
-  const float* la = log_a + (size_t)pair * n;
-  const float* lb = log_b + (size_t)pair * m;
-  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
+// One block's shared memory, in floats (mirrored by
+// ops/sinkhorn_kernel.cluster_layout).  The c blocks of a pair split its
+// longer side L (the columns when m >= n) into slices of at most lw atoms;
+// every block holds the whole other side O.  The cost of O rows
+// [0, res_rows) x the slice is resident, with a pitch of team x an odd
+// number, so that both walks are free of bank conflicts (a warp reads 32
+// neighbouring L atoms of one row, or 32 / team rows at team neighbouring L
+// atoms each); the rows past res_rows are read from device memory (L2) each
+// round.
+struct ClusterLayout {
+  int o_len, l_len, lw, team, pitch, floats;
+  int h_o, h_l, o_part, l_part, p_o, p_l, tile;
+};
 
-  // h of both sides: the log-weights (kind 0), or from f and g at the inv2
-  // that the round's softmins take (1)
-  auto publish = [&](int kind, float inv2) {
-    for (int i = threadIdx.x; i < n + m; i += blockDim.x) {
-      const bool row = i < n;
-      const int j = row ? i : i - n;
-      const float lw2 = (row ? la[j] : lb[j]) * kLog2e;
-      (row ? ha : hb)[j] = kind == 0 ? lw2 : fmaf(row ? f[j] : g[j], inv2, lw2);
+__host__ __device__ inline ClusterLayout cluster_layout(int n, int m, int c, int res_rows) {
+  ClusterLayout s;
+  s.o_len = m >= n ? n : m;
+  s.l_len = m >= n ? m : n;
+  s.lw = (s.l_len + c - 1) / c;
+  s.team = team_for(res_rows, s.lw);
+  s.pitch = s.team * (((s.lw + s.team - 1) / s.team) | 1);
+  s.h_o = 0;                                         // [O]
+  s.h_l = pad16(s.o_len);                            // [lw]
+  s.o_part = s.h_l + pad16(s.lw);                    // float2 [O]
+  s.l_part = s.o_part + 2 * s.o_len;                 // float2 [lw]
+  s.p_o = s.l_part + 2 * s.lw;                       // [ceil(O / c)]
+  s.p_l = s.p_o + (s.o_len + c - 1) / c;             // [lw]
+  s.tile = s.p_l + s.lw;                             // [res_rows][pitch]
+  s.floats = s.tile + res_rows * s.pitch;
+  return s;
+}
+
+// (max, sum) of two parts of a log-sum-exp in base 2 -> the whole; a part
+// without terms is (-inf, 0)
+__device__ __forceinline__ void merge_part(float& mx, float& sum, float m2, float s2) {
+  const float top = fmaxf(mx, m2);
+  sum = (mx == top ? sum : sum * ex2(mx - top)) + (m2 == top ? s2 : s2 * ex2(m2 - top));
+  mx = top;
+}
+
+// a[u] = max (or sum) of a[u] and a[u + W] for u < W, then the same at W / 2,
+// ... 1: a tree whose indices are constant, so that the array stays in
+// registers
+template <int W, bool kMax, int N>
+__device__ __forceinline__ void tree(float (&a)[N]) {
+  static_assert(2 * W <= N, "a level of the tree within the array");
+#pragma unroll
+  for (int u = 0; u < W; ++u) a[u] = kMax ? fmaxf(a[u], a[u + W]) : a[u] + a[u + W];
+  if constexpr (W > 1) tree<W / 2, kMax>(a);
+}
+
+// N terms 2^(h[j hs] - c[j cs] inv2), j = k .. k + N - 1, into the online
+// (max, sum): their max first, one rescale of the sum, the exponentials
+// summed as a tree.  kMask: the terms from `count` on are -inf (their loads
+// of c clamped to the last term).  kCUnit: cs is 1 (loads at constant
+// offsets); kHUnit: hs is 1 and h + k 16-byte aligned (h in float4s, read
+// past count within the shared memory that follows h).
+template <int N, bool kMask, bool kCUnit, bool kHUnit>
+__device__ __forceinline__ void chunk(const float* c, int cs, const float* h, int hs, int k,
+                                      int count, float inv2, float& mx, float& sum) {
+  float t[N], hv[N], cm[N / 2];
+  if constexpr (kHUnit) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(h + k)[q];
+      hv[4 * q] = v.x;
+      hv[4 * q + 1] = v.y;
+      hv[4 * q + 2] = v.z;
+      hv[4 * q + 3] = v.w;
     }
-    __syncthreads();
+  } else {
+#pragma unroll
+    for (int u = 0; u < N; ++u) hv[u] = h[(kMask ? min(k + u, count - 1) : k + u) * hs];
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int j = kMask ? min(k + u, count - 1) : k + u;
+    const float x = fmaf(-(kCUnit ? c[j] : c[j * cs]), inv2, hv[u]);
+    t[u] = kMask && k + u >= count ? -INFINITY : x;
+  }
+#pragma unroll
+  for (int u = 0; u < N / 2; ++u) cm[u] = fmaxf(t[u], t[u + N / 2]);
+  if constexpr (N > 2) tree<N / 4, true>(cm);
+  const float top = fmaxf(mx, cm[0]);
+#pragma unroll
+  for (int u = 0; u < N; ++u) t[u] = ex2(t[u] - top);   // ex2(-inf) = 0
+  tree<N / 2, false>(t);
+  sum = fmaf(sum, ex2(mx - top), t[0]);                 // 0 before the first chunk
+  mx = top;
+}
+
+// the online (max, sum) continued over count terms: full chunks of kChunk,
+// then the rest as one masked chunk of 8 or 16
+template <bool kCUnit, bool kHUnit>
+__device__ __forceinline__ void chain(const float* c, int cs, const float* h, int hs, int count,
+                                      float inv2, float& mx, float& sum) {
+  int k = 0;
+  for (; k + kChunk <= count; k += kChunk)
+    chunk<kChunk, false, kCUnit, kHUnit>(c, cs, h, hs, k, count, inv2, mx, sum);
+  if (count - k > kChunk / 2)
+    chunk<kChunk, true, kCUnit, kHUnit>(c, cs, h, hs, k, count, inv2, mx, sum);
+  else if (count > k)
+    chunk<kChunk / 2, true, kCUnit, kHUnit>(c, cs, h, hs, k, count, inv2, mx, sum);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A pair spread over a cluster of c blocks (rank r owns L atoms [L r / c,
+// L (r + 1) / c)).  A round: each block walks its slice of the cost once,
+// giving every O atom a partial softmin over the slice (`o_part`) and every
+// L atom of the slice its whole softmin over O (`l_part`); then it updates
+// its L atoms' potentials and h; after a cluster barrier block r merges the
+// O atoms [O r / c, O (r + 1) / c) over the c blocks' partials in rank order
+// (distributed shared memory), updates their potentials and writes their h
+// into every block; a second cluster barrier.  Both softmins of a round read
+// the last round's h (Jacobi).
+__global__ void __launch_bounds__(kClusterThreads, 1)
+sinkhorn_cluster_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
+                        const float* __restrict__ log_b, const float* __restrict__ diam,
+                        float* __restrict__ f_out, float* __restrict__ g_out, int n, int m,
+                        int res_rows, float blur, float log_scaling, int max_iters,
+                        int extrapolate) {
+  extern __shared__ __align__(16) float smem_c[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cn = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int pair = blockIdx.x / cn;
+  const ClusterLayout lay = cluster_layout(n, m, cn, res_rows);
+  const bool by_cols = m >= n;                 // O the rows, L the columns
+  const int O = lay.o_len, P = lay.pitch;
+  const int l0 = lay.l_len * rank / cn, lw = lay.l_len * (rank + 1) / cn - l0;
+  const int s0 = O * rank / cn, sw = O * (rank + 1) / cn - s0;   // the O atoms it merges
+  const int so = by_cols ? m : 1, sl = by_cols ? 1 : m;          // (o, l) in the cost
+  float* h_o = smem_c + lay.h_o;               // log2(e) (log-weight + potential / eps)
+  float* h_l = smem_c + lay.h_l;
+  float2* o_part = reinterpret_cast<float2*>(smem_c + lay.o_part);
+  float2* l_part = reinterpret_cast<float2*>(smem_c + lay.l_part);
+  float* p_o = smem_c + lay.p_o;               // potentials of the O atoms it merges
+  float* p_l = smem_c + lay.p_l;               // potentials of its L atoms
+  float* res = smem_c + lay.tile;              // cost (o, l) at o P + l, o < res_rows
+
+  const float* cp = cost + (size_t)pair * n * m + l0 * sl;   // n x m < 2^31: 32-bit offsets
+  const float* lw_o = by_cols ? log_a + (size_t)pair * n : log_b + (size_t)pair * m;
+  const float* lw_l = (by_cols ? log_b + (size_t)pair * m : log_a + (size_t)pair * n) + l0;
+  float* out_o = (by_cols ? f_out + (size_t)pair * n : g_out + (size_t)pair * m) + s0;
+  float* out_l = (by_cols ? g_out + (size_t)pair * m : f_out + (size_t)pair * n) + l0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kClusterThreads / 32;
+  const int lw32 = (lw + 31) / 32 * 32;
+  const int rows_g = O - res_rows, team_g = team_for(rows_g, lay.lw);
+  // threads [0, nl) walk the L atoms, [o_first, kClusterThreads) the O atoms:
+  // apart, so that the two walks run side by side, where a warp is left for O
+  const bool apart = lw32 <= kClusterThreads - 32;
+  const int nl = apart ? lw32 : kClusterThreads, o_first = apart ? lw32 : 0;
+  const float* glob = cp + res_rows * so;      // the rows read from device memory
+
+  // the resident rows, a warp a row of the cost as it lies in memory
+  if (by_cols) {
+    for (int r = warp; r < res_rows; r += kWarps)
+      for (int l = lane; l < lw; l += 32) aspire::cp_async4(res + r * P + l, cp + r * so + l);
+  } else {
+    for (int l = warp; l < lw; l += kWarps)
+      for (int r = lane; r < res_rows; r += 32) aspire::cp_async4(res + r * P + l, cp + r + l * sl);
+  }
+  aspire::cp_async_commit();
+
+  // The walk of rows [o_base, o_base + rows) of O, the cost (o, l) at
+  // c[(o - o_base) co + l cl]: L units (lw32 threads, whole warps) continue
+  // their (max, sum) down their column (from (-inf, 0) when `first`), O
+  // units take a partial over the slice by `team` lanes (lane sub the atoms
+  // sub, sub + team, ...) merged by shuffles, into `part`.
+  auto l_walk = [&](const float* c, int co, int cl, int o_base, int rows, bool first,
+                    float inv2) {
+    for (int u = tid; u < lw; u += nl) {
+      float mx = -INFINITY, sum = 0.f;
+      if (!first) {
+        mx = l_part[u].x;
+        sum = l_part[u].y;
+      }
+      chain<false, true>(c + u * cl, co, h_o + o_base, 1, rows, inv2, mx, sum);
+      l_part[u] = make_float2(mx, sum);
+    }
   };
-  // every softmin of a round, a warp each: f_i over hb (rows of the cost),
-  // g_j over ha (rows of its transpose); kind 0 sets f and g, 1 averages, 2
-  // writes the results out
-  auto softmins = [&](int kind, float inv2) {
-    for (int item = warp; item < n + m; item += warps) {
-      const bool row = item < n;
-      const int j = row ? item : item - n;
-      const float v = row ? warp_softmin(cg + (size_t)j * m, hb, m, inv2, lane)
-                          : warp_softmin(ctg + (size_t)j * n, ha, n, inv2, lane);
-      if (lane == 0) {
-        float* p = row ? f + j : g + j;
-        if (kind == 0) *p = v;
-        else if (kind == 1) *p = 0.5f * (*p + v);
-        else (row ? f_out + (size_t)pair * n : g_out + (size_t)pair * m)[j] = v;
+  auto o_walk = [&](const float* c, int co, int cl, int o_base, int rows, int team,
+                    float2* part, float inv2) {
+    const int tshift = __ffs(team) - 1;
+    const int units = (rows * team + 31) / 32 * 32;   // whole warps: all lanes shuffle
+    for (int u = tid - o_first; u < units; u += kClusterThreads - o_first) {
+      const int item = u >> tshift, sub = u & (team - 1);
+      const int count = item < rows && sub < lw ? (lw - sub + team - 1) >> tshift : 0;
+      float mx = -INFINITY, sum = 0.f;
+      const float* row = c + min(item, rows - 1) * co + sub * cl;
+      if (team > 1)
+        chain<false, false>(row, team * cl, h_l + sub, team, count, inv2, mx, sum);
+      else if (cl == 1)
+        chain<true, true>(row, 1, h_l, 1, count, inv2, mx, sum);
+      else
+        chain<false, true>(row, cl, h_l, 1, count, inv2, mx, sum);
+      for (int w = 1; w < team; w <<= 1)
+        merge_part(mx, sum, __shfl_xor_sync(kFull, mx, w), __shfl_xor_sync(kFull, sum, w));
+      if (sub == 0 && item < rows) part[o_base + item] = make_float2(mx, sum);
+    }
+  };
+
+  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
+  const int rounds = 1 + sched.iters + (extrapolate ? 1 : 0);
+  // round 0 from the log-weights, rounds 1..iters the loop, then eps = blur
+  auto inv2_at = [&](int round) {
+    const float eps =
+        round == 0 ? sched.eps_at(0) : round <= sched.iters ? sched.eps_at(round - 1) : blur;
+    return (1.f / eps) * kLog2e;
+  };
+  for (int o = tid; o < O; o += kClusterThreads) h_o[o] = lw_o[o] * kLog2e;
+  for (int l = tid; l < lw; l += kClusterThreads) h_l[l] = lw_l[l] * kLog2e;
+  aspire::cp_async_wait<0>();
+  __syncthreads();
+  cluster_arrive();                            // stands for the barrier of a round -1
+
+  for (int round = 0; round < rounds; ++round) {
+    const float inv2 = inv2_at(round);
+    // h of O from the last round's merge, whose reads of the partials are done
+    cluster_wait();
+    if (tid >= o_first) {
+      if (res_rows > 0) o_walk(res, P, 1, 0, res_rows, lay.team, o_part, inv2);
+      if (rows_g > 0) o_walk(glob, so, sl, res_rows, rows_g, team_g, o_part, inv2);
+    }
+    if (tid < nl) {
+      if (res_rows > 0) l_walk(res, P, 1, 0, res_rows, true, inv2);
+      if (rows_g > 0) l_walk(glob, so, sl, res_rows, rows_g, res_rows == 0, inv2);
+    }
+    cluster_arrive();                          // this block's partials written
+    __syncthreads();                           // every walk of the block has read h_l
+
+    const int kind = round == 0 ? 0 : round <= sched.iters ? 1 : 2;
+    const bool last = round + 1 == rounds;
+    const float inv2_next = last ? 0.f : inv2_at(round + 1);
+    // a potential from its softmin: the first round sets it, the loop
+    // averages, the final step writes the softmin out; the last round
+    // writes the potential out, every other one returns next round's h
+    auto update = [&](float* pot, float* out, int j, float top, float sum) {
+      const float v = -(lg2(sum) + top) / inv2;   // divided by the factor that scaled the terms
+      if (kind == 2) {
+        out[j] = v;
+        return v;
+      }
+      const float p = kind == 0 ? v : 0.5f * (pot[j] + v);
+      pot[j] = p;
+      if (last) out[j] = p;
+      return p;
+    };
+    for (int j = tid; j < lw; j += kClusterThreads) {   // its own L atoms
+      const float p = update(p_l, out_l, j, l_part[j].x, l_part[j].y);
+      if (!last) h_l[j] = fmaf(p, inv2_next, lw_l[j] * kLog2e);
+    }
+    cluster_wait();                            // every block's partials written
+    for (int j = tid; j < sw; j += kClusterThreads) {   // its share of O, over the c blocks
+      float2 pr[kClusterMax];
+      float top = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < kClusterMax; ++r)
+        if (r < cn) {
+          pr[r] = cluster.map_shared_rank(o_part, r)[s0 + j];
+          top = fmaxf(top, pr[r].x);
+        }
+#pragma unroll
+      for (int r = 0; r < kClusterMax; ++r)   // max first, then summed in rank order
+        if (r < cn) sum += pr[r].x == top ? pr[r].y : pr[r].y * ex2(pr[r].x - top);
+      const float p = update(p_o, out_o, j, top, sum);
+      if (!last) {
+        const float h = fmaf(p, inv2_next, lw_o[s0 + j] * kLog2e);
+#pragma unroll
+        for (int r = 0; r < kClusterMax; ++r)
+          if (r < cn) cluster.map_shared_rank(h_o, r)[s0 + j] = h;
       }
     }
-    __syncthreads();
-  };
+    cluster_arrive();                          // this block's merge and h written
+  }
+  cluster_wait();                              // no block exits while another may read it
+}
 
-  publish(0, 0.f);
-  softmins(0, (1.f / sched.eps_at(0)) * kLog2e);
-  for (int it = 0; it < sched.iters; ++it) {   // Jacobi: both sides read the old f and g
-    const float inv2 = (1.f / sched.eps_at(it)) * kLog2e;
-    publish(1, inv2);
-    softmins(1, inv2);
-  }
-  if (extrapolate) {                       // at eps = blur, again from the loop's f and g
-    const float inv2 = (1.f / blur) * kLog2e;
-    publish(1, inv2);
-    softmins(2, inv2);
-    return;
-  }
-  for (int i = threadIdx.x; i < n + m; i += blockDim.x) {
-    if (i < n) f_out[(size_t)pair * n + i] = f[i];
-    else g_out[(size_t)pair * m + i - n] = g[i - n];
-  }
+// the launch's shared memory, or an error for arguments the kernel refuses
+int cluster_bytes(int n, int m, int c, int res_rows, int* bytes) {
+  const int o_len = m >= n ? n : m, l_len = m >= n ? m : n;
+  // the rows read from device memory start at a multiple of 4 (h in float4s)
+  if (n < 1 || m < 1 || c < 1 || c > kClusterMax || c > l_len || res_rows < 0 ||
+      res_rows > o_len || (res_rows % 4 != 0 && res_rows != o_len))
+    return (int)cudaErrorInvalidValue;
+  const long long b = 4LL * cluster_layout(n, m, c, res_rows).floats;
+  if (b > kMaxSmem) return (int)cudaErrorInvalidValue;
+  *bytes = (int)b;
+  return (int)cudaFuncSetAttribute(sinkhorn_cluster_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b);
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int c, int bytes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// the large-pair kernel; cost_t: the cost transposed, [bsz, m, n]
-extern "C" int aspire_sinkhorn_large_f32(const float* cost, const float* cost_t,
-                                         const float* log_a, const float* log_b,
-                                         const float* diam, float* f, float* g, int bsz, int n,
-                                         int m, float blur, float log_scaling, int max_iters,
-                                         int extrapolate, void* stream) {
-  if (bsz < 1 || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  const long long smem = 8LL * ((long long)n + m);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sinkhorn_large_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sinkhorn_large_kernel<<<bsz, kLargeThreads, (int)smem, (cudaStream_t)stream>>>(
-      cost, cost_t, log_a, log_b, diam, f, g, n, m, blur, log_scaling, max_iters, extrapolate);
-  return (int)cudaGetLastError();
+// the large-pair kernel: bsz clusters of `cluster` blocks, res_rows of the
+// shorter side resident (ops/sinkhorn_kernel.cluster_plan chooses both)
+extern "C" int aspire_sinkhorn_large_f32(const float* cost, const float* log_a,
+                                         const float* log_b, const float* diam, float* f,
+                                         float* g, int bsz, int n, int m, int cluster,
+                                         int res_rows, float blur, float log_scaling,
+                                         int max_iters, int extrapolate, void* stream) {
+  int bytes = 0;
+  const int err = cluster_bytes(n, m, cluster, res_rows, &bytes);
+  if (err != 0) return err;
+  if (bsz < 1 || bsz > 0x7fffffff / cluster) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(bsz * cluster, cluster, bytes, (cudaStream_t)stream, &attr);
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&cfg, sinkhorn_cluster_kernel, cost, log_a, log_b, diam, f, g, n, m,
+                         res_rows, blur, log_scaling, max_iters, extrapolate);
+  return launched != cudaSuccess ? (int)launched : (int)cudaGetLastError();
+}
+
+// clusters of the large-pair kernel the card holds at once for these
+// arguments (cudaOccupancyMaxActiveClusters), or minus an error
+extern "C" int aspire_sinkhorn_cluster_capacity(int n, int m, int cluster, int res_rows) {
+  int bytes = 0;
+  const int err = cluster_bytes(n, m, cluster, res_rows, &bytes);
+  if (err != 0) return -err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, bytes, 0, &attr);
+  int count = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&count, sinkhorn_cluster_kernel, &cfg);
+  return e != cudaSuccess ? -(int)e : count;
 }
 
 extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const float* log_b,

@@ -38,8 +38,12 @@ SIGNATURES = {
     # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters,
     # extrapolate (0: the loop's own f and g), stream
     "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
-    # the same with the transposed cost [B, m, n] after the cost (large pairs)
-    "aspire_sinkhorn_large_f32": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _I, _P],
+    # the large pairs: cost, log_a, log_b, diam, f, g, bsz, n, m, blocks a
+    # pair, resident rows, blur, log(scaling), max_iters, extrapolate, stream
+    # (ops/sinkhorn_kernel.cluster_plan)
+    "aspire_sinkhorn_large_f32": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # n, m, blocks a pair, resident rows -> clusters the card holds at once
+    "aspire_sinkhorn_cluster_capacity": [_I] * 4,
     # q, k, v, bias, out, b, nh, t, the padded head width, q/k/v/out strides
     # (batch, head, token) x4, sm_scale, dropout mode.., 1 - p in the compute
     # dtype, bits, row statistics for the backward (or null), stream

@@ -13,10 +13,13 @@ of up to 32 x 32 run one block a pair with four threads a softmin, the cost in
 registers and base-2 exponentials ("small"); wider pairs up to 1024 atoms a
 side whose pair fits one block's shared memory (239 x 239 does, 240 x 240
 does not) run one warp a pair with the cost in shared memory ("wide"); every
-other pair, while f, g and h of both sides fit a block's shared memory
-(n + m <= 29,056), runs one block a pair with the cost and its transpose read
-from global memory each half-round, one warp a softmin ("large", launches
-counted apart).
+other pair up to n + m = 29,056 ("large", launches counted apart) runs spread
+over a thread-block cluster of c <= 8 blocks (`cluster_plan` picks c from the
+batch and the shape).  The blocks split the pair's longer side, each keeps its
+slice of the cost in shared memory for the whole loop (or the rows that fit,
+reading the rest from device memory each round), one walk a round serves both
+softmins, and the partial softmins of the other side are merged across the
+cluster through distributed shared memory (`csrc/sinkhorn.cu`'s header).
 
 ``extrapolate=False`` returns the loop's own potentials, before the final
 step at eps = blur: the training loss takes that step in PyTorch, where
@@ -25,6 +28,7 @@ gradients flow (`ops.sinkhorn.sinkhorn_potentials(loop="kernel")`).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,13 +53,133 @@ def pair_bytes(n: int, m: int) -> int:
 
 
 def large_bytes(n: int, m: int) -> int:
-    """Shared memory of the large-pair kernel: f, g and h of both sides."""
+    """The large route's limit, 8 (n + m) bytes within one block's shared
+    memory (n + m <= 29,056): the range the first large-pair design took
+    (its f, g and h of both sides), which the cluster kernel keeps."""
     return 8 * (n + m)
+
+
+SMS = 132                 # streaming multiprocessors of the H100
+CLUSTER_MAX = 8           # blocks a pair: the portable cluster size
+CLUSTER_THREADS = 512     # threads a block of the large-pair kernel
+# clusters of c blocks the H100 holds at once, one block an SM (512 threads
+# of 128 registers fill its register file; `cluster_capacity` on the card,
+# benchmarks/torch_sinkhorn_cluster_sweep.py)
+CLUSTERS_AT_ONCE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# the plan's model of a round on one SM, in microseconds, fitted to
+# benchmarks/torch_sinkhorn_cluster_sweep.py on the H100: the terms of both
+# walks, the rows past the resident ones read twice from L2 or device
+# memory, two cluster barriers and the merge
+TERMS_PER_US = 18_000
+READ_BYTES_PER_US = 10_000
+ROUND_US = 3.3
+
+
+class ClusterLayout(NamedTuple):
+    """One block's shared memory of the large-pair kernel, in floats (the
+    kernel's `cluster_layout`): the blocks split the longer side L into slices
+    of at most `lw` atoms, each holds the other side O whole; the resident
+    rows' O units run `team` lanes a softmin; the cost tile's rows have
+    `pitch` floats; the tile starts at `tile`."""
+    o_len: int
+    l_len: int
+    lw: int
+    team: int
+    pitch: int
+    tile: int
+    floats: int
+
+
+def _pad16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def team_for(rows: int, lw: int) -> int:
+    """Lanes an O atom's softmin takes: the largest power of two up to 32
+    whose `rows` teams fit the threads beside the slice's L atoms (at least
+    a warp)."""
+    avail = max(32, CLUSTER_THREADS - -(-lw // 32) * 32)
+    team = 32
+    while team > 1 and rows * team > avail:
+        team //= 2
+    return team
+
+
+def cluster_layout(n: int, m: int, c: int, res_rows: int) -> ClusterLayout:
+    """The layout for c blocks a pair and `res_rows` rows of O resident (the
+    rest read from device memory each round)."""
+    o_len, l_len = (n, m) if m >= n else (m, n)
+    lw = -(-l_len // c)
+    team = team_for(res_rows, lw)
+    pitch = team * (-(-lw // team) | 1)         # team x an odd number
+    # h of O, h of the slice, (max, sum) of O and of the slice, the merged
+    # share of O's potentials, the slice's potentials
+    tile = _pad16(o_len) + _pad16(lw) + 2 * o_len + 2 * lw + -(-o_len // c) + lw
+    return ClusterLayout(o_len, l_len, lw, team, pitch, tile, tile + res_rows * pitch)
+
+
+def _fits(lay: ClusterLayout) -> bool:
+    return 4 * lay.floats <= MAX_SMEM
+
+
+def cluster_fit(n: int, m: int, c: int) -> int | None:
+    """Resident rows for c blocks a pair: every row of the slice where it
+    fits one block's shared memory, else the most that do, a multiple of 4
+    (the rest are read from device memory each round); None where not even
+    the potentials fit."""
+    o_len = min(n, m)
+    if not _fits(cluster_layout(n, m, c, 0)):
+        return None
+    lay = cluster_layout(n, m, c, o_len)
+    if _fits(lay):
+        return o_len
+    # a multiple of 4: the rows past them start a float4 of h
+    res = min(o_len - 1, (MAX_SMEM // 4 - lay.tile) // (lay.lw | 1)) // 4 * 4
+    while res > 0 and not _fits(cluster_layout(n, m, c, res)):
+        res -= 4
+    return res
+
+
+def cluster_round_us(bsz: int, n: int, m: int, c: int, res_rows: int) -> float:
+    """The plan's estimate of a round of the batch: its waves of clusters
+    times a block's exponentials or the bytes of its rows past the resident
+    ones (read twice), whichever is longer, and the barriers."""
+    o_len, lw = min(n, m), -(-max(n, m) // c)
+    work = max(2 * o_len * lw / TERMS_PER_US,
+               8 * (o_len - res_rows) * lw / READ_BYTES_PER_US)
+    return -(-bsz // CLUSTERS_AT_ONCE[c]) * (work + ROUND_US)
+
+
+def cluster_plan(bsz: int, n: int, m: int) -> tuple[int, int]:
+    """(blocks a pair c, resident rows) of the large-pair kernel for a
+    batch of bsz n x m pairs: c at most 8, and B c at most the card's 132
+    SMs where B and the shape allow; among those the c whose estimated round
+    is shortest (`cluster_round_us`; the larger c on a tie)."""
+    most = CLUSTER_MAX if bsz > SMS else max(1, min(CLUSTER_MAX, SMS // bsz))
+    fits = {c: cluster_fit(n, m, c) for c in range(1, min(CLUSTER_MAX, max(n, m)) + 1)}
+    fits = {c: fit for c, fit in fits.items() if fit is not None}
+    allowed = [c for c in fits if c <= most] or list(fits)
+    if not allowed:
+        raise ValueError(f"no cluster of the large-pair kernel takes {n} x {m}")
+    # min keeps the first of equal estimates: the larger c
+    c = min(sorted(allowed, reverse=True),
+            key=lambda c: cluster_round_us(bsz, n, m, c, fits[c]))
+    return c, fits[c]
+
+
+def cluster_capacity(n: int, m: int, c: int, res_rows: int) -> int:
+    """Clusters of the large-pair kernel the card holds at once for this
+    layout (`cudaOccupancyMaxActiveClusters`; needs the card)."""
+    got = _build.load().aspire_sinkhorn_cluster_capacity(n, m, c, res_rows)
+    if got < 0:
+        _build.check(-got, "aspire_sinkhorn_cluster_capacity")
+    return got
 
 
 def sinkhorn_route(n: int, m: int) -> str:
     """'small', 'wide' or 'large': which kernel takes an n x m pair (the first
-    two on today's conditions); raises past the large kernel's shared memory."""
+    two on today's conditions); raises past the large route's limit
+    (`large_bytes`: n + m <= 29,056)."""
     if max(n, m) <= SMALL_SIDE:
         return "small"
     if max(n, m) <= MAX_SIDE and pair_bytes(n, m) <= MAX_SMEM:
@@ -135,14 +259,14 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
     g = torch.empty((bsz, m), dtype=torch.float32, device=cost.device)
     if bsz == 0:
         return f, g
-    if large:          # g's softmins read the rows of the transpose
-        args.insert(1, args[0].transpose(1, 2).contiguous())
+    # the large pairs: blocks a pair and resident rows
+    shape = [bsz, n, m, *cluster_plan(bsz, n, m)] if large else [bsz, n, m]
     name = "aspire_sinkhorn_large_f32" if large else "aspire_sinkhorn_f32"
     lib = _build.load()
     with torch.cuda.device(cost.device):
         err = getattr(lib, name)(
             *(t.data_ptr() for t in args), f.data_ptr(), g.data_ptr(),
-            bsz, n, m, float(blur), math.log(scaling), int(max_iters),
+            *shape, float(blur), math.log(scaling), int(max_iters),
             int(extrapolate), torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     if large:

@@ -6,6 +6,7 @@
     python3 benchmarks/torch_kernel_ab.py --other PATH --bwd   # backward (K5b)
     python3 benchmarks/torch_kernel_ab.py --other PATH --ffn   # FFN forward (K3)
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
+    python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn-large   # K1's large pairs
     python3 benchmarks/torch_kernel_ab.py --other PATH --pool   # sentence pool (K4)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-int8   # int8 scan (K7)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-long   # K8, K7 on full-text buckets
@@ -38,7 +39,13 @@ Sinkhorn reading (`--sinkhorn`) is K1 (f32) on 20 x 20 pairs at B = 16 (a
 request), 30 with grouped diameters (a training step's micro batches of 3),
 1024 and 2048 (a fused batch of 32 queries at k = 64), and at 48 x 40 and
 100 x 100, each after the final step and in the loop-only mode the training
-loss uses (a checkout without that mode prints that it refuses it).  The pooling reading (`--pool`) is the kernel alone
+loss uses (a checkout without that mode prints that it refuses it).  The large-pair
+reading (`--sinkhorn-large`) is K1 the same way at chip_smoke.py's large
+cases -- B = 16 at 24 x 1,200, 300 x 1,200, 240 x 240 and 512 x 512, B = 30
+at 300 x 300 with grouped diameters -- then the fused queries' reranks, 20 and
+160 pairs of 300 x 1,200, and 16 pairs of 1,200 x 1,200, with a request's
+16 pairs of 20 x 20 beside them; a checkout with `cluster_plan` prints the
+blocks a pair and resident rows it launches.  The pooling reading (`--pool`) is the kernel alone
 (`sentence_sums`) at the encode shape [64, 256, 768] in bf16 and f32 with 20
 sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
 which the first kernel refused (a checkout that refuses a shape prints its
@@ -85,6 +92,14 @@ FFN_CASES = ((4096, "bfloat16"), (16384, "bfloat16"), (4096, "float32"))
 SINKHORN_CASES = ((16, 20, 20, "global"), (30, 20, 20, "grouped"),
                   (1024, 20, 20, "global"), (2048, 20, 20, "pair"),
                   (16, 48, 40, "pair"), (16, 100, 100, "pair"))
+# K1's large pairs: chip_smoke.py's five first cases, then the fused
+# queries' reranks (20 and 160 pairs of 300 x 1,200) and 1,200 x 1,200; the
+# small pairs of a request beside them
+SINKHORN_LARGE_CASES = ((16, 24, 1200, "pair"), (16, 300, 1200, "pair"),
+                        (16, 240, 240, "pair"), (16, 512, 512, "pair"),
+                        (30, 300, 300, "grouped"), (20, 300, 1200, "pair"),
+                        (160, 300, 1200, "pair"), (16, 1200, 1200, "pair"),
+                        (16, 20, 20, "global"))
 BWD_CASES = tuple((shape, p, dtype) for shape, dtype in (
     ((30, 12, 512, 64), "bfloat16"), ((16, 12, 256, 64), "bfloat16"),
     ((30, 12, 512, 64), "float32"), ((4, 12, 512, 64), "float32")) for p in (0.1, 0.0))
@@ -181,15 +196,16 @@ def measure_ffn() -> None:
                           "device_ms_by_kernel": by_kernel}), flush=True)
 
 
-def measure_sinkhorn() -> None:
+def measure_sinkhorn(cases=SINKHORN_CASES) -> None:
     import inspect
     import torch
     import chip_smoke                   # the checkout's own, on sys.path
+    from aspire_tpu_torch.ops import sinkhorn_kernel as sk
     from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
     from aspire_tpu_torch.ops.sinkhorn_kernel import sinkhorn_solve
     dev = torch.device("cuda", 0)
     has_loop_only = "extrapolate" in inspect.signature(sinkhorn_solve).parameters
-    for bsz, n, m, diameter in SINKHORN_CASES:
+    for bsz, n, m, diameter in cases:
         q, c, cost, la, lb, diam, _, _ = chip_smoke.sinkhorn_inputs(
             bsz, 7 + bsz + n + m, "pair" if diameter == "grouped" else diameter,
             dev, n, m)
@@ -197,7 +213,10 @@ def measure_sinkhorn() -> None:
             diam = grouped_max_diameter(q.embed, c.embed, bsz // 3)
         for mode in ("extrapolated", "loop_only"):
             row = {"batch": bsz, "pairs": f"{n}x{m}", "diameter": diameter,
-                   "mode": mode, "dtype": "float32", "kernel": "sinkhorn"}
+                   "mode": mode, "dtype": "float32", "kernel": "sinkhorn",
+                   "route": sk.sinkhorn_route(n, m)}
+            if row["route"] == "large" and hasattr(sk, "cluster_plan"):
+                row["blocks_a_pair"], row["resident_rows"] = sk.cluster_plan(bsz, n, m)
             if mode == "loop_only" and not has_loop_only:
                 print(json.dumps({**row, "refused": "no loop-only mode"}), flush=True)
                 continue
@@ -205,6 +224,12 @@ def measure_sinkhorn() -> None:
             fn = lambda: sinkhorn_solve(cost, la, lb, diam, **kw)
             print(json.dumps({**row, **_median_ms(fn),
                               "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
+        del q, c, cost
+        torch.cuda.empty_cache()
+
+
+def measure_sinkhorn_large() -> None:
+    measure_sinkhorn(SINKHORN_LARGE_CASES)
 
 
 POOL_CASES = ((64, 256, 768, 20, "bfloat16"), (64, 256, 768, 20, "float32"),
@@ -488,6 +513,8 @@ def main() -> int:
                         help="time the FFN forward (K3) instead")
     parser.add_argument("--sinkhorn", action="store_true",
                         help="time the Sinkhorn solver (K1) instead")
+    parser.add_argument("--sinkhorn-large", action="store_true",
+                        help="time K1's large pairs (and 20 x 20 beside them) instead")
     parser.add_argument("--pool", action="store_true",
                         help="time the sentence-pool sums (K4) instead")
     parser.add_argument("--scan-int8", action="store_true",
@@ -500,6 +527,7 @@ def main() -> int:
                         help="measure the checkout on sys.path (internal)")
     args = parser.parse_args()
     modes = {"ffn": measure_ffn, "sinkhorn": measure_sinkhorn,
+             "sinkhorn_large": measure_sinkhorn_large,
              "pool": measure_pool, "scan_int8": measure_scan_int8,
              "scan_long": measure_scan_long, "wide": measure_wide}
     if args.measure:
@@ -514,8 +542,8 @@ def main() -> int:
     other = pathlib.Path(args.other).resolve()
     argv = ["ab", "--measure"] + [
         "--" + flag.replace("_", "-")
-        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "pool", "scan_int8", "scan_long",
-                     "wide")
+        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "sinkhorn_large", "pool",
+                     "scan_int8", "scan_long", "wide")
         if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):

@@ -456,6 +456,14 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
+    if sk.sinkhorn_route(n, m) == "large":
+        # the cluster the large-pair kernel runs a pair on, and how many of
+        # them the card holds at once
+        c, res_rows = sk.cluster_plan(bsz, n, m)
+        at_once = sk.cluster_capacity(n, m, c, res_rows)
+        res["cluster"] = {"blocks_a_pair": c, "resident_rows": res_rows,
+                          "of_rows": min(n, m), "clusters_at_once": at_once,
+                          "waves": -(-bsz // at_once)}
     res.update(case=f"B={bsz} n={n} m={m} f32 diameter={diameter}",
                route=sk.sinkhorn_route(n, m),
                kernel_ms=t_k, plain_ms=t_p, library_ms=None,
@@ -1248,11 +1256,17 @@ def range_kernel_cases(dev) -> dict:
                                    case_attention_bwd(4, 6, 512, 128, f32, dev, p=0.0),
                                    case_attention_bwd(4, 4, 512, 192, f32, dev),
                                    case_attention_bwd(2, 3, 200, 256, f32, dev)],
+        # then the fused queries' reranks (a 300-sentence query's 20
+        # candidates of up to 1,200; a batch of 8 such queries) and a pair
+        # whose slices do not fit the blocks' shared memory
         "sinkhorn_large": [case_sinkhorn(16, "pair", dev, 24, 1200),
                            case_sinkhorn(16, "pair", dev, 300, 1200),
                            case_sinkhorn(16, "pair", dev, 240, 240),
                            case_sinkhorn(16, "pair", dev, 512, 512),
-                           case_sinkhorn(30, "grouped", dev, 300, 300)],
+                           case_sinkhorn(30, "grouped", dev, 300, 300),
+                           case_sinkhorn(20, "pair", dev, 300, 1200),
+                           case_sinkhorn(160, "pair", dev, 300, 1200),
+                           case_sinkhorn(16, "pair", dev, 1200, 1200)],
     }
     # the scans at 300 query sentences, the long index's bucket of 1,200
     # first: K8 on the wide kernel (three groups of one launch), K7 with the
