@@ -47,12 +47,28 @@
 // softmin in benchmarks/torch_sinkhorn_ablation.py.  ex2.approx holds the plain
 // version to 3e-4 where 1e-3 is allowed (chip_smoke.py).
 //
-// Wider pairs (up to 1024 atoms a side): sinkhorn_wide_kernel, one warp a
-// pair, the cost in shared memory with an odd row pitch (rows and columns both
-// conflict-free), lane l owning rows and columns l, l + 32, ... (kPer of each, a
-// template: 2, 4, ... 32), potentials in registers (in shared memory they made
-// the rounds 43% slower: the reads join each round's chain), accurate expf /
-// logf.  Pairs a block: four, or as many as fit 227 KB.
+// Wider pairs (up to 1024 atoms a side, the pair within one block's shared
+// memory: 33 x 33 up to 239 x 239, an abstract's query against full-text
+// candidates up to 55 x 1,024): sinkhorn_wide_kernel, a block a pair (so a
+// batch of 16-20 pairs reaches 16-20 SMs, and a small pair's block of a few
+// warps leaves room for several on an SM).  The cost is read from device
+// memory once, into shared memory as [O][pitch] with O the shorter side.  A
+// team of lanes an O atom walks its row (lane sub the L atoms sub, sub +
+// team, ...; the team's (max, sum) merged by butterfly shuffles), a thread
+// an L atom walks its column, the two walks side by side on separate warps;
+// ops/sinkhorn_kernel.wide_plan picks the team from (n, m) so that the
+// longest chain of terms a thread walks is shortest.  A softmin is the
+// large-pair kernel's chain (16 terms in registers: their max first, one
+// rescale of the sum a chunk, ex2.approx with log2(e) folded into 1 / eps,
+// a tree of sums), its log-sum taken by the accurate log2f (one a softmin)
+// and divided by its factor; eps of every round and its reciprocal
+// tabulated once.  h of each side lies once in shared
+// memory: after its walk each side arrives at a named barrier that the
+// other side waits on before it overwrites the h that walk read, and one
+// block barrier ends the round.
+// What bounds it: the exponentials, 2 n m a round on an SM's
+// special-function unit (16 a clock) and the walks' issue beside them; at
+// 48 x 40 the chain of a round (a column's 40 terms, the barriers).
 //
 // Every other pair (a side past 1024 atoms, or a cost past one block's shared
 // memory: 240 x 240 and up, a query against a full-text document):
@@ -97,7 +113,6 @@ constexpr int kTable = 128;            // rounds whose eps the small kernel tabu
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-constexpr int kMaxPairsPerBlock = 4;   // the wide kernel's warps a block
 constexpr int kMaxSmem = 232448;       // shared memory one block can have
 
 __device__ __forceinline__ float ex2(float x) {
@@ -266,127 +281,6 @@ int launch_small(const float* cost, const float* log_a, const float* log_b, cons
   const int threads = (2 * kLanes * side + 31) / 32 * 32;   // whole warps for the shuffles
   sinkhorn_small_kernel<kPer><<<bsz, threads, 0, stream>>>(
       cost, log_a, log_b, diam, f, g, n, m, blur, log_scaling, max_iters, extrapolate);
-  return (int)cudaGetLastError();
-}
-
-// ----------------------------------------------------------------- wide pairs
-// floats a pair keeps in shared memory: cost [n][m | 1], then ha [n], hb [m]
-__host__ __device__ inline int pair_floats(int n, int m) { return n * (m | 1) + n + m; }
-
-// -eps * logsumexp_k(h[k] - c[k * stride] / eps), max-shifted, as
-// -logsumexp_k(h[k] - c[k * stride] inv_eps) / inv_eps (r = 1 / inv_eps)
-__device__ __forceinline__ float softmin(const float* c, int stride, const float* h,
-                                         int count, float inv_eps, float r) {
-  float mx = -INFINITY;
-#pragma unroll 4
-  for (int k = 0; k < count; ++k) mx = fmaxf(mx, h[k] - c[k * stride] * inv_eps);
-  float sum = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < count; ++k) sum += expf(h[k] - c[k * stride] * inv_eps - mx);
-  return div_by(-(logf(sum) + mx), inv_eps, r);
-}
-
-template <int kPer>
-__global__ void __launch_bounds__(kMaxPairsPerBlock * 32)
-sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
-                     const float* __restrict__ log_b, const float* __restrict__ diam,
-                     float* __restrict__ f_out, float* __restrict__ g_out, int bsz, int n,
-                     int m, float blur, float log_scaling, int max_iters, int extrapolate) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (pair >= bsz) return;             // warps are independent: no block barrier below
-  const int ld = m | 1;
-  float* c = smem + (size_t)warp * pair_floats(n, m);
-  float* ha = c + n * ld;              // log_a + f / eps, by row
-  float* hb = ha + n;                  // log_b + g / eps, by column
-
-  const float* cg = cost + (size_t)pair * n * m;
-  for (int idx = lane; idx < n * m; idx += 32) c[(idx / m) * ld + (idx % m)] = cg[idx];
-  // atom r of this lane: row / column lane + 32 r
-  float la[kPer], lb[kPer], f[kPer], g[kPer];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = lane + 32 * r;
-    la[r] = i < n ? log_a[(size_t)pair * n + i] : 0.f;
-    lb[r] = i < m ? log_b[(size_t)pair * m + i] : 0.f;
-  }
-  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
-  // ha / hb from f / g at the 1 / eps that the round's softmins take
-  auto write_h = [&](float inv) {
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = lane + 32 * r;
-      if (i < m) hb[i] = lb[r] + g[r] * inv;
-      if (i < n) ha[i] = la[r] + f[r] * inv;
-    }
-  };
-
-  float inv = 1.f / sched.eps_at(0), r_inv = 1.f / inv;
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = lane + 32 * r;
-    if (i < m) hb[i] = lb[r];
-    if (i < n) ha[i] = la[r];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = lane + 32 * r;
-    f[r] = i < n ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : 0.f;
-    g[r] = i < m ? softmin(c + i, ld, ha, n, inv, r_inv) : 0.f;
-  }
-
-  for (int it = 0; it < sched.iters; ++it) {
-    inv = 1.f / sched.eps_at(it);
-    r_inv = 1.f / inv;
-    __syncwarp();                      // every lane is done reading hb / ha
-    write_h(inv);                      // Jacobi: both updates read the old f and g
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = lane + 32 * r;
-      const float ft = i < n ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : 0.f;
-      const float gt = i < m ? softmin(c + i, ld, ha, n, inv, r_inv) : 0.f;
-      f[r] = 0.5f * (f[r] + ft);
-      g[r] = 0.5f * (g[r] + gt);
-    }
-  }
-
-  if (extrapolate) {                   // at eps = blur, again from the loop's f and g
-    inv = 1.f / blur;
-    r_inv = 1.f / inv;
-    __syncwarp();
-    write_h(inv);
-    __syncwarp();
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = lane + 32 * r;
-    if (i < n)
-      f_out[(size_t)pair * n + i] =
-          extrapolate ? softmin(c + i * ld, 1, hb, m, inv, r_inv) : f[r];
-    if (i < m)
-      g_out[(size_t)pair * m + i] = extrapolate ? softmin(c + i, ld, ha, n, inv, r_inv) : g[r];
-  }
-}
-
-template <int kPer>
-int launch_wide(const float* cost, const float* log_a, const float* log_b, const float* diam,
-                float* f, float* g, int bsz, int n, int m, float blur, float log_scaling,
-                int max_iters, int extrapolate, cudaStream_t stream) {
-  const long long per_pair = (long long)pair_floats(n, m) * (long long)sizeof(float);
-  if (per_pair > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int fit = (int)(kMaxSmem / per_pair);
-  const int pairs = fit < kMaxPairsPerBlock ? fit : kMaxPairsPerBlock;
-  const int smem = (int)(pairs * per_pair);
-  // above 48 KB of dynamic shared memory a kernel has to opt in
-  cudaError_t err = cudaFuncSetAttribute(sinkhorn_wide_kernel<kPer>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (bsz + pairs - 1) / pairs;
-  sinkhorn_wide_kernel<kPer><<<blocks, pairs * 32, smem, stream>>>(
-      cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, max_iters, extrapolate);
   return (int)cudaGetLastError();
 }
 
@@ -721,6 +615,221 @@ cudaLaunchConfig_t cluster_config(int blocks, int c, int bytes, cudaStream_t str
   return cfg;
 }
 
+// ----------------------------------------------------------------- wide pairs
+constexpr int kWideThreads = 1024;     // threads a block of the wide-pair kernel at most
+constexpr int kWideTable = 160;        // rounds whose log2(e) / eps it tabulates at most
+constexpr int kWidePer = 4;            // L atoms an L thread takes at most
+
+// One block's shared memory for an n x m pair whose O atoms run `team` lanes
+// a softmin, in floats (mirrored by ops/sinkhorn_kernel.wide_layout): h of
+// O, h of L (16-byte aligned where one lane walks a row: it reads h of L in
+// float4s), the schedule's table of `table` rounds, then the cost
+// [O][pitch], O the shorter side.  The pitch is team x an odd number where
+// that fits (the O teams' and the L threads' reads of the cost both free of
+// bank conflicts), else L | 1, else L; the table takes what is left, up to
+// kWideTable rounds (a round past it computes its eps).  Every pair of the
+// route has a team whose layout fits (ops/sinkhorn_kernel.wide_plan).
+struct WideLayout {
+  int o_len, l_len, h_l, tab, table, pitch, tile, floats;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int n, int m, int team) {
+  WideLayout s;
+  s.o_len = m >= n ? n : m;
+  s.l_len = m >= n ? m : n;
+  s.h_l = team == 1 ? (s.o_len + 3) / 4 * 4 : s.o_len;   // h of O at 0
+  s.tab = s.h_l + s.l_len;                               // [2][table]
+  const int room = kMaxSmem / 4 - s.tab;
+  const int odd = team * (((s.l_len + team - 1) / team) | 1);
+  s.pitch = s.o_len * odd <= room ? odd
+            : s.o_len * (s.l_len | 1) <= room ? (s.l_len | 1) : s.l_len;
+  const int spare = (room - s.o_len * s.pitch) / 2;
+  s.table = spare < 0 ? 0 : spare < kWideTable ? spare : kWideTable;
+  s.tile = s.tab + 2 * s.table;
+  s.floats = s.tile + s.o_len * s.pitch;
+  return s;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// A pair a block.  Threads [0, o_thr) are the O atoms' teams: `team` lanes
+// an atom, lane sub walking the atom's row of the cost at the L atoms sub,
+// sub + team, ... (a partial softmin), the team's partials merged by
+// butterfly shuffles (`merge_part`: max first, then the sum).  Threads
+// [o_thr, blockDim.x) are the L atoms: L thread u takes the atoms u, u + nl,
+// ... (at most kPer), each walking its column over every O atom.  A round:
+// both walks read the last round's h (Jacobi); each side then arrives at
+// the barrier that the other side's writer waits on (1: every O walk has
+// read h of L, 2: every L walk has read h of O), takes its potentials and
+// overwrites its own h; one block barrier ends the round.  (h of each side
+// once: two buffers of h of O did not leave room for 239 x 241.)
+template <int kPer>
+__global__ void __launch_bounds__(kWideThreads, 1)
+sinkhorn_wide_kernel(const float* __restrict__ cost, const float* __restrict__ log_a,
+                     const float* __restrict__ log_b, const float* __restrict__ diam,
+                     float* __restrict__ f_out, float* __restrict__ g_out, int n, int m,
+                     int team, float blur, float log_scaling, int max_iters, int extrapolate) {
+  extern __shared__ __align__(16) float smem_w[];
+  const WideLayout lay = wide_layout(n, m, team);
+  const int pair = blockIdx.x;
+  const bool by_cols = m >= n;                 // O the rows, L the columns
+  const int O = lay.o_len, L = lay.l_len, P = lay.pitch;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int threads = blockDim.x, warps = threads >> 5;
+  const int o_thr = (O * team + 31) / 32 * 32, nl = threads - o_thr;
+  float* h_o = smem_w;                         // log2(e) (log-weight + potential / eps)
+  float* h_l = smem_w + lay.h_l;
+  float* tab = smem_w + lay.tab;               // log2(e) / eps of a round, its reciprocal
+  float* tile = smem_w + lay.tile;             // cost (o, l) at o P + l
+
+  const float* cp = cost + (size_t)pair * n * m;   // n x m < 2^31: 32-bit offsets
+  const float* lw_o = by_cols ? log_a + (size_t)pair * n : log_b + (size_t)pair * m;
+  const float* lw_l = by_cols ? log_b + (size_t)pair * m : log_a + (size_t)pair * n;
+  float* out_o = by_cols ? f_out + (size_t)pair * n : g_out + (size_t)pair * m;
+  float* out_l = by_cols ? g_out + (size_t)pair * m : f_out + (size_t)pair * n;
+
+  // the cost, read once: a warp a row as it lies in memory
+  if (by_cols) {
+    for (int o = warp; o < O; o += warps)
+      for (int l = lane; l < L; l += 32) aspire::cp_async4(tile + o * P + l, cp + o * m + l);
+  } else {
+    for (int l = warp; l < L; l += warps)
+      for (int o = lane; o < O; o += 32) aspire::cp_async4(tile + o * P + l, cp + l * m + o);
+  }
+  aspire::cp_async_commit();
+
+  const Schedule sched(diam[pair], blur, log_scaling, max_iters);
+  const int rounds = 1 + sched.iters + (extrapolate ? 1 : 0);
+  // round 0 from the log-weights, rounds 1..iters the loop, then eps = blur
+  auto inv2_at = [&](int round) {
+    const float eps =
+        round == 0 ? sched.eps_at(0) : round <= sched.iters ? sched.eps_at(round - 1) : blur;
+    return (1.f / eps) * kLog2e;
+  };
+  for (int i = tid; i < min(rounds, lay.table); i += threads) {
+    const float inv2 = inv2_at(i);
+    tab[i] = inv2;
+    tab[lay.table + i] = 1.f / inv2;
+  }
+  for (int o = tid; o < O; o += threads) h_o[o] = lw_o[o] * kLog2e;
+  for (int l = tid; l < L; l += threads) h_l[l] = lw_l[l] * kLog2e;
+
+  // an O thread: atom `item`, lane `sub` of its team; an L thread: atoms u + nl i
+  const int tshift = __ffs(team) - 1;
+  const int item = tid >> tshift, sub = tid & (team - 1), u = tid - o_thr;
+  const bool o_side = tid < o_thr, o_live = o_side && item < O;
+  const float lw2 = o_live ? lw_o[item] * kLog2e : 0.f;
+  float lw2_l[kPer], p_l[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int l = u + nl * i;
+    lw2_l[i] = !o_side && l < L ? lw_l[l] * kLog2e : 0.f;
+    p_l[i] = 0.f;
+  }
+  float p_o = 0.f;
+  aspire::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int round = 0; round < rounds; ++round) {
+    const bool in_tab = round < lay.table;
+    const float inv2 = in_tab ? tab[round] : inv2_at(round);
+    const float r = in_tab ? tab[lay.table + round] : 1.f / inv2;
+    const int kind = round == 0 ? 0 : round <= sched.iters ? 1 : 2;
+    const bool last = round + 1 == rounds;
+    const float inv2_next =
+        last ? 0.f : round + 1 < lay.table ? tab[round + 1] : inv2_at(round + 1);
+    // a potential from its softmin, the log-sum divided by the factor that
+    // scaled the terms: the loop averages, the first round and the final
+    // step take the softmin itself.  The log-sum by log2f, not lg2.approx:
+    // its error, divided by the small factors of the first rounds (eps near
+    // the diameter), stayed in the potentials (B=4 1,024 x 55: OT scores
+    // 2.59e-3 from f64 with lg2.approx, 1.25e-3 with log2f, at the same time)
+    auto update = [&](float& p, float mx, float sum) {
+      const float v = div_by(-(log2f(sum) + mx), inv2, r);
+      p = kind == 1 ? 0.5f * (p + v) : v;
+    };
+    if (o_side) {
+      float mx = -INFINITY, sum = 0.f;
+      const int count = o_live ? (L - sub + team - 1) >> tshift : 0;
+      const float* row = tile + min(item, O - 1) * P;
+      if (team > 1)
+        chain<false, false>(row + sub, team, h_l + sub, team, count, inv2, mx, sum);
+      else
+        chain<true, true>(row, 1, h_l, 1, count, inv2, mx, sum);
+      for (int w = 1; w < team; w <<= 1)
+        merge_part(mx, sum, __shfl_xor_sync(kFull, mx, w), __shfl_xor_sync(kFull, sum, w));
+      bar_arrive(1, threads);                  // this thread has read h of L
+      update(p_o, mx, sum);
+      bar_sync(2, threads);                    // every L walk has read h of O
+      if (o_live) {
+        if (last) {
+          if (sub == 0) out_o[item] = p_o;
+        } else {
+          h_o[item] = fmaf(p_o, inv2_next, lw2);
+        }
+      }
+    } else {
+      float pm[kPer], ps[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        pm[i] = -INFINITY;
+        ps[i] = 0.f;
+        if (u + nl * i < L)
+          chain<false, true>(tile + u + nl * i, P, h_o, 1, O, inv2, pm[i], ps[i]);
+      }
+      bar_arrive(2, threads);                  // this thread has read h of O
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (u + nl * i < L) update(p_l[i], pm[i], ps[i]);
+      bar_sync(1, threads);                    // every O walk has read h of L
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int l = u + nl * i;
+        if (l < L) {
+          if (last)
+            out_l[l] = p_l[i];
+          else
+            h_l[l] = fmaf(p_l[i], inv2_next, lw2_l[i]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// the launch's shared memory, or an error for a plan the kernel refuses
+int wide_bytes(int n, int m, int team, int threads, int* bytes) {
+  const int o_len = m >= n ? n : m, l_len = m >= n ? m : n;
+  if (n < 1 || m < 1 || team < 1 || team > 32 || (team & (team - 1)) != 0 ||
+      threads > kWideThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nl = threads - (o_len * team + 31) / 32 * 32;
+  if (nl < 32 || (l_len + nl - 1) / nl > kWidePer) return (int)cudaErrorInvalidValue;
+  const long long b = 4LL * wide_layout(n, m, team).floats;
+  if (b > kMaxSmem) return (int)cudaErrorInvalidValue;
+  *bytes = (int)b;
+  return 0;
+}
+
+template <int kPer>
+int launch_wide(const float* cost, const float* log_a, const float* log_b, const float* diam,
+                float* f, float* g, int bsz, int n, int m, int team, int threads, int bytes,
+                float blur, float log_scaling, int max_iters, int extrapolate,
+                cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory a kernel has to opt in
+  const cudaError_t err = cudaFuncSetAttribute(
+      sinkhorn_wide_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  sinkhorn_wide_kernel<kPer><<<bsz, threads, bytes, stream>>>(
+      cost, log_a, log_b, diam, f, g, n, m, team, blur, log_scaling, max_iters, extrapolate);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // the large-pair kernel: bsz clusters of `cluster` blocks, res_rows of the
@@ -756,21 +865,18 @@ extern "C" int aspire_sinkhorn_cluster_capacity(int n, int m, int cluster, int r
   return e != cudaSuccess ? -(int)e : count;
 }
 
+// the small pairs (up to 32 atoms a side)
 extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const float* log_b,
                                    const float* diam, float* f, float* g, int bsz, int n,
                                    int m, float blur, float log_scaling, int max_iters,
                                    int extrapolate, void* stream) {
-  if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || m < 1 || bsz < 1) return (int)cudaErrorInvalidValue;
   const int side = n > m ? n : m;
   const cudaStream_t s = (cudaStream_t)stream;
 #define ASPIRE_SINKHORN_SMALL(P)                                                   \
   if (side <= kLanes * (P))                                                        \
     return launch_small<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling, \
                            max_iters, extrapolate, s);
-#define ASPIRE_SINKHORN_WIDE(P)                                                    \
-  if (side <= 32 * (P))                                                            \
-    return launch_wide<P>(cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log_scaling,  \
-                          max_iters, extrapolate, s);
   static_assert(kLanes * 8 == kSmallSide, "the small kernel's cases cover 32 atoms");
   ASPIRE_SINKHORN_SMALL(1)
   ASPIRE_SINKHORN_SMALL(2)
@@ -780,12 +886,33 @@ extern "C" int aspire_sinkhorn_f32(const float* cost, const float* log_a, const 
   ASPIRE_SINKHORN_SMALL(6)
   ASPIRE_SINKHORN_SMALL(7)
   ASPIRE_SINKHORN_SMALL(8)
+#undef ASPIRE_SINKHORN_SMALL
+  return (int)cudaErrorInvalidValue;
+}
+
+// the wide pairs: bsz blocks of `threads`, the O atoms' teams of `team` lanes
+// first (ops/sinkhorn_kernel.wide_plan chooses both)
+extern "C" int aspire_sinkhorn_wide_f32(const float* cost, const float* log_a,
+                                        const float* log_b, const float* diam, float* f,
+                                        float* g, int bsz, int n, int m, int team, int threads,
+                                        float blur, float log_scaling, int max_iters,
+                                        int extrapolate, void* stream) {
+  int bytes = 0;
+  const int err = wide_bytes(n, m, team, threads, &bytes);
+  if (err != 0) return err;
+  if (bsz < 1) return (int)cudaErrorInvalidValue;
+  const int o_len = m >= n ? n : m, l_len = m >= n ? m : n;
+  const int per = (l_len + threads - (o_len * team + 31) / 32 * 32 - 1) /
+                  (threads - (o_len * team + 31) / 32 * 32);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define ASPIRE_SINKHORN_WIDE(K)                                                          \
+  if (per <= (K))                                                                        \
+    return launch_wide<K>(cost, log_a, log_b, diam, f, g, bsz, n, m, team, threads, bytes, \
+                          blur, log_scaling, max_iters, extrapolate, s);
+  static_assert(kWidePer == 4, "the wide kernel's cases cover 4 L atoms a thread");
+  ASPIRE_SINKHORN_WIDE(1)
   ASPIRE_SINKHORN_WIDE(2)
   ASPIRE_SINKHORN_WIDE(4)
-  ASPIRE_SINKHORN_WIDE(8)
-  ASPIRE_SINKHORN_WIDE(16)
-  ASPIRE_SINKHORN_WIDE(32)
-#undef ASPIRE_SINKHORN_SMALL
 #undef ASPIRE_SINKHORN_WIDE
   return (int)cudaErrorInvalidValue;
 }

@@ -35,9 +35,13 @@ _DROP = [_I, _U64, _U32, _U32, _U32]
 # name -> argtypes; every function returns the cudaError_t of its launch.
 # Without argtypes ctypes would pass each pointer as a 32-bit int.
 SIGNATURES = {
-    # cost, log_a, log_b, diam, f, g, bsz, n, m, blur, log(scaling), max_iters,
-    # extrapolate (0: the loop's own f and g), stream
+    # the small pairs: cost, log_a, log_b, diam, f, g, bsz, n, m, blur,
+    # log(scaling), max_iters, extrapolate (0: the loop's own f and g), stream
     "aspire_sinkhorn_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
+    # the wide pairs: cost, log_a, log_b, diam, f, g, bsz, n, m, lanes an O
+    # atom, threads a block, blur, log(scaling), max_iters, extrapolate, stream
+    # (ops/sinkhorn_kernel.wide_plan)
+    "aspire_sinkhorn_wide_f32": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # the large pairs: cost, log_a, log_b, diam, f, g, bsz, n, m, blocks a
     # pair, resident rows, blur, log(scaling), max_iters, extrapolate, stream
     # (ops/sinkhorn_kernel.cluster_plan)

@@ -8,14 +8,20 @@ cost, one write of the potentials -- and each pair stops after its own
 schedule length, which also removes the host-side read of the batch maximum
 that the TPU version needs.  The loop is a chain of about 85 dependent rounds,
 so at small batches its latency bounds it, not the card's rate.  Three
-kernels share the schedule, chosen by shape alone (`sinkhorn_route`): pairs
-of up to 32 x 32 run one block a pair with four threads a softmin, the cost in
-registers and base-2 exponentials ("small"); wider pairs up to 1024 atoms a
-side whose pair fits one block's shared memory (239 x 239 does, 240 x 240
-does not) run one warp a pair with the cost in shared memory ("wide"); every
-other pair up to n + m = 29,056 ("large", launches counted apart) runs spread
-over a thread-block cluster of c <= 8 blocks (`cluster_plan` picks c from the
-batch and the shape).  The blocks split the pair's longer side, each keeps its
+kernels share the schedule, chosen by shape (`sinkhorn_route`; between the
+wide and the large kernel also by the batch), each with its own launch
+count: pairs of up to 32 x 32 run one block a pair with
+four threads a softmin, the cost in registers and base-2 exponentials
+("small"); wider pairs up to 1024 atoms a side whose pair fits one block's
+shared memory (239 x 239 does, 240 x 240 does not; an abstract's query
+against full-text candidates up to 55 x 1,024) run one block a pair with the
+cost in shared memory ("wide", `wide_plan`): a team of lanes for each atom
+of the shorter side O walking its row, merged by shuffles, and a thread for
+each atom of the longer side L walking its column, side by side, with one
+block barrier a round (large ones at small batches, such as B=16 of 239 x
+239, go to the large kernel); every other pair up to n + m = 29,056 ("large") runs
+spread over a thread-block cluster of c <= 8 blocks (`cluster_plan` picks c
+from the batch and the shape).  The blocks split the pair's longer side, each keeps its
 slice of the cost in shared memory for the whole loop (or the rows that fit,
 reading the rest from device memory each round), one walk a round serves both
 softmins, and the partial softmins of the other side are merged across the
@@ -27,6 +33,7 @@ gradients flow (`ops.sinkhorn.sinkhorn_potentials(loop="kernel")`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -37,16 +44,30 @@ from .cdist import pairwise_l2
 from .sinkhorn import log_weights, resolve_diameter
 
 MAX_SMEM = 232_448   # shared memory of one block on the H100, bytes
-MAX_SIDE = 1024      # the wide kernel's atoms a side: 32 lanes x at most 32
+MAX_SIDE = 1024      # the wide kernel's atoms a side
 SMALL_SIDE = 32      # pairs up to 32 x 32 keep the cost in registers
 TABLE = 128          # rounds whose eps the small-pair kernel tabulates
+WIDE_THREADS = 1024  # threads a block of the wide-pair kernel at most
+WIDE_TABLE = 160     # rounds whose eps the wide-pair kernel tabulates at most
+WIDE_PER = 4         # L atoms a thread of the wide-pair kernel takes at most
+TEAMS = (1, 2, 4, 8, 16, 32)
+CHUNK = 16           # terms a thread of the wide and large kernels holds at once
+# the plan's model of a round of the wide-pair kernel, in microseconds,
+# fitted to benchmarks/torch_sinkhorn_wide_sweep.py on the H100: a
+# fixed part (barriers, logs, stores) a wave of blocks, and the terms of both
+# walks of every pair an SM holds
+WIDE_ROUND_US = 0.6
+WIDE_TERMS_PER_US = 20_000
+SM_SMEM = 233_472    # shared memory of an SM, bytes
 
 
 def pair_bytes(n: int, m: int) -> int:
-    """Shared memory the kernel keeps for one n x m pair: up to 32 atoms a
-    side two buffers of h (32 floats a side each) and log2(e) / eps of 128
-    rounds with its reciprocal; above, the cost with an odd row pitch (m | 1)
-    and one float an atom of either side."""
+    """The route's measure of one n x m pair in shared memory: up to 32
+    atoms a side the small kernel's two buffers of h (32 floats a side each)
+    and log2(e) / eps of 128 rounds with its reciprocal; above, the cost with
+    an odd row pitch (m | 1) and one float an atom of either side, the
+    wide route's limit (the first wide design's layout; every such pair has
+    a `wide_layout` that fits)."""
     if max(n, m) <= SMALL_SIDE:
         return 4 * (2 * 2 * SMALL_SIDE + 2 * TABLE)
     return 4 * (n * (m | 1) + n + m)
@@ -167,6 +188,83 @@ def cluster_plan(bsz: int, n: int, m: int) -> tuple[int, int]:
     return c, fits[c]
 
 
+class WideLayout(NamedTuple):
+    """One block's shared memory of the wide-pair kernel, in floats (the
+    kernel's `wide_layout`): h of O at 0, h of L at `h_l`, then a table of
+    `table` rounds' log2(e) / eps and its reciprocal, then the cost [O][pitch]
+    at `tile`, O the shorter side."""
+    o_len: int
+    l_len: int
+    h_l: int
+    table: int
+    pitch: int
+    tile: int
+    floats: int
+
+
+def wide_layout(n: int, m: int, team: int) -> WideLayout:
+    """The layout for O atoms of `team` lanes: h of L 16-byte aligned where
+    one lane walks a row (it reads h in float4s); the pitch team x an odd
+    number where that fits one block's shared memory (the teams' and the L
+    threads' reads both free of bank conflicts), else L | 1, else L; the
+    table what is left, up to WIDE_TABLE rounds."""
+    o_len, l_len = min(n, m), max(n, m)
+    h_l = -(-o_len // 4) * 4 if team == 1 else o_len
+    tab = h_l + l_len
+    room = MAX_SMEM // 4 - tab
+    odd = team * (-(-l_len // team) | 1)
+    pitch = next((p for p in (odd, l_len | 1) if o_len * p <= room), l_len)
+    table = max(0, min((room - o_len * pitch) // 2, WIDE_TABLE))
+    tile = tab + 2 * table
+    return WideLayout(o_len, l_len, h_l, table, pitch, tile, tile + o_len * pitch)
+
+
+def wide_threads(n: int, m: int, team: int) -> tuple[int, int]:
+    """(threads of the O teams, threads of the L atoms) for O atoms of
+    `team` lanes: whole warps, a thread an L atom up to the block's 1024."""
+    o_len, l_len = min(n, m), max(n, m)
+    o_thr = -(-o_len * team // 32) * 32
+    return o_thr, min(-(-l_len // 32) * 32, WIDE_THREADS - o_thr)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(n: int, m: int) -> tuple[int, int]:
+    """(team, threads) of the wide-pair kernel for an n x m pair: among the
+    teams whose layout fits one block's shared memory and whose L threads
+    take at most WIDE_PER atoms each, the one whose longest chain of
+    16-term chunks a thread walks (an O lane's L / team terms, or an L
+    thread's atoms of O terms each) is shortest, then the fewest threads
+    (no shuffles, more blocks an SM: at 48 x 40 one lane an O atom read
+    0.074 ms against 0.082 for two, the same chain; PERF.md)."""
+    o_len, l_len = min(n, m), max(n, m)
+    best = None
+    for team in TEAMS:
+        o_thr, nl = wide_threads(n, m, team)
+        if nl < 32 or -(-l_len // nl) > WIDE_PER \
+                or 4 * wide_layout(n, m, team).floats > MAX_SMEM:
+            continue
+        chunks = max(-(-l_len // (team * CHUNK)),
+                     -(-l_len // nl) * -(-o_len // CHUNK))
+        key = (chunks, o_thr + nl)
+        if best is None or key < best[0]:
+            best = (key, team, o_thr + nl)
+    if best is None:
+        raise ValueError(f"no layout of the wide-pair kernel takes {n} x {m}")
+    return best[1], best[2]
+
+
+def wide_round_us(bsz: int, n: int, m: int) -> float:
+    """The plan's estimate of a round of the batch on the wide-pair kernel:
+    the SMs' pairs in waves of the blocks an SM holds (threads, 64 registers
+    a thread, shared memory), a fixed part a wave and the exponentials of
+    every pair an SM holds."""
+    team, threads = wide_plan(n, m)
+    bytes_ = 4 * wide_layout(n, m, team).floats
+    at_once = max(1, min(2048 // threads, 65536 // (64 * threads), SM_SMEM // (bytes_ + 1024)))
+    per_sm = -(-bsz // SMS)
+    return -(-per_sm // at_once) * WIDE_ROUND_US + per_sm * 2 * n * m / WIDE_TERMS_PER_US
+
+
 def cluster_capacity(n: int, m: int, c: int, res_rows: int) -> int:
     """Clusters of the large-pair kernel the card holds at once for this
     layout (`cudaOccupancyMaxActiveClusters`; needs the card)."""
@@ -176,13 +274,22 @@ def cluster_capacity(n: int, m: int, c: int, res_rows: int) -> int:
     return got
 
 
-def sinkhorn_route(n: int, m: int) -> str:
-    """'small', 'wide' or 'large': which kernel takes an n x m pair (the first
-    two on today's conditions); raises past the large route's limit
-    (`large_bytes`: n + m <= 29,056)."""
+@functools.lru_cache(maxsize=None)
+def sinkhorn_route(n: int, m: int, bsz: int | None = None) -> str:
+    """'small', 'wide' or 'large': which kernel takes an n x m pair (the
+    first two by the shape: up to 32 atoms a side, then up to 1,024 within
+    one block's shared memory); raises past the large route's limit
+    (`large_bytes`: n + m <= 29,056).  Given the batch, a wide pair goes to
+    the large kernel where the plans' estimates of a round put the cluster
+    first (`wide_round_us` against `cluster_round_us`): large pairs at small
+    batches, such as B=16 of 239 x 239 or 55 x 1,024, where a cluster of
+    blocks a pair beat a block a pair on the card (PERF.md)."""
     if max(n, m) <= SMALL_SIDE:
         return "small"
     if max(n, m) <= MAX_SIDE and pair_bytes(n, m) <= MAX_SMEM:
+        if bsz is not None and cluster_round_us(bsz, n, m, *cluster_plan(bsz, n, m)) \
+                < wide_round_us(bsz, n, m):
+            return "large"
         return "wide"
     if large_bytes(n, m) <= MAX_SMEM:
         return "large"
@@ -251,7 +358,6 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
     if not cost.is_cuda:
         return sinkhorn_solve_plain(cost, log_a, log_b, diam, blur, scaling,
                                     max_iters, extrapolate)
-    large = sinkhorn_route(n, m) == "large"
     args = [t.detach().float().contiguous() for t in (cost, log_a, log_b, diam)]
     if any(t.device != cost.device for t in args):
         raise ValueError("all inputs must lie on the same device")
@@ -259,25 +365,28 @@ def sinkhorn_solve(cost, log_a, log_b, diam, blur: float = 0.05,
     g = torch.empty((bsz, m), dtype=torch.float32, device=cost.device)
     if bsz == 0:
         return f, g
-    # the large pairs: blocks a pair and resident rows
-    shape = [bsz, n, m, *cluster_plan(bsz, n, m)] if large else [bsz, n, m]
-    name = "aspire_sinkhorn_large_f32" if large else "aspire_sinkhorn_f32"
+    route = sinkhorn_route(n, m, bsz)
+    # the wide pairs: lanes an O atom, threads a block; the large ones:
+    # blocks a pair, resident rows
+    plan = (() if route == "small" else wide_plan(n, m) if route == "wide"
+            else cluster_plan(bsz, n, m))
+    name = {"small": "aspire_sinkhorn_f32", "wide": "aspire_sinkhorn_wide_f32",
+            "large": "aspire_sinkhorn_large_f32"}[route]
     lib = _build.load()
     with torch.cuda.device(cost.device):
         err = getattr(lib, name)(
             *(t.data_ptr() for t in args), f.data_ptr(), g.data_ptr(),
-            *shape, float(blur), math.log(scaling), int(max_iters),
+            bsz, n, m, *plan, float(blur), math.log(scaling), int(max_iters),
             int(extrapolate), torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
-    if large:
-        sinkhorn_solve.large_launches += 1
-    else:
-        sinkhorn_solve.launches += 1
+    counter = {"small": "launches", "wide": "wide_launches", "large": "large_launches"}[route]
+    setattr(sinkhorn_solve, counter, getattr(sinkhorn_solve, counter) + 1)
     return f, g
 
 
-# launches of the small- and wide-pair kernels, and of the large-pair one
+# launches of the small-, wide- and large-pair kernels
 sinkhorn_solve.launches = 0
+sinkhorn_solve.wide_launches = 0
 sinkhorn_solve.large_launches = 0
 
 

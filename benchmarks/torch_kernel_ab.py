@@ -7,6 +7,7 @@
     python3 benchmarks/torch_kernel_ab.py --other PATH --ffn   # FFN forward (K3)
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn   # Sinkhorn (K1)
     python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn-large   # K1's large pairs
+    python3 benchmarks/torch_kernel_ab.py --other PATH --sinkhorn-wide   # K1's wide pairs
     python3 benchmarks/torch_kernel_ab.py --other PATH --pool   # sentence pool (K4)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-int8   # int8 scan (K7)
     python3 benchmarks/torch_kernel_ab.py --other PATH --scan-long   # K8, K7 on full-text buckets
@@ -45,7 +46,17 @@ cases -- B = 16 at 24 x 1,200, 300 x 1,200, 240 x 240 and 512 x 512, B = 30
 at 300 x 300 with grouped diameters -- then the fused queries' reranks, 20 and
 160 pairs of 300 x 1,200, and 16 pairs of 1,200 x 1,200, with a request's
 16 pairs of 20 x 20 beside them; a checkout with `cluster_plan` prints the
-blocks a pair and resident rows it launches.  The pooling reading (`--pool`) is the kernel alone
+blocks a pair and resident rows it launches.  The wide-pair reading
+(`--sinkhorn-wide`) is K1 the same way at chip_smoke.py's wide cases -- an
+abstract's query against 20 and 160 full-text candidates (20 x 800), 48 x 40
+at B = 16 and 1,024, 100 x 100, and the route's edges 239 x 239 and 55 x
+1,024 at B = 16 -- with the large route's 240 x 240 (the edge's other side)
+and a request's 20 x 20 beside them, then single-atom pairs (33 x 1, 1 x
+1,024) at B = 4; each case also gives the OT scores' largest distance from
+the PyTorch solver in f64, the checkout's kernel route beside its f32
+PyTorch solver (chip_smoke.f64_witness's two numbers, printed, not held); a
+checkout with `wide_plan` prints the team and threads it launches and the
+kernel a batch runs (`sinkhorn_route(n, m, bsz)`).  The pooling reading (`--pool`) is the kernel alone
 (`sentence_sums`) at the encode shape [64, 256, 768] in bf16 and f32 with 20
 sentences, a request's [16, 256, 768], and [16, 512, 768] with 96 sentences,
 which the first kernel refused (a checkout that refuses a shape prints its
@@ -100,6 +111,13 @@ SINKHORN_LARGE_CASES = ((16, 24, 1200, "pair"), (16, 300, 1200, "pair"),
                         (30, 300, 300, "grouped"), (20, 300, 1200, "pair"),
                         (160, 300, 1200, "pair"), (16, 1200, 1200, "pair"),
                         (16, 20, 20, "global"))
+# K1's wide pairs: chip_smoke.py's wide cases, then the large route's 240 x
+# 240 and the small route's 20 x 20 beside them
+SINKHORN_WIDE_CASES = ((20, 20, 800, "pair"), (160, 20, 800, "pair"),
+                       (16, 48, 40, "pair"), (1024, 48, 40, "pair"),
+                       (16, 100, 100, "pair"), (16, 239, 239, "pair"),
+                       (16, 55, 1024, "pair"), (16, 240, 240, "pair"),
+                       (16, 20, 20, "global"), (4, 33, 1, "pair"), (4, 1, 1024, "pair"))
 BWD_CASES = tuple((shape, p, dtype) for shape, dtype in (
     ((30, 12, 512, 64), "bfloat16"), ((16, 12, 256, 64), "bfloat16"),
     ((30, 12, 512, 64), "float32"), ((4, 12, 512, 64), "float32")) for p in (0.1, 0.0))
@@ -196,7 +214,22 @@ def measure_ffn() -> None:
                           "device_ms_by_kernel": by_kernel}), flush=True)
 
 
-def measure_sinkhorn(cases=SINKHORN_CASES) -> None:
+def _f64_witness(q, c) -> dict:
+    """OT scores of the checkout's kernel route and of its f32 PyTorch
+    solver against the PyTorch solver in f64: largest absolute distances."""
+    import torch
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.ops.distances import wasserstein_dist
+    kw = dict(temp=5000.0, return_pair_sims=True, diameter="pair")
+    with torch.no_grad():
+        exact, _ = wasserstein_dist(MultiVec(q.embed.double(), q.lens),
+                                    MultiVec(c.embed.double(), c.lens), solver="torch", **kw)
+        return {route: float((wasserstein_dist(q, c, solver=solver, **kw)[0].double()
+                              - exact).abs().max())
+                for route, solver in (("kernel", "kernel"), ("plain_f32", "torch"))}
+
+
+def measure_sinkhorn(cases=SINKHORN_CASES, witness: bool = False) -> None:
     import inspect
     import torch
     import chip_smoke                   # the checkout's own, on sys.path
@@ -217,6 +250,11 @@ def measure_sinkhorn(cases=SINKHORN_CASES) -> None:
                    "route": sk.sinkhorn_route(n, m)}
             if row["route"] == "large" and hasattr(sk, "cluster_plan"):
                 row["blocks_a_pair"], row["resident_rows"] = sk.cluster_plan(bsz, n, m)
+            if row["route"] == "wide" and hasattr(sk, "wide_plan"):
+                row["team"], row["threads"] = sk.wide_plan(n, m)
+                row["batch_route"] = sk.sinkhorn_route(n, m, bsz)
+            if witness and mode == "extrapolated":
+                row["f64_max_abs_err"] = _f64_witness(q, c)
             if mode == "loop_only" and not has_loop_only:
                 print(json.dumps({**row, "refused": "no loop-only mode"}), flush=True)
                 continue
@@ -230,6 +268,10 @@ def measure_sinkhorn(cases=SINKHORN_CASES) -> None:
 
 def measure_sinkhorn_large() -> None:
     measure_sinkhorn(SINKHORN_LARGE_CASES)
+
+
+def measure_sinkhorn_wide() -> None:
+    measure_sinkhorn(SINKHORN_WIDE_CASES, witness=True)
 
 
 POOL_CASES = ((64, 256, 768, 20, "bfloat16"), (64, 256, 768, 20, "float32"),
@@ -515,6 +557,8 @@ def main() -> int:
                         help="time the Sinkhorn solver (K1) instead")
     parser.add_argument("--sinkhorn-large", action="store_true",
                         help="time K1's large pairs (and 20 x 20 beside them) instead")
+    parser.add_argument("--sinkhorn-wide", action="store_true",
+                        help="time K1's wide pairs (240 x 240 and 20 x 20 beside them)")
     parser.add_argument("--pool", action="store_true",
                         help="time the sentence-pool sums (K4) instead")
     parser.add_argument("--scan-int8", action="store_true",
@@ -528,6 +572,7 @@ def main() -> int:
     args = parser.parse_args()
     modes = {"ffn": measure_ffn, "sinkhorn": measure_sinkhorn,
              "sinkhorn_large": measure_sinkhorn_large,
+             "sinkhorn_wide": measure_sinkhorn_wide,
              "pool": measure_pool, "scan_int8": measure_scan_int8,
              "scan_long": measure_scan_long, "wide": measure_wide}
     if args.measure:
@@ -542,7 +587,8 @@ def main() -> int:
     other = pathlib.Path(args.other).resolve()
     argv = ["ab", "--measure"] + [
         "--" + flag.replace("_", "-")
-        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "sinkhorn_large", "pool",
+        for flag in ("bwd", "dropout", "ffn", "sinkhorn", "sinkhorn_large",
+                     "sinkhorn_wide", "pool",
                      "scan_int8", "scan_long", "wide")
         if getattr(args, flag)]
     for label, root in (("other", other), ("this", this), ("this", this),

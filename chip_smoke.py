@@ -437,7 +437,8 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     sims_t, (_, _, _, plan_t, _) = wasserstein_dist(q, c, solver="torch", **kw)
     sims = check_close("sinkhorn sims", sims_k, sims_t, atol=2e-3, rtol=2e-3)
     plan = check_close("sinkhorn plan", plan_k, plan_t, atol=2e-3, rtol=0.0)
-    launched = lambda: sk.sinkhorn_solve.launches + sk.sinkhorn_solve.large_launches
+    launched = lambda: (sk.sinkhorn_solve.launches + sk.sinkhorn_solve.wide_launches
+                        + sk.sinkhorn_solve.large_launches)
     before = launched()
     dist_a = wasserstein_dist(q, c, temp=5000.0, **dkw)
     if launched() != before + 1:
@@ -451,12 +452,21 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     kw64 = {**kw, "diameter_value": diam.double()} if diameter == "grouped" else kw
     sims_64, _ = wasserstein_dist(MultiVec(q.embed.double(), q.lens),
                                   MultiVec(c.embed.double(), c.lens), solver="torch", **kw64)
-    res["sims_f64"] = f64_witness(f"sinkhorn sims {sk.sinkhorn_route(n, m)} B={bsz} "
+    route = sk.sinkhorn_route(n, m, bsz)
+    res["sims_f64"] = f64_witness(f"sinkhorn sims {route} B={bsz} "
                                   f"{n}x{m}", sims_k, sims_t, sims_64)
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
-    if sk.sinkhorn_route(n, m) == "large":
+    if route == "wide":
+        # the layout the wide-pair kernel's block runs
+        team, threads = sk.wide_plan(n, m)
+        lay = sk.wide_layout(n, m, team)
+        res["layout"] = {"team": team, "threads": threads,
+                         "o_threads": sk.wide_threads(n, m, team)[0],
+                         "pitch": lay.pitch, "table_rounds": lay.table,
+                         "shared_bytes": 4 * lay.floats}
+    if route == "large":
         # the cluster the large-pair kernel runs a pair on, and how many of
         # them the card holds at once
         c, res_rows = sk.cluster_plan(bsz, n, m)
@@ -465,7 +475,7 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
                           "of_rows": min(n, m), "clusters_at_once": at_once,
                           "waves": -(-bsz // at_once)}
     res.update(case=f"B={bsz} n={n} m={m} f32 diameter={diameter}",
-               route=sk.sinkhorn_route(n, m),
+               route=route, shape_route=sk.sinkhorn_route(n, m),
                kernel_ms=t_k, plain_ms=t_p, library_ms=None,
                pairs_per_s=bsz / t_k["median"] * 1e3,
                **sinkhorn_bound(cost, diam),
@@ -1156,9 +1166,7 @@ def phase_kernels(dev) -> dict:
                      case_sinkhorn(50, "global", dev),
                      case_sinkhorn(1024, "global", dev),
                      case_sinkhorn(1024, "pair", dev),
-                     case_sinkhorn(2048, "pair", dev),
-                     case_sinkhorn(16, "pair", dev, 48, 40),
-                     case_sinkhorn(16, "pair", dev, 100, 100)],
+                     case_sinkhorn(2048, "pair", dev)],
         "attention": [case_attention(16, 12, 256, 64, bf16, dev),
                       case_attention(3, 12, 512, 64, bf16, dev),
                       case_attention(4, 12, 512, 64, bf16, dev),
@@ -1221,11 +1229,12 @@ def range_kernel_cases(dev) -> dict:
     pair and 128 query sentences, each against its plain version; the first
     case of each wide or large kernel is the ranges phase's shape (a
     BERT-base encode with 6 heads of 128; the rank CLI's 24-sentence queries
-    against candidates of up to 1,200 sentences).  The scans at 300 query
-    sentences, their groups as extra column groups of one launch (K8 on
-    csrc/scan_int8.cu's bf16 kernel, K7 on its int8 one), on a bucket of the
-    long index's shape (`long_bucket`) and on one of 4,000 documents of up to
-    24 sentences."""
+    against candidates of up to 1,200 sentences; an abstract's 20-sentence
+    query against 20 candidates of up to 800 for K1's wide pairs).  The scans
+    at 300 query sentences, their groups as extra column groups of one launch
+    (K8 on csrc/scan_int8.cu's bf16 kernel, K7 on its int8 one), on a bucket
+    of the long index's shape (`long_bucket`) and on one of 4,000 documents of
+    up to 24 sentences."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {
         "attention_wide": [case_attention(16, 6, 256, 128, bf16, dev),
@@ -1267,6 +1276,25 @@ def range_kernel_cases(dev) -> dict:
                            case_sinkhorn(20, "pair", dev, 300, 1200),
                            case_sinkhorn(160, "pair", dev, 300, 1200),
                            case_sinkhorn(16, "pair", dev, 1200, 1200)],
+        # the wide pairs: an abstract's query reranked against 20 and a batch
+        # of 8 queries against 160 full-text candidates of up to 800
+        # sentences (the ranges path's shapes), then square pairs at a
+        # request's batch and at a fused batch's; the route's two edges at
+        # B=16, which the route gives the cluster kernel (faster there), and
+        # at B=140, where it keeps them; a pair with no table of rounds (226
+        # x 255), one turned (1,024 x 55) and one of a single atom
+        "sinkhorn_wide": [case_sinkhorn(20, "pair", dev, 20, 800),
+                          case_sinkhorn(160, "pair", dev, 20, 800),
+                          case_sinkhorn(16, "pair", dev, 48, 40),
+                          case_sinkhorn(1024, "pair", dev, 48, 40),
+                          case_sinkhorn(16, "pair", dev, 100, 100),
+                          case_sinkhorn(16, "pair", dev, 239, 239),
+                          case_sinkhorn(16, "pair", dev, 55, 1024),
+                          case_sinkhorn(140, "pair", dev, 239, 239),
+                          case_sinkhorn(140, "pair", dev, 55, 1024),
+                          case_sinkhorn(140, "pair", dev, 226, 255),
+                          case_sinkhorn(140, "pair", dev, 1024, 55),
+                          case_sinkhorn(4, "pair", dev, 33, 1)],
     }
     # the scans at 300 query sentences, the long index's bucket of 1,200
     # first: K8 on the wide kernel (three groups of one launch), K7 with the
@@ -1459,7 +1487,8 @@ def counters() -> dict:
             "attention_wide_f32": (fused_attention, "f32_wide_launches"),
             "attention_dropout_wide_f32": (fused_attention, "f32_wide_dropout_launches"),
             "attention_bwd_wide_f32": (fused_attention, "f32_wide_bwd_launches"),
-            "sinkhorn_large": (sinkhorn_solve, "large_launches")}
+            "sinkhorn_large": (sinkhorn_solve, "large_launches"),
+            "sinkhorn_wide": (sinkhorn_solve, "wide_launches")}
 
 
 def ffn_launches(dtype) -> int:
@@ -3859,6 +3888,11 @@ RANGE_SENTS = (240, 1200)          # their sentence counts, both ends taken
 RANGE_BUCKETS = (400, 800, 1200)
 RANGE_QUERY = 300                  # sentences of a full-text query
 RANGE_K = 20
+# an abstract's query against full-text documents: 20 sentences (the default
+# max_sents is 24) against the long index's buckets of 400 and 800 sentences,
+# fused queries at max_sents 800 (K1's wide pairs, 20 x 800)
+ABSTRACT_SENTS = 20
+ABSTRACT_MAX_SENTS = 800
 # the noise, in spreads of the query's reps, of the rank CLI's planted near
 # copies: their OT scores lie far apart in this order
 RANGE_PLANT_NOISE = (0.05, 0.1, 0.2, 0.4, 0.8)
@@ -4083,49 +4117,57 @@ def build_long_index(dev, pids: list, save_dir: str, plants: dict) -> dict:
     return big
 
 
-def range_fused_queries(big: dict, dev, add) -> list:
-    """Full-text queries of RANGE_QUERY sentences (an unplanted document's
-    own first sentences plus unit noise) on the long index: one on bf16 (K8,
-    its three groups of 128 rows in one launch a bucket, then K1's large
-    pairs, 300 x up to 1,200) and a batch of 8 on int8 (K7 with the groups as
-    extra queries, one K1 launch), each held
-    to the same search with the plain scan and solver='torch' (the ids, the
-    first-stage and the OT scores, `compare_answers`), the document itself
-    first, and its rerank to the plain solver in f64 (`_rerank_witness`)."""
+def range_fused_queries(big: dict, dev, add, sents: int = RANGE_QUERY,
+                        max_sents: int = RANGE_SENTS[1], n_buckets: int = None,
+                        scans=("scan_bf16_wide", "scan_int8_wide"),
+                        solver: str = "sinkhorn_large") -> list:
+    """Fused queries of `sents` sentences (an unplanted document's own first
+    sentences plus unit noise, the document at most max_sents long) on the
+    long index's first n_buckets buckets (all by default; the position
+    arrays whole): one on bf16 and a batch of 8 on int8, each launching
+    `scans` (a launch a bucket) and one K1 kernel, `solver`.  Full-text
+    queries by default (300 sentences: K8 with its three groups of 128 rows
+    in one launch a bucket, K7 with the groups as extra queries, then K1's
+    large pairs, 300 x up to 1,200); an abstract's (ABSTRACT_SENTS against
+    the buckets of 400 and 800 at ABSTRACT_MAX_SENTS: the narrow K8, the
+    wide K7, then K1's wide pairs, 20 x 800).  Each held to the same search
+    with the plain scan and solver='torch' (the ids, the first-stage and
+    the OT scores, `compare_answers`), the document itself first, and its
+    rerank to the plain solver in f64 (`_rerank_witness`)."""
     from aspire_tpu_torch.index.dense import flatten_device_buckets
     from aspire_tpu_torch.index.serve import (make_fused_query,
                                               make_fused_query_batched)
     from aspire_tpu_torch.ops.scan_kernel import query_cap
     rng = np.random.default_rng(46)
     long_docs = [i for i, (n, pid) in enumerate(zip(big["lens"], big["pids"]))
-                 if n >= RANGE_QUERY and pid not in big["planted"]][:8]
+                 if sents <= n <= max_sents and pid not in big["planted"]][:8]
     # unit noise on reps of spread 2: the document stays first by far, and
     # its first-stage distance stays clear of the Gram expansion's
     # cancellation (|q|^2 + |x|^2 - 2 q.x of a near copy is all rounding)
-    q = np.stack([big["reps"][i][:RANGE_QUERY] for i in long_docs])
+    q = np.stack([big["reps"][i][:sents] for i in long_docs])
     q = q + rng.standard_normal(q.shape, dtype=np.float32)
     q_all = torch.from_numpy(q).to(dev)
-    q_lens = torch.full((len(long_docs),), RANGE_QUERY, dtype=torch.int64, device=dev)
-    groups = -(-RANGE_QUERY // query_cap(torch.bfloat16, 768))
+    q_lens = torch.full((len(long_docs),), sents, dtype=torch.int64, device=dev)
+    groups = -(-sents // query_cap(torch.bfloat16, 768))
     rows = []
-    for label, storage, bsz in (("single bf16", "bfloat16", 1),
-                                ("batch of 8 int8", "int8", 8)):
+    for label, storage, bsz, scan in (("single bf16", "bfloat16", 1, scans[0]),
+                                      ("batch of 8 int8", "int8", 8, scans[1])):
         int8 = storage == "int8"
-        buckets, pos = big["buckets"][storage], big["pos"][storage]
+        buckets = big["buckets"][storage][:n_buckets]
+        pos = big["pos"][storage]
         nb = len(buckets)
         flat = flatten_device_buckets(buckets)
-        kw = dict(k=RANGE_K, max_sents=RANGE_SENTS[1], int8=int8, temp=5000.0)
+        kw = dict(k=RANGE_K, max_sents=max_sents, int8=int8, temp=5000.0)
+        want = {scan: nb, solver: 1}
         if bsz == 1:
             fn_k = make_fused_query(nb, **kw)
             fn_p = make_fused_query(nb, scan="torch", solver="torch", **kw)
-            call = lambda fn: tuple(x[None] for x in fn(q_all[0], RANGE_QUERY, *flat, *pos))
-            want = {"scan_bf16_wide": nb, "sinkhorn_large": 1}
+            call = lambda fn: tuple(x[None] for x in fn(q_all[0], sents, *flat, *pos))
         else:
             fn_k = make_fused_query_batched(nb, **kw)
             fn_p = make_fused_query_batched(nb, scan="torch", solver="torch",
                                             q_chunk=1, **kw)
             call = lambda fn: fn(q_all, q_lens, *flat, *pos)
-            want = {"scan_int8_wide": nb, "sinkhorn_large": 1}
         before = read_counts()
         t_k, out_k = _host_ms(lambda: call(fn_k), calls=2)
         after = read_counts()
@@ -4144,20 +4186,21 @@ def range_fused_queries(big: dict, dev, add) -> list:
             raise AssertionError(f"ranges {label}: malformed answer, first ids "
                                  f"{ids[:, 0].tolist()} for documents {long_docs[:bsz]}")
         rows.append({"query": label, "storage": storage, "batch": bsz,
-                     "query_sentences": RANGE_QUERY, "query_groups": groups,
-                     "k": RANGE_K, "max_sents": RANGE_SENTS[1], **t_k,
+                     "query_sentences": sents, "query_groups": groups,
+                     "k": RANGE_K, "max_sents": max_sents, "buckets": nb, **t_k,
                      "plain_route": t_p, "launches_a_call": got,
                      "ids_equal": bool(torch.equal(out_k[1], out_p[1])),
                      "kernel_against_plain": compare_answers(label, out_k, out_p),
                      "rerank_f64": _rerank_witness(label, buckets, pos, q_all[:bsz],
-                                                   q_lens[:bsz], ids),
+                                                   q_lens[:bsz], ids, max_sents),
                      **_stage_ms(buckets, pos, q_all[:bsz], q_lens[:bsz], RANGE_K,
                                  "kernel", "kernel", calls=2,
-                                 max_sents=RANGE_SENTS[1])})
+                                 max_sents=max_sents)})
     return rows
 
 
-def _rerank_witness(label, buckets, pos, q, q_lens, ids) -> dict:
+def _rerank_witness(label, buckets, pos, q, q_lens, ids,
+                    max_sents: int = RANGE_SENTS[1]) -> dict:
     """A fused query's rerank of its own candidates once more, on the same
     gathered reps and diameter: K1, the plain solver in f32 and the plain
     solver in f64 (`f64_witness`)."""
@@ -4167,8 +4210,7 @@ def _rerank_witness(label, buckets, pos, q, q_lens, ids) -> dict:
     from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
     sims = {}
     with torch.no_grad():
-        emb, cl, _, _ = _gather_candidates(buckets, *pos, ids.reshape(-1),
-                                           RANGE_SENTS[1])
+        emb, cl, _, _ = _gather_candidates(buckets, *pos, ids.reshape(-1), max_sents)
         qt = _tile_queries(q, q_lens, ids.shape[1])
         diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
         for name, dtype, solver in (("kernel", torch.float32, "kernel"),
@@ -4291,7 +4333,9 @@ def phase_ranges(dev, layers: int) -> dict:
     """The kernels' input ranges on their paths: BERT-base width with 6 heads
     of 128 (encode, training steps, `train --init-hf-dir`), then full-text
     documents (an index of 2,000 documents of 240-1,200 sentences, fused
-    queries of 300 sentences, the rank CLI at --max-sents 1200).  The counts
+    queries of 300 sentences; an abstract's queries of 20 sentences against
+    its buckets of up to 800, K1's wide pairs; the rank CLI at --max-sents
+    1200).  The counts
     are set to 0 at the start; the plain routes' runs launch nothing, and the
     CLI's plain run is left out of the sum."""
     import tempfile
@@ -4333,6 +4377,11 @@ def phase_ranges(dev, layers: int) -> dict:
         lap("index")
         queries = range_fused_queries(big, dev, add)
         lap("queries")
+        abstracts = range_fused_queries(
+            big, dev, add, ABSTRACT_SENTS, ABSTRACT_MAX_SENTS,
+            n_buckets=RANGE_BUCKETS.index(ABSTRACT_MAX_SENTS) + 1,
+            scans=("scan_bf16", "scan_int8_wide"), solver="sinkhorn_wide")
+        lap("abstract_queries")
         rank = range_rank(root, big, add, dev)
         lap("rank")
     emit("ranges", card=CARD, seconds=seconds, layers=layers, hidden=cfg.hidden_size,
@@ -4345,7 +4394,7 @@ def phase_ranges(dev, layers: int) -> dict:
                 "built_by": "build_dense_index (bf16) and build_dense_index_prequantized "
                             "(int8, quantised on the card) on the host, from reps drawn "
                             "on the card"},
-         queries=queries, rank=rank, launches=launches)
+         queries=queries, abstract_queries=abstracts, rank=rank, launches=launches)
     del big
     torch.cuda.empty_cache()
     return launches
@@ -4396,6 +4445,9 @@ KERNELS = [
      "aspire_tpu/ops/pallas_attention.py:229"),
     ("sinkhorn_large", "aspire_tpu_torch/csrc/sinkhorn.cu",
      "aspire_tpu/ops/pallas_sinkhorn.py:164"),
+    # the wide pairs (33 to 1,024 atoms a side within one block)
+    ("sinkhorn_wide", "aspire_tpu_torch/csrc/sinkhorn.cu",
+     "aspire_tpu/ops/pallas_sinkhorn.py:164"),
 ]
 
 
@@ -4421,8 +4473,8 @@ PATH_KERNELS = {
     "ranges": ("attention_wide", "attention_dropout_wide", "attention_bwd_wide",
                "attention_wide_f32", "attention_dropout_wide_f32",
                "attention_bwd_wide_f32",
-               "sinkhorn_large", "scan_bf16_wide", "scan_int8_wide", "sinkhorn",
-               "ffn", "dropout", "pool"),
+               "sinkhorn_large", "sinkhorn_wide", "scan_bf16_wide", "scan_int8_wide",
+               "sinkhorn", "ffn", "dropout", "pool"),
 }
 
 
