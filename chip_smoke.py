@@ -10,10 +10,11 @@
     python3 chip_smoke.py --phases families  # the examples and the RoBERTa / MPNet baselines alone
     python3 chip_smoke.py --phases checks    # the convergence and int8 checks alone
     python3 chip_smoke.py --phases mesh      # the several-rank paths alone
+    python3 chip_smoke.py --phases pools     # the headline's and the deep pools' twins alone
     python3 chip_smoke.py --phases ranges    # the kernels' input ranges and their paths alone
 
 Phases run in the order device, build, kernels, serve, train, index, mesh,
-eval, chain, families, checks, ranges; each prints its seconds (a
+eval, chain, families, checks, pools, ranges; each prints its seconds (a
 `phase_seconds` line).
 
 Phases, one JSON object a line:
@@ -134,11 +135,21 @@ Phases, one JSON object a line:
            second, launches (12 K2 f32 + 36 K3 f32 a RoBERTa batch, 36 K3
            f32 a MPNet batch), the kernel encode against the plain route on
            64 abstracts (1e-4); then K2 f32 and K3 f32 at the families'
-           sentence shapes;
+           sentence shapes.  The examples include the demo notebook's twin
+           (examples/demo-contextualsentence-multim_torch.ipynb), its code
+           cells run in this process on the card and with DEVICE = "cpu";
   checks   benchmarks/torch_convergence_check.py at full size (160 steps,
            its descent asserted, each step's launches counted), then
            scripts/torch_int8_validation.py --random-bert on 4,000 + 50
            abstracts of the chain's synthesiser (reported, not gated);
+  pools    the twins of bench.py's headline (benchmarks/torch_bench.py:
+           1,024 pairs of up to 20 x 20 sentences, one K1 launch) and of the
+           deep-pool bench (benchmarks/torch_pool_bench.py: an OT pool
+           ranking of 8 queries x 2,048 candidates from 100,000 documents of
+           a bf16 bucket on the card, two K1 launches) at full size, with the
+           counts set to 0 before them, each against solver='torch'; 16
+           pairs of the pools rescored alone; K1 at both shapes against its
+           plain version;
   ranges   the kernels' input ranges past the 64-wide heads, one block's
            Sinkhorn pair and 128 query sentences (their kernel cases run in
            the kernels phase, or first when the phase runs alone), on their
@@ -405,14 +416,17 @@ def sinkhorn_bound(cost, diam, blur=0.05, scaling=0.9, max_iters=128,
     return out
 
 
-def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dict:
+def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20,
+                  reference_f64: float | None = None) -> dict:
     """K1 in both modes against its plain version: after the final step (the
     serving and query paths) and the loop's own potentials (extrapolate=False,
     the training loss); for the first, also the scores and plans of
     `wasserstein_dist` through the kernel against the PyTorch solver (both
     against the PyTorch solver in f64, `f64_witness`, held on every route), and
     for the second the training distance through solver 'auto' against
-    'torch'."""
+    'torch'.  reference_f64: for a draw whose f32 solver lands nearer f64
+    than the JAX package's own f32 solvers (one atom against many), the
+    scores are held to the reference's distance instead (`reference_witness`)."""
     from aspire_tpu_torch.core.types import MultiVec
     from aspire_tpu_torch.ops import sinkhorn_kernel as sk
     from aspire_tpu_torch.ops.distances import wasserstein_dist
@@ -453,8 +467,10 @@ def case_sinkhorn(bsz: int, diameter: str, dev, n: int = 20, m: int = 20) -> dic
     sims_64, _ = wasserstein_dist(MultiVec(q.embed.double(), q.lens),
                                   MultiVec(c.embed.double(), c.lens), solver="torch", **kw64)
     route = sk.sinkhorn_route(n, m, bsz)
-    res["sims_f64"] = f64_witness(f"sinkhorn sims {route} B={bsz} "
-                                  f"{n}x{m}", sims_k, sims_t, sims_64)
+    label = f"sinkhorn sims {route} B={bsz} {n}x{m}"
+    res["sims_f64"] = (f64_witness(label, sims_k, sims_t, sims_64)
+                       if reference_f64 is None else
+                       reference_witness(label, sims_k, sims_t, sims_64, reference_f64))
     t_k = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam))
     t_l = cuda_ms(lambda: sk.sinkhorn_solve(cost, la, lb, diam, extrapolate=False))
     t_p = cuda_ms(lambda: sk.sinkhorn_solve_plain(cost, la, lb, diam))
@@ -498,6 +514,30 @@ def f64_witness(name, kernel, plain, exact) -> dict:
         raise AssertionError(f"{name}: the kernel is {err_k} from f64, the plain "
                              f"f32 solver {err_p}")
     return {"kernel_max_abs_err": err_k, "plain_f32_max_abs_err": err_p,
+            "score_max_abs": float(exact.abs().max())}
+
+
+# tests/test_torch_sinkhorn_one_atom.py: at B=4 pairs of 1 x 1,024
+# (`sinkhorn_inputs`' draw, diameter 'pair') the nearer of the JAX package's
+# two f32 solvers (XLA; Pallas in interpret mode read 9.15e-3) lies this far
+# from the port's f64 solver on the CPU
+TEST_TORCH_SINKHORN_ONE_ATOM_JAX_F32 = 8.71e-3
+
+
+def reference_witness(name, kernel, plain, exact, reference) -> dict:
+    """`f64_witness`'s formula with the reference's f32 error as the
+    yardstick: the kernel's OT scores no more than twice `reference` (the JAX
+    package's f32 distance from f64 on the same reps, measured on the CPU)
+    from f64, plus 1e-3.  The f32 PyTorch solver's distance is printed
+    beside it."""
+    err_k = float((kernel.double() - exact).abs().max())
+    err_p = float((plain.double() - exact).abs().max())
+    if not err_k <= 2 * reference + 1e-3:
+        raise AssertionError(f"{name}: the kernel is {err_k} from f64, the JAX "
+                             f"package's f32 solvers {reference}")
+    return {"kernel_max_abs_err": err_k, "plain_f32_max_abs_err": err_p,
+            "jax_f32_max_abs_err": reference,
+            "yardstick": "tests/test_torch_sinkhorn_one_atom.py",
             "score_max_abs": float(exact.abs().max())}
 
 
@@ -1282,7 +1322,8 @@ def range_kernel_cases(dev) -> dict:
         # request's batch and at a fused batch's; the route's two edges at
         # B=16, which the route gives the cluster kernel (faster there), and
         # at B=140, where it keeps them; a pair with no table of rounds (226
-        # x 255), one turned (1,024 x 55) and one of a single atom
+        # x 255), one turned (1,024 x 55) and two of a single atom (33 x 1,
+        # and 1 x 1,024 held to the JAX package's f32 error)
         "sinkhorn_wide": [case_sinkhorn(20, "pair", dev, 20, 800),
                           case_sinkhorn(160, "pair", dev, 20, 800),
                           case_sinkhorn(16, "pair", dev, 48, 40),
@@ -1294,7 +1335,9 @@ def range_kernel_cases(dev) -> dict:
                           case_sinkhorn(140, "pair", dev, 55, 1024),
                           case_sinkhorn(140, "pair", dev, 226, 255),
                           case_sinkhorn(140, "pair", dev, 1024, 55),
-                          case_sinkhorn(4, "pair", dev, 33, 1)],
+                          case_sinkhorn(4, "pair", dev, 33, 1),
+                          case_sinkhorn(4, "pair", dev, 1, 1024,
+                                        reference_f64=TEST_TORCH_SINKHORN_ONE_ATOM_JAX_F32)],
     }
     # the scans at 300 query sentences, the long index's bucket of 1,200
     # first: K8 on the wide kernel (three groups of one launch), K7 with the
@@ -3102,13 +3145,46 @@ def run_example(name: str, argv: list) -> str:
     return buf.getvalue()
 
 
+NOTEBOOK = "examples/demo-contextualsentence-multim_torch.ipynb"
+
+
+def run_notebook(device: str) -> str:
+    """The demo notebook twin's code cells, one after another in this
+    process, with its first cell's DEVICE set to `device`; their stdout."""
+    import contextlib
+    import io
+    cells = json.loads((REPO / NOTEBOOK).read_text())["cells"]
+    code = ["".join(c["source"]) for c in cells if c["cell_type"] == "code"]
+    if 'DEVICE = "cuda"' not in code[0]:
+        raise AssertionError(f"{NOTEBOOK}: no DEVICE = \"cuda\" in the first cell")
+    code[0] = code[0].replace('DEVICE = "cuda"', f'DEVICE = "{device}"')
+    namespace, buf = {"__name__": "__main__"}, io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for src in code:
+            exec(compile(src, NOTEBOOK, "exec"), namespace)
+    return buf.getvalue()
+
+
+def parse_notebook(text: str) -> dict:
+    """The notebook's printed shapes, OT and tsAspire similarities and the
+    transport plan (rounded to 4 places)."""
+    ts_prefix = "tsAspire (single best match) similarity:"
+    after = text.split(ts_prefix)[1]
+    return {"lines": [ln for ln in text.splitlines() if ln.startswith("CLS reps:")],
+            "ot": float(text.split("otAspire similarity:")[1].split()[0]),
+            "score": float(after.split()[0]),
+            "plan": [float(x) for x in NUMBER.findall(
+                after.split("\n", 1)[1].split("plan[")[0])]}
+
+
 def phase_examples(dev) -> tuple:
     """Each example as a user runs it (a subprocess on the card, the three
     side by side) against the same script's --device cpu run: lines equal,
     reps-derived scores within 1e-4, the OT similarity and the plan within
     1e-3 (the plan's printed entries are rounded to 4 places).  Then each
     once more in this process on the card, with the counts set to 0 before
-    it and read after it."""
+    it and read after it.  Last the demo notebook's twin, its code cells in
+    this process on the card (counted) and with DEVICE = "cpu", held alike."""
     import os
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     t0 = time.perf_counter()
@@ -3148,11 +3224,33 @@ def phase_examples(dev) -> tuple:
         launches[name] = {k: v for k, v in got.items() if v}
         for k, v in got.items():
             total[k] += v
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    card = parse_notebook(run_notebook("cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    got = read_counts()
+    launches["notebook"] = {k: v for k, v in got.items() if v}
+    for k, v in got.items():
+        total[k] += v
+    cpu = parse_notebook(run_notebook("cpu"))
+    if card["lines"] != cpu["lines"] or len(card["plan"]) != len(cpu["plan"]) \
+            or not card["plan"]:
+        raise AssertionError(f"families: {NOTEBOOK} printed {card} on the card, "
+                             f"{cpu} on the CPU")
+    errs = {key: check_close(f"{NOTEBOOK} {key}, card against CPU",
+                             torch.tensor(card[key], dtype=torch.float64),
+                             torch.tensor(cpu[key], dtype=torch.float64),
+                             atol=atol)["max_abs_err"]
+            for key, atol in (("score", 1e-4), ("ot", 1e-3), ("plan", 1e-3 + 1e-4))}
+    results["notebook"] = {"in_process_s": seconds, **card, "max_abs_err_vs_cpu": errs}
     # BertConfig.tiny(): 2 layers, f32 (three K3 launches a call), one pool
     # a ConSent encode, one K1 loop a distance
     want = {"consent": {"attention": 2, "ffn": 6, "pool": 1},
             "multimatch": {"attention": 2, "ffn": 6, "pool": 1, "sinkhorn": 1},
-            "bienc": {"attention": 2, "ffn": 6}}
+            "bienc": {"attention": 2, "ffn": 6},
+            "notebook": {"attention": 2, "ffn": 6, "pool": 1, "sinkhorn": 1}}
     if launches != want:
         raise AssertionError(f"families: the examples launched {launches}, "
                              f"expected {want}")
@@ -4400,6 +4498,113 @@ def phase_ranges(dev, layers: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- pools
+POOL_DOCS = 100_000        # torch_pool_bench.py's corpus: one bucket of 12 sentences
+POOL_SIZE, POOL_BATCH = 2048, 8
+POOL_PADS = 48             # pad slots at the end of the last query's pool
+POOL_SAMPLES = 16          # (query, candidate) pairs rescored alone
+
+
+def phase_pools(dev) -> tuple:
+    """The twins of bench.py's headline and of the deep-pool bench at
+    full size, through benchmarks/torch_bench.py's and torch_pool_bench.py's
+    own inputs and calls.  With the counts at 0: the headline call (1,024
+    pairs of up to 20 x 20, diameter 'global', solver 'kernel': one K1
+    launch), then one OT pool ranking of 8 queries x 2,048 candidates from
+    a bf16 bucket of 100,000 documents on the card (48 pad slots in the last
+    pool; the gathered block cut at 7 queries: two K1 launches).  Then the
+    same through solver 'torch': the headline's sims within K1's
+    `case_sinkhorn` limits (2e-3 + 2e-3 relative), the pool's live slots at
+    the pool ranking's (1e-2 + 5e-3 relative), its pad slots at -1e30; 16
+    sampled pairs rescored alone (diameter 'pair': a pair's score does not
+    depend on its batch) equal their slots within the pool's limits.  Last
+    K1 at the path's shapes against its plain version (B=1,024 20 x 20;
+    B=14,336 and 2,048 16 x 24)."""
+    from aspire_tpu_torch.core.types import MultiVec
+    from aspire_tpu_torch.index.serve import _query_chunks, make_pool_rank_batched
+    from aspire_tpu_torch.ops.distances import wasserstein_dist
+    bench = _load_script("benchmarks/torch_bench.py")
+    deep = _load_script("benchmarks/torch_pool_bench.py")
+    smax, sents, qmax = 24, 12, 16
+    q, c = bench.draw_pairs(bench.BATCH, 0, dev)
+    flat, pos = deep.synth_bucket(POOL_DOCS, sents, 0, dev)
+    pq, pql, cand = deep.pool_queries(POOL_BATCH, qmax, POOL_SIZE, POOL_DOCS, 1, dev)
+    cand[-1, -POOL_PADS:] = -1
+    live = cand >= 0
+
+    def ranker(solver):
+        return make_pool_rank_batched(1, pool_size=POOL_SIZE, max_sents=smax,
+                                      agg="ot", temp=5000.0, solver=solver)
+
+    pool_args = (pq, pql, cand, *flat, *pos)
+    rank_k, rank_t = ranker("kernel"), ranker("torch")
+    torch.cuda.synchronize()
+    reset_counts()
+    sims_k = bench.score(q, c)
+    torch.cuda.synchronize()
+    headline_counts = {k: v for k, v in read_counts().items() if v}
+    pool_k = rank_k(*pool_args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    pool_counts = {k: v - headline_counts.get(k, 0) for k, v in counts.items()
+                   if v - headline_counts.get(k, 0)}
+    step = _query_chunks(POOL_BATCH, POOL_SIZE, smax, 768, None)
+    k1_batches = [POOL_SIZE * min(step, POOL_BATCH - i)
+                  for i in range(0, POOL_BATCH, step)]
+    if headline_counts != {"sinkhorn": 1} or pool_counts != {"sinkhorn": len(k1_batches)}:
+        raise AssertionError(f"pools: the headline launched {headline_counts}, the "
+                             f"deep pool {pool_counts} ({k1_batches} pairs a solve)")
+    sims_t = bench.score(q, c, "torch")
+    headline_err = check_close("pools: headline sims", sims_k, sims_t,
+                               atol=2e-3, rtol=2e-3)
+    pool_t = rank_t(*pool_args)
+    if not bool((pool_k[~live] == -1e30).all()) or not bool(torch.isfinite(pool_k).all()):
+        raise AssertionError("pools: a pad slot scored, or a score is not finite")
+    pool_err = check_close("pools: deep pool", pool_k[live], pool_t[live],
+                           atol=1e-2, rtol=5e-3)
+    # a pair rescored alone: its candidate's rows padded to smax, as gathered
+    pick = np.random.default_rng(5)
+    qi = pick.integers(0, POOL_BATCH, POOL_SAMPLES)
+    cj = pick.integers(0, POOL_SIZE - POOL_PADS, POOL_SAMPLES)
+    alone = []
+    for i, j in zip(qi.tolist(), cj.tolist()):
+        reps = torch.zeros((1, smax, 768), device=dev)
+        reps[0, :sents] = flat[0][cand[i, j].long()].float()
+        s, _ = wasserstein_dist(
+            MultiVec(pq[i:i + 1], pql[i:i + 1]),
+            MultiVec(reps, torch.full((1,), sents, dtype=torch.int32, device=dev)),
+            temp=5000.0, return_pair_sims=True, diameter="pair", solver="kernel")
+        alone.append(s[0])
+    alone_err = check_close("pools: pairs rescored alone", torch.stack(alone),
+                            pool_k[torch.from_numpy(qi).to(dev), torch.from_numpy(cj).to(dev)],
+                            atol=1e-2, rtol=5e-3)
+    t_head = cuda_ms(lambda: bench.score(q, c))
+    t_head_plain = cuda_ms(lambda: bench.score(q, c, "torch"))
+    t_pool, _ = _host_ms(lambda: rank_k(*pool_args))
+    t_pool_plain, _ = _host_ms(lambda: rank_t(*pool_args), calls=2)
+    del flat, pos, pool_k, pool_t
+    torch.cuda.empty_cache()
+    cases = {"sinkhorn": [case_sinkhorn(bench.BATCH, "global", dev)]
+             + [case_sinkhorn(pairs, "pair", dev, qmax, smax) for pairs in k1_batches]}
+    emit("kernel_cases", kernel="sinkhorn", path="pools", cases=cases["sinkhorn"])
+    emit("pools", card=CARD,
+         headline={"pairs": bench.BATCH, "shape": "20 x 20, lens 4-20, 768-d",
+                   "diameter": "global", "kernel_ms": t_head,
+                   "pairs_per_s": bench.BATCH / t_head["median"] * 1e3,
+                   "plain_ms": t_head_plain, "launches_a_call": headline_counts,
+                   "kernel_against_plain": headline_err},
+         deep_pool={"docs": POOL_DOCS, "sentences": sents, "pool": POOL_SIZE,
+                    "queries": POOL_BATCH, "max_sents": smax, "qmax": qmax,
+                    "pad_slots": POOL_PADS, "queries_a_gather": step,
+                    "pairs_a_solve": k1_batches, "launches_a_call": pool_counts,
+                    **t_pool, "ms_a_query": t_pool["warm_ms"] / POOL_BATCH,
+                    "plain_route": t_pool_plain,
+                    "kernel_against_plain": pool_err,
+                    "pairs_alone_against_slots": {"pairs": POOL_SAMPLES, **alone_err}},
+         launches={k: v for k, v in counts.items() if v})
+    return cases, counts
+
+
 # ----------------------------------------------------------------------- main
 KERNELS = [
     ("sinkhorn", "aspire_tpu_torch/csrc/sinkhorn.cu",
@@ -4470,6 +4675,7 @@ PATH_KERNELS = {
                "attention", "ffn", "pool", "scan_bf16", "scan_int8"),
     "mesh": ("sinkhorn", "scan_bf16", "scan_int8_wide", "attention_dropout",
              "attention_bwd", "dropout", "pool", "attention", "ffn"),
+    "pools": ("sinkhorn",),
     "ranges": ("attention_wide", "attention_dropout_wide", "attention_bwd_wide",
                "attention_wide_f32", "attention_dropout_wide_f32",
                "attention_bwd_wide_f32",
@@ -4536,6 +4742,9 @@ def _run(args, tmp: str) -> dict:
         add(found)
     if args.phases in ("all", "checks"):
         launches["checks"] = timed("checks", phase_checks, dev)
+    if args.phases in ("all", "pools"):
+        found, launches["pools"] = timed("pools", phase_pools, dev)
+        add(found)
     if args.phases == "ranges":
         for name, rows in timed("range_kernels", range_kernel_cases, dev).items():
             cases[name] = rows
@@ -4587,7 +4796,7 @@ def main() -> int:
                         help="documents of the index the queries run on")
     parser.add_argument("--phases", default="all",
                         choices=("all", "index", "kernels", "eval", "chain",
-                                 "families", "checks", "mesh", "ranges"),
+                                 "families", "checks", "mesh", "pools", "ranges"),
                         help="'index' drives the index path alone (the pool "
                              "and scan kernels' cases, encode, queries); "
                              "'kernels' holds K1-K3 and K5a-K6 against their "
@@ -4598,7 +4807,9 @@ def main() -> int:
                              "baselines alone; 'checks' the convergence and "
                              "int8 checks alone; 'mesh' the several-rank "
                              "paths alone (sharded serving, data-parallel "
-                             "training, a world of one over NCCL); 'ranges' "
+                             "training, a world of one over NCCL); 'pools' "
+                             "the headline's and the deep pools' twins "
+                             "alone; 'ranges' "
                              "the kernels' wide-head, large-pair and "
                              "grouped-query cases and their paths alone")
     args = parser.parse_args()

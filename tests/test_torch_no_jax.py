@@ -3,11 +3,12 @@ pulls in no jax, flax, optax, orbax, ml_dtypes, transformers, tokenizers,
 regex, pandas, h5py, safetensors or aspire_tpu module, and needs neither nvcc
 nor triton; `chip_smoke.py`, the port's benchmark scripts, its chain,
 int8, 1M-document serving and several-machine worker scripts
-(scripts/torch_*.py) and examples (examples/*_torch.py) import none of them
-either
+(scripts/torch_*.py), examples (examples/*_torch.py) and the code cells of
+its notebooks (examples/*_torch.ipynb) import none of them either
 (h5py only inside `SimilarityModel.set_encodings_cache`, which the card's
 machine never calls: it has no h5py)."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -77,7 +78,7 @@ def test_package_imports_without_jax_nvcc_or_triton(tmp_path):
 
 
 def _imports(path: pathlib.Path):
-    tree = ast.parse(path.read_text())
+    tree = ast.parse(_code(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -86,11 +87,20 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+def _code(path: pathlib.Path) -> str:
+    """A source file's text; a notebook's code cells, one after another."""
+    if path.suffix != ".ipynb":
+        return path.read_text()
+    cells = json.loads(path.read_text())["cells"]
+    return "\n".join("".join(c["source"]) for c in cells if c["cell_type"] == "code")
+
+
 SOURCES = (sorted((REPO / "aspire_tpu_torch").rglob("*.py"))
            + [REPO / "chip_smoke.py"]
            + sorted((REPO / "scripts").glob("torch_*.py"))
            + sorted((REPO / "benchmarks").glob("torch_*.py"))
-           + sorted((REPO / "examples").glob("*_torch.py")))
+           + sorted((REPO / "examples").glob("*_torch.py"))
+           + sorted((REPO / "examples").glob("*_torch.ipynb")))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -104,7 +114,7 @@ def test_h5py_only_inside_the_encodings_cache():
     nothing else in the port imports h5py."""
     where = []
     for path in SOURCES:
-        tree = ast.parse(path.read_text())
+        tree = ast.parse(_code(path))
         for fn in ast.walk(tree):
             if not isinstance(fn, (ast.FunctionDef, ast.Module)):
                 continue
