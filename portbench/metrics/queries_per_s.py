@@ -1,0 +1,6 @@
+"""Query papers answered (top-k ranked, or a pool ranked) over the seconds
+of the window: every call, the first one's start to the last one's end."""
+
+
+def read(run):
+    return run.attempted / run.window_s
