@@ -60,6 +60,7 @@ from ..ops.cdist import require_fp32_matmul
 from ..parallel.mesh import local_slice
 from ..ops.scan_kernel import (fused_l2max_scan,
                                fused_l2max_scan_int8_batched)
+from ..utils.profiling import span
 from .build import (BF16, bf16_bits_to_f32, f32_to_bf16_bits,
                     host_rows_to_device, is_bf16, load_pids, save_pids)
 
@@ -467,14 +468,15 @@ def _merge_sharded_topk(v, d, k: int, mesh, axis: str = "shard"):
     then a top-k of the n_shards * k pool a query (the ranks' blocks side by
     side in rank order, as the JAX package's merge lays them)."""
     import torch.distributed as dist
-    group, n = mesh.group(axis), mesh.size(axis)
-    v, d = v.contiguous(), d.contiguous()
-    vs = [torch.empty_like(v) for _ in range(n)]
-    ds = [torch.empty_like(d) for _ in range(n)]
-    dist.all_gather(vs, v, group=group)
-    dist.all_gather(ds, d, group=group)
-    vk, pos = torch.topk(torch.cat(vs, dim=-1), k, dim=-1)
-    return vk, torch.gather(torch.cat(ds, dim=-1), -1, pos)
+    with span("merge"):
+        group, n = mesh.group(axis), mesh.size(axis)
+        v, d = v.contiguous(), d.contiguous()
+        vs = [torch.empty_like(v) for _ in range(n)]
+        ds = [torch.empty_like(d) for _ in range(n)]
+        dist.all_gather(vs, v, group=group)
+        dist.all_gather(ds, d, group=group)
+        vk, pos = torch.topk(torch.cat(vs, dim=-1), k, dim=-1)
+        return vk, torch.gather(torch.cat(ds, dim=-1), -1, pos)
 
 
 def _topk_padded(v, d, k: int):
@@ -602,7 +604,7 @@ def score_buckets_batched(buckets: list[dict], q, q_lens, k: int,
             ds.append(dd)
         return _topk_padded(torch.cat(vs, dim=1), torch.cat(ds, dim=1), k)
 
-    with torch.no_grad():
+    with torch.no_grad(), span("scan"):
         bsz = q.shape[0]
         if q_chunk is None or q_chunk >= bsz:
             return _chunk(q, q_lens)

@@ -42,6 +42,7 @@ from ..core.types import MultiVec, require_device
 from ..ops.cdist import require_fp32_matmul
 from ..ops.distances import jointsm_dist, l2max_dist, wasserstein_dist
 from ..ops.sinkhorn import grouped_max_diameter
+from ..utils.profiling import span
 
 NEG = -1e30
 # a gathered [pairs, max_sents, dim] f32 candidate block is kept under this
@@ -196,35 +197,51 @@ def _gather_candidates(buckets, doc_bucket, doc_row, doc_lens, cand_ids,
     elsewhere), and `owned` marks them; on one device owned == valid.  No step
     reads a value back on the host.
     """
-    valid = cand_ids >= 0
-    cid = torch.clamp_min(cand_ids, 0).long()
-    cb = doc_bucket[cid]
-    cr = doc_row[cid].long()
-    cl = torch.where(valid, torch.clamp_max(doc_lens[cid], max_sents),
-                     torch.ones_like(doc_lens[cid]))
-    cl = torch.clamp_min(cl, 1).to(torch.int32)
-    dim = buckets[0]["sents"].shape[-1]
-    out = torch.zeros((cand_ids.shape[0], max_sents, dim), dtype=torch.float32,
-                      device=cand_ids.device)
-    owned = torch.zeros_like(valid)
-    for bi, b in enumerate(buckets):
-        sel = (cb == bi) & valid
-        if mesh is not None:
-            local_n = b["sents"].shape[0]
-            sel = sel & (cr // local_n == mesh.index("shard"))
-            cr_b = cr % local_n
-        else:
-            cr_b = cr
-        rows = torch.where(sel, cr_b, torch.zeros_like(cr_b))
+    n = cand_ids.shape[0]
+    with span("gather", bytes=_gather_bytes(buckets, n, max_sents)):
+        valid = cand_ids >= 0
+        cid = torch.clamp_min(cand_ids, 0).long()
+        cb = doc_bucket[cid]
+        cr = doc_row[cid].long()
+        cl = torch.where(valid, torch.clamp_max(doc_lens[cid], max_sents),
+                         torch.ones_like(doc_lens[cid]))
+        cl = torch.clamp_min(cl, 1).to(torch.int32)
+        dim = buckets[0]["sents"].shape[-1]
+        out = torch.zeros((n, max_sents, dim), dtype=torch.float32,
+                          device=cand_ids.device)
+        owned = torch.zeros_like(valid)
+        for bi, b in enumerate(buckets):
+            sel = (cb == bi) & valid
+            if mesh is not None:
+                local_n = b["sents"].shape[0]
+                sel = sel & (cr // local_n == mesh.index("shard"))
+                cr_b = cr % local_n
+            else:
+                cr_b = cr
+            rows = torch.where(sel, cr_b, torch.zeros_like(cr_b))
+            s_eff = min(b["sents"].shape[1], max_sents)
+            reps = b["sents"][rows, :s_eff].float()              # [K, s_eff, d]
+            if "scales" in b:
+                reps = reps * b["scales"][rows, :s_eff, None]
+            smask = torch.arange(s_eff, device=cl.device)[None, :] < cl[:, None]
+            keep = (sel[:, None] & smask)[:, :, None]
+            out[:, :s_eff] += torch.where(keep, reps, torch.zeros_like(reps))
+            owned |= sel
+        return out, cl, owned, valid
+
+
+def _gather_bytes(buckets, n: int, max_sents: int) -> int:
+    """Bytes of index rows and scales that gathering n candidates indexes,
+    over every bucket: n rows of each bucket's first min(width, max_sents)
+    sentences (a pad or foreign slot reads row 0)."""
+    total = 0
+    for b in buckets:
         s_eff = min(b["sents"].shape[1], max_sents)
-        reps = b["sents"][rows, :s_eff].float()              # [K, s_eff, d]
+        per_sent = b["sents"].shape[-1] * b["sents"].element_size()
         if "scales" in b:
-            reps = reps * b["scales"][rows, :s_eff, None]
-        smask = torch.arange(s_eff, device=cl.device)[None, :] < cl[:, None]
-        keep = (sel[:, None] & smask)[:, :, None]
-        out[:, :s_eff] += torch.where(keep, reps, torch.zeros_like(reps))
-        owned |= sel
-    return out, cl, owned, valid
+            per_sent += b["scales"].element_size()
+        total += n * s_eff * per_sent
+    return total
 
 
 _BIG = 3.0e38
@@ -245,8 +262,9 @@ def _mesh_pool_diameter(q, emb, owned, valid, mesh):
     sel = owned[:, :, None, None]
     y_min = torch.where(sel, emb, torch.full_like(emb, _BIG)).amin(dim=(1, 2))
     y_max = torch.where(sel, emb, torch.full_like(emb, -_BIG)).amax(dim=(1, 2))
-    dist.all_reduce(y_min, op=dist.ReduceOp.MIN, group=group)
-    dist.all_reduce(y_max, op=dist.ReduceOp.MAX, group=group)
+    with span("reduce", bytes=2 * y_min.numel() * y_min.element_size()):
+        dist.all_reduce(y_min, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(y_max, op=dist.ReduceOp.MAX, group=group)
     pad0 = (~valid).any(dim=1)[:, None]                          # [B, 1]
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
     big = torch.full((), _BIG, dtype=q.dtype, device=q.device)
@@ -277,7 +295,9 @@ def _sum_over_shards(sims, mesh):
     the others: one SUM all_reduce gives every rank each owner's score."""
     if mesh is not None:
         sims = sims.contiguous()
-        dist.all_reduce(sims, op=dist.ReduceOp.SUM, group=mesh.group("shard"))
+        with span("reduce", bytes=sims.numel() * sims.element_size()):
+            dist.all_reduce(sims, op=dist.ReduceOp.SUM,
+                            group=mesh.group("shard"))
     return sims
 
 
@@ -306,10 +326,11 @@ def make_fused_query_batched(n_buckets: int, k: int, max_sents: int,
                              solver: str = "kernel", scan: str = "kernel",
                              rerank_chunk: int | None = None, mesh=None):
     """Batched fused serving: B queries -> search + gather + rerank on the
-    device.  fn(q [B, qmax, d], q_lens int[B], *bucket_arrays, doc_bucket,
-    doc_row, doc_lens) -> (stage1 scores [B, k] (-L2, reference scale),
-    doc_idx [B, k], ot_sims [B, k] (NEG at pad slots)).  The extra arguments
-    come from DenseBucketIndex.device_arrays() + .device_pos_arrays().
+    device.  fn(q [B, qmax, d], q_lens int[B] (a host int at B = 1),
+    *bucket_arrays, doc_bucket, doc_row, doc_lens) -> (stage1 scores [B, k]
+    (-L2, reference scale), doc_idx [B, k], ot_sims [B, k] (NEG at pad
+    slots)).  The extra arguments come from DenseBucketIndex.device_arrays()
+    + .device_pos_arrays().
 
     scan: 'kernel' (the CUDA scan kernels on CUDA tensors) or 'torch';
     solver: 'kernel' (the CUDA Sinkhorn solver) or 'torch'.  CPU tensors run
@@ -338,9 +359,10 @@ def make_fused_query_batched(n_buckets: int, k: int, max_sents: int,
         return s
 
     def fused(q, q_lens, *rest):
-        flat, (db, dr, dl) = rest[:-3], rest[-3:]
-        buckets = _unflatten_buckets(flat, n_buckets, int8)
-        with torch.no_grad():
+        with torch.no_grad(), span("fused_query", queries=q.shape[0]):
+            flat, (db, dr, dl) = rest[:-3], rest[-3:]
+            buckets = _unflatten_buckets(flat, n_buckets, int8)
+            q_lens = torch.as_tensor(q_lens, device=q.device).reshape(-1)
             q = q.float()
             v, d = score_buckets_batched(buckets, q, q_lens, k, q_chunk,
                                          scan=scan)
@@ -354,20 +376,25 @@ def make_fused_query_batched(n_buckets: int, k: int, max_sents: int,
                 nq = qc.shape[0]
                 emb, cl, owned, valid = _gather_candidates(
                     buckets, db, dr, dl, dc.reshape(-1), max_sents, mesh)
-                qt = _tile_queries(qc, qlc, k)
-                if mesh is None:
-                    diam = grouped_max_diameter(qt.embed, emb, nq)
-                    s = ot(qt, MultiVec(embed=emb, lens=cl), diam)
-                else:
-                    diam = _mesh_pool_diameter(
-                        qc, emb.reshape(nq, k, *emb.shape[1:]),
-                        owned.reshape(nq, k), valid.reshape(nq, k), mesh)
-                    s = _on_owned(ot, qt, MultiVec(embed=emb, lens=cl), owned,
-                                  diam.repeat_interleave(k))
-                sims.append(s.reshape(nq, k))
-            sims = _sum_over_shards(torch.cat(sims), mesh)
-            sims = torch.where(d >= 0, sims, torch.full_like(sims, NEG))
-            return -torch.sqrt(torch.clamp_min(-v, 0.0)), d, sims
+                with span("rerank", pairs=nq * k):
+                    qt = _tile_queries(qc, qlc, k)
+                    if mesh is None:
+                        with span("diameter"):
+                            diam = grouped_max_diameter(qt.embed, emb, nq)
+                        s = ot(qt, MultiVec(embed=emb, lens=cl), diam)
+                    else:
+                        with span("diameter"):
+                            diam = _mesh_pool_diameter(
+                                qc, emb.reshape(nq, k, *emb.shape[1:]),
+                                owned.reshape(nq, k), valid.reshape(nq, k),
+                                mesh)
+                        s = _on_owned(ot, qt, MultiVec(embed=emb, lens=cl),
+                                      owned, diam.repeat_interleave(k))
+                    sims.append(s.reshape(nq, k))
+            with span("scores"):
+                sims = _sum_over_shards(torch.cat(sims), mesh)
+                sims = torch.where(d >= 0, sims, torch.full_like(sims, NEG))
+                return -torch.sqrt(torch.clamp_min(-v, 0.0)), d, sims
 
     return fused
 
@@ -392,8 +419,7 @@ def make_fused_query(n_buckets: int, k: int, max_sents: int,
         temp=temp, max_iters=max_iters, solver=solver, scan=scan, mesh=mesh)
 
     def single(q, q_len, *rest):
-        q_lens = torch.as_tensor(q_len, device=q.device).reshape(1)
-        v, d, s = batched(q[None], q_lens, *rest)
+        v, d, s = batched(q[None], q_len, *rest)
         return v[0], d[0], s[0]
 
     return single
@@ -451,12 +477,12 @@ def make_pool_rank_batched(n_buckets: int, pool_size: int, max_sents: int,
         return s
 
     def rank(q, q_lens, cand_ids, *rest):
-        flat, (db, dr, dl) = rest[:-3], rest[-3:]
-        buckets = _unflatten_buckets(flat, n_buckets, int8)
         if cand_ids.shape[1] != pool_size:
             raise ValueError(f"cand_ids is {tuple(cand_ids.shape)}, built "
                              f"for pools of {pool_size}")
-        with torch.no_grad():
+        with torch.no_grad(), span("pool_rank", queries=q.shape[0]):
+            flat, (db, dr, dl) = rest[:-3], rest[-3:]
+            buckets = _unflatten_buckets(flat, n_buckets, int8)
             q = q.float()
             bsz = q.shape[0]
             step = _query_chunks(bsz, pool_size, max_sents, q.shape[-1],
@@ -467,12 +493,15 @@ def make_pool_rank_batched(n_buckets: int, pool_size: int, max_sents: int,
                 emb, cl, owned, _ = _gather_candidates(
                     buckets, db, dr, dl, cand_ids[i:i + step].reshape(-1),
                     max_sents, mesh)
-                qt = _tile_queries(qc, qlc, pool_size)
-                s = _on_owned(score, qt, MultiVec(embed=emb, lens=cl),
-                              None if mesh is None else owned)
-                sims.append(s.reshape(qc.shape[0], pool_size))
-            sims = _sum_over_shards(torch.cat(sims), mesh)
-            return torch.where(cand_ids >= 0, sims, torch.full_like(sims, NEG))
+                with span("rerank", pairs=qc.shape[0] * pool_size):
+                    qt = _tile_queries(qc, qlc, pool_size)
+                    s = _on_owned(score, qt, MultiVec(embed=emb, lens=cl),
+                                  None if mesh is None else owned)
+                    sims.append(s.reshape(qc.shape[0], pool_size))
+            with span("scores"):
+                sims = _sum_over_shards(torch.cat(sims), mesh)
+                return torch.where(cand_ids >= 0, sims,
+                                   torch.full_like(sims, NEG))
 
     return rank
 

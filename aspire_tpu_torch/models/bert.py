@@ -37,6 +37,7 @@ from ..ops.attention_kernel import (attention_keep_mask, fused_attention,
 from ..ops.dropout_kernel import dropout_plain, fused_dropout, keep_mask
 from ..ops.philox import split_seed
 from ..ops.ffn_kernel import fused_ffn_linear
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,12 +364,14 @@ class BertModel(nn.Module):
         cfg = self.config
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids, seed, position_ids)
-        attn_bias = torch.where(attention_mask > 0, 0.0, -1e9).float()
-        hidden_states = [x.float()]
+        with span("bert.embed"):
+            x = self.embeddings(input_ids, token_type_ids, seed, position_ids)
+            attn_bias = torch.where(attention_mask > 0, 0.0, -1e9).float()
+            hidden_states = [x.float()]
         for i in range(cfg.num_hidden_layers):
-            x = getattr(self, f"layer_{i}")(x, attn_bias, seed)
-            hidden_states.append(x.float())
+            with span("bert.layer"):
+                x = getattr(self, f"layer_{i}")(x, attn_bias, seed)
+                hidden_states.append(x.float())
         return hidden_states[-1], tuple(hidden_states)
 
 

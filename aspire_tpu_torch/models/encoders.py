@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from ..core.types import require_device
 from ..ops.pool_kernel import sentence_pool_fused, sentence_pool_plain
+from ..utils.profiling import span
 from .bert import BertConfig, BertModel
 
 
@@ -83,9 +84,12 @@ class ConSentEncoder(nn.Module):
 
     def forward(self, token_ids, attn_mask, sent_ids, token_type_ids=None,
                 seed=None):
-        last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
-        return last[:, 0, :], sentence_pool(last, sent_ids, self.max_sents,
-                                            self.pool_impl)
+        with span("encode", tokens=token_ids.numel()):
+            last, _ = self.bert(token_ids, attn_mask, token_type_ids, seed)
+            with span("pool"):
+                reps = sentence_pool(last, sent_ids, self.max_sents,
+                                     self.pool_impl)
+            return last[:, 0, :], reps
 
 
 class ConSentSpanEncoder(ConSentEncoder):
@@ -124,10 +128,14 @@ class BiEncoder(nn.Module):
             config.num_hidden_layers + 1, dtype=torch.float32, device=dev))
 
     def forward(self, token_ids, attn_mask, token_type_ids=None, seed=None):
-        _, hidden_states = self.bert(token_ids, attn_mask, token_type_ids, seed)
-        mix = torch.softmax(self.layer_weights, dim=0)
-        cls_stack = torch.stack([h[:, 0, :] for h in hidden_states], dim=-1)
-        return torch.matmul(cls_stack, mix)
+        with span("encode", tokens=token_ids.numel()):
+            _, hidden_states = self.bert(token_ids, attn_mask, token_type_ids,
+                                         seed)
+            with span("cls_mix"):
+                mix = torch.softmax(self.layer_weights, dim=0)
+                cls_stack = torch.stack([h[:, 0, :] for h in hidden_states],
+                                        dim=-1)
+                return torch.matmul(cls_stack, mix)
 
 
 def bienc_layer_weights_from_state_dict(state_dict) -> torch.Tensor:

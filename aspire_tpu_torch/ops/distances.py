@@ -16,8 +16,9 @@ import math
 import torch
 
 from ..core.types import MultiVec, masked_2d_softmax
+from ..utils.profiling import span
 from .cdist import pairwise_l2, require_fp32_matmul
-from .sinkhorn import sinkhorn_cost, sinkhorn_potentials
+from .sinkhorn import resolve_diameter, sinkhorn_cost, sinkhorn_potentials
 from .sinkhorn_kernel import sinkhorn_potentials_kernel
 
 
@@ -172,20 +173,26 @@ def wasserstein_dist(
     slices of it would (the grouped training loss, one slice a micro batch).
     """
     route = _select_solver(solver, reach, query.embed.is_cuda)
-    cost = pairwise_l2(query.embed, cand.embed)
-    a, b, neg = ot_marginals(query, cand, temp=temp, cost=cost)
+    with span("cost"):
+        cost = pairwise_l2(query.embed, cand.embed)
+        a, b, neg = ot_marginals(query, cand, temp=temp, cost=cost)
+    if diameter_value is None:
+        with span("diameter"):
+            diameter_value = resolve_diameter(query.embed, cand.embed, a, b,
+                                              diameter, None)
 
     def _solve():
-        if route == "kernel":
-            return sinkhorn_potentials_kernel(
+        with span("solve"):
+            if route == "kernel":
+                return sinkhorn_potentials_kernel(
+                    a, query.embed, b, cand.embed, blur=blur, scaling=scaling,
+                    max_iters=max_iters, cost=cost, use_cost=True,
+                    diameter_value=diameter_value)
+            return sinkhorn_potentials(
                 a, query.embed, b, cand.embed, blur=blur, scaling=scaling,
-                max_iters=max_iters, cost=cost, use_cost=True,
-                diameter=diameter, diameter_value=diameter_value)
-        return sinkhorn_potentials(
-            a, query.embed, b, cand.embed, blur=blur, scaling=scaling,
-            reach=reach, max_iters=max_iters, diameter=diameter, cost=cost,
-            use_cost=True, diameter_value=diameter_value,
-            loop="kernel" if route == "kernel_loop" else "torch")
+                reach=reach, max_iters=max_iters, cost=cost, use_cost=True,
+                diameter_value=diameter_value,
+                loop="kernel" if route == "kernel_loop" else "torch")
 
     if not return_pair_sims:
         f, g = _solve()

@@ -51,7 +51,8 @@ Phases, one JSON object a line:
            large index a single fused query on bf16 (k=50) and on int8 (k=64),
            a batch of 32 on int8 (k=64) and a pool ranking of 8 queries x 512
            ids.  After the counts are read, the same through the plain route
-           (scan='torch', solver='torch'), compared, and the stages timed;
+           (scan='torch', solver='torch'), compared, and the stages timed
+           by the entry's own spans (scan, gather, rerank);
            then a float32 index of 20,000 documents queried through the scan
            kernel's f32 instantiation and through the plain product;
   mesh     several ranks, each a process, all on the one card (a `mesh` line
@@ -66,7 +67,8 @@ Phases, one JSON object a line:
            ranking of 8 x 512 ids (K1); held to the one-process answers on
            the same index (ids where the scores are apart, first stage 1e-3
            + 2e-4 relative, OT 1e-2 + 5e-3 relative); ms a query on rank 0's
-           host clock, scan, merge and rerank apart, the bytes each
+           host clock, scan, merge, gather, rerank and reduce as the
+           entry's spans time them on each rank, the bytes each
            collective carries; (b) 3 data ranks over gloo train the train
            phase's flagship (BERT-base width, [10, 3, 512], bf16 over f32
            parameters, Adam), each rank 10 of the window's 30 rows: the first
@@ -2149,37 +2151,19 @@ def _host_ms(fn, calls: int = 5) -> tuple:
             "warm_ms_spread": [min(out[1:]), max(out[1:])]}, result
 
 
-def _stage_ms(buckets, pos, q, q_lens, k, scan, solver, calls: int = 5,
-              max_sents: int = 20) -> dict:
-    """The fused query's three stages run apart, a synchronise after each."""
-    from aspire_tpu_torch.core.types import MultiVec
-    from aspire_tpu_torch.index.dense import score_buckets_batched
-    from aspire_tpu_torch.index.serve import _gather_candidates, _tile_queries
-    from aspire_tpu_torch.ops.distances import wasserstein_dist
-    from aspire_tpu_torch.ops.sinkhorn import grouped_max_diameter
-    marks = {"scan": [], "gather": [], "rerank": []}
-
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        marks[name].append((time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    for _ in range(calls):
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            _, d = score_buckets_batched(buckets, q, q_lens, k, scan=scan)
-            t = lap("scan", t)
-            emb, cl, _, _ = _gather_candidates(buckets, *pos, d.reshape(-1),
-                                               max_sents)
-            t = lap("gather", t)
-            qt = _tile_queries(q, q_lens, k)
-            diam = grouped_max_diameter(qt.embed, emb, q.shape[0])
-            wasserstein_dist(qt, MultiVec(emb, cl), temp=5000.0,
-                             return_pair_sims=True, solver=solver,
-                             diameter_value=diam)
-            lap("rerank", t)
-    return {f"{name}_ms": statistics.median(v) for name, v in marks.items()}
+def _stage_ms(call, calls: int = 5,
+              stages=("scan", "gather", "rerank")) -> dict:
+    """The fused query's stages as its own spans time them (device ms a
+    call, mean over `calls` calls of the entry under `recording()`; no
+    synchronise between the stages)."""
+    from aspire_tpu_torch.utils import profiling
+    profiling.reset()
+    with profiling.recording():
+        for _ in range(calls):
+            call()
+    spent = profiling.summary()
+    profiling.reset()
+    return {f"{name}_ms": spent[name]["device_ms"] / calls for name in stages}
 
 
 def build_large_index(dev, n_docs: int, buckets=(12, 24),
@@ -2260,7 +2244,7 @@ def index_queries(big: dict, dev):
     int8 at k=64) and one pool ranking (8 queries x 512 ids, OT) through the
     kernels.  Returns a function that, called after the launch counts are
     read, runs the same through the plain route (scan='torch',
-    solver='torch'), compares, times the stages apart and prints the line."""
+    solver='torch'), compares, reads the stages' spans and prints the line."""
     from aspire_tpu_torch.index.dense import flatten_device_buckets
     from aspire_tpu_torch.index.serve import (make_fused_query,
                                               make_fused_query_batched,
@@ -2310,9 +2294,8 @@ def index_queries(big: dict, dev):
 
         def after():
             t_p, out_p = _host_ms(lambda: call(fn_p), calls=2)
-            row.update(_stage_ms(buckets, pos, q, ql, k, "kernel", "kernel"))
-            row["plain_route"] = {**t_p, **_stage_ms(buckets, pos, q, ql, k,
-                                                     "torch", "torch", calls=2)}
+            row.update(_stage_ms(lambda: call(fn_k)))
+            row["plain_route"] = {**t_p, **_stage_ms(lambda: call(fn_p), calls=2)}
             row["kernel_against_plain"] = compare_answers(label, out_k, out_p)
         later.append(after)
 
@@ -3580,58 +3563,12 @@ def _collective_bytes(bsz: int, k: int, d: int, shards: int) -> dict:
             "scores_all_reduce": bsz * k * 4}
 
 
-def _mesh_stage_ms(mesh, buckets, pos, q, q_lens, k, calls: int = 5) -> dict:
-    """A sharded fused query's stages run apart on this rank, a synchronise
-    and a barrier after each: this rank's scan, the merge, then the gather,
-    pool diameter, K1 on the owned pairs and the scores' all_reduce."""
-    import torch.distributed as dist
-    from aspire_tpu_torch.core.types import MultiVec
-    from aspire_tpu_torch.index.dense import (_merge_sharded_topk,
-                                              score_buckets_batched)
-    from aspire_tpu_torch.index.serve import (_gather_candidates,
-                                              _mesh_pool_diameter, _on_owned,
-                                              _sum_over_shards, _tile_queries)
-    from aspire_tpu_torch.ops.distances import wasserstein_dist
-    marks = {"scan": [], "merge": [], "rerank": []}
-
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        dist.barrier()
-        marks[name].append((time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    def ot(qt, cands, diam):
-        return wasserstein_dist(qt, cands, temp=5000.0, return_pair_sims=True,
-                                solver="kernel", diameter_value=diam)[0]
-
-    bsz = q.shape[0]
-    for _ in range(calls):
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            dist.barrier()
-            t = time.perf_counter()
-            v, d = score_buckets_batched(buckets, q, q_lens, k)
-            t = lap("scan", t)
-            v, d = _merge_sharded_topk(v, d, k, mesh)
-            t = lap("merge", t)
-            emb, cl, owned, valid = _gather_candidates(
-                buckets, *pos, d.reshape(-1), 20, mesh)
-            diam = _mesh_pool_diameter(q, emb.reshape(bsz, k, 20, -1),
-                                       owned.reshape(bsz, k),
-                                       valid.reshape(bsz, k), mesh)
-            s = _on_owned(ot, _tile_queries(q, q_lens, k), MultiVec(emb, cl),
-                          owned, diam.repeat_interleave(k))
-            _sum_over_shards(s.reshape(bsz, k), mesh)
-            lap("rerank", t)
-    return {f"{name}_ms": statistics.median(v) for name, v in marks.items()}
-
-
 def mesh_serve_rank(index_dir: str, n_docs: int) -> dict:
     """One serving rank of the mesh phase: its slice of the index phase's
     bf16 and int8 indexes on its device, then -- with the counts set to 0 --
     a single bf16 fused query (k=50: K8, K1), a batch of 32 int8 (k=64: K7,
     K1) and a pool ranking of 8 queries x 512 ids (K1), each sharded; then
-    the same timed, and the stages apart.  Returns answers, counts, times."""
+    the same timed, and the stages' spans.  Returns answers, counts, times."""
     import torch.distributed as dist
     from aspire_tpu_torch.index.dense import (DenseBucketIndex,
                                               flatten_device_buckets)
@@ -3680,23 +3617,18 @@ def mesh_serve_rank(index_dir: str, n_docs: int) -> dict:
     for name, fn in calls.items():
         times[name], _ = _host_ms(fn)
         dist.barrier()
-    stages = {"single bf16": _mesh_stage_ms(mesh, _unflat(args["bfloat16"][0], nb),
-                                            args["bfloat16"][1], q[:1],
-                                            q_lens[:1], 50),
-              "batch of 32 int8": _mesh_stage_ms(mesh, _unflat(args["int8"][0], nb,
-                                                               True),
-                                                 args["int8"][1], q, q_lens, 64)}
+    # this rank's scan, the merge's all_gather, the gather of the candidates
+    # it owns, the rerank (with the pool diameter's all_reduces) and the
+    # scores' all_reduce (`reduce` holds the diameter's too)
+    stages = {name: _stage_ms(calls[name], stages=("scan", "merge", "gather",
+                                                   "rerank", "reduce"))
+              for name in ("single bf16", "batch of 32 int8")}
     out = {name: tuple(x.cpu().numpy() for x in (a if isinstance(a, tuple)
                                                   else (a,)))
            for name, a in answers.items()}
     return {"answers": out, "counts": counts, "ms": times, "stages": stages,
             "load_s": load_s, "device": str(dev), "backend": mesh.backend,
             "peak_memory_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
-
-
-def _unflat(flat, nb: int, int8: bool = False):
-    from aspire_tpu_torch.index.dense import _unflatten_buckets
-    return _unflatten_buckets(flat, nb, int8)
 
 
 def _first_step_check(model, trainer, state, superbatch, seed: int, n_micro,
@@ -4291,9 +4223,7 @@ def range_fused_queries(big: dict, dev, add, sents: int = RANGE_QUERY,
                      "kernel_against_plain": compare_answers(label, out_k, out_p),
                      "rerank_f64": _rerank_witness(label, buckets, pos, q_all[:bsz],
                                                    q_lens[:bsz], ids, max_sents),
-                     **_stage_ms(buckets, pos, q_all[:bsz], q_lens[:bsz], RANGE_K,
-                                 "kernel", "kernel", calls=2,
-                                 max_sents=max_sents)})
+                     **_stage_ms(lambda: call(fn_k), calls=2)})
     return rows
 
 
