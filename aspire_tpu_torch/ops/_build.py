@@ -78,11 +78,12 @@ SIGNATURES = {
     # group, tiles a query, groups, out's row length, rows a span, stream
     "aspire_scan_bf16": [_P] * 5 + [_I] * 8 + [_P],
     "aspire_scan_int8": [_P] * 6 + [_I] * 8 + [_P],
-    # sents, (scales,) norms, q (k permuted), qadd, out, n_docs, S, D, tiles a
-    # query, groups of 128 columns, out's row length, rows a span, a group's
-    # blocks, stream
-    "aspire_scan_int8_wide": [_P] * 6 + [_I] * 8 + [_P],
-    "aspire_scan_bf16_wide": [_P] * 5 + [_I] * 8 + [_P],
+    # sents, (scales,) norms, q [B, qmax, D] f32, qadd, lengths, the packed
+    # query, its qadd and plan (scratch), out, n_docs, S, D, B, qmax, lengths
+    # in int64, tiles of a query a power of two of columns, a bound on the
+    # groups of 128 columns, rows a span, blocks, stream
+    "aspire_scan_int8_wide": [_P] * 10 + [_I] * 10 + [_P],
+    "aspire_scan_bf16_wide": [_P] * 9 + [_I] * 10 + [_P],
     # the same as aspire_scan_bf16 without the span (units of 64 documents)
     "aspire_scan_f32": [_P] * 5 + [_I] * 7 + [_P],
 }

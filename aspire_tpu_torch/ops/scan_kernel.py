@@ -24,6 +24,20 @@ load a thread, so the query's k is permuted to match once a call
 ``csrc/scan.cu``'s f32 kernel: the true-f32 product by FMAs with the query in
 f32, a check path.
 
+The wide kernel computes only the batch's real query sentences: a query
+takes ceil(q_len / 4) 4-column units (8-column tiles where the kernel's
+epilogue is the long one: `pack_unit`), filled by its real sentences, and the
+queries fill the 128-column groups in order, at most 16 a group
+(`pack_plan`), none across two.  Its launch packs them on the device from the
+lengths (`pack_kernel` in ``csrc/scan_int8.cu``; `pack_queries_plain` is its
+plain version), so nothing is read on the host, and the grid, one persistent
+block an SM, depends on no device value: each block reads the live groups
+from the plan.  A batch of full queries of 16, 32, 64 or 128 sentences takes
+the columns and groups of a query a power of two of columns (`_tiling`, which
+also bounds the live groups and sizes the buffers).  The launch adds `columns` (128 a live group) and
+`sentences` (the real ones) to the open `scan` span, device values read when
+the records are.
+
 A launch's unit of rows is a span of the bucket's flat rows (`span_rows`:
 1,536 rows, or 64 whole documents where those are fewer), not a number of
 documents, so a bucket of 840 documents of 1,200 sentences fills the card;
@@ -57,6 +71,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..utils import profiling
 
 NEG = -1e30
 MAX_TILES = 16        # 8-column tiles a block keeps in registers: 128 columns
@@ -133,6 +148,90 @@ def _max_tiles(d: int) -> int:
     return MAX_TILES if smem <= 232448 else MAX_TILES // 2
 
 
+PLAN_HEAD = 3          # the packing plan's header: live groups, their columns, real sentences
+UNITS = 8 * MAX_TILES // 4   # 4-column units of a column group
+SLOTS = 16             # queries a column group at most
+
+
+def pack_unit(plan: "ScanPlan", s: int) -> int:
+    """The columns a query's unit of the wide kernel's packing takes: 8 where
+    its epilogue is the long one (documents of hundreds of rows, or a query a
+    power of two of 128 columns: 8-column tiles), else 4 (csrc/scan_int8.cu's
+    `long_walk`)."""
+    long_walk = s * (plan.tiles_q // 2) >= 64 or plan.span != 64 * s
+    return 8 if long_walk else 4
+
+
+def pack_plan(q_lens, qmax: int, unit: int = 4) -> list[list[int]]:
+    """The wide kernel's column layout of a batch whose query b holds
+    q_lens[b] real sentences (clipped to [0, qmax]): per live column group
+    the query each of its 32 units of 4 columns holds, -1 past them.  A
+    query takes ceil(q_len / unit) units of `unit` columns (4 or 8: two
+    units; one at q_len = 0) and the queries fill the groups in order, at
+    most `SLOTS` a group, one that does not fit left opening the next, so
+    none straddles two groups.  csrc/scan_int8.cu's `pack_kernel` lays out
+    the same plan from the lengths on the device."""
+    groups, used, held = [[-1] * UNITS], 0, 0
+    for b, n in enumerate(q_lens):
+        t = max(1, -(-min(max(int(n), 0), qmax) // unit)) * (unit // 4)
+        if used + t > UNITS or held == SLOTS:
+            groups.append([-1] * UNITS)
+            used = held = 0
+        groups[-1][used:used + t] = [b] * t
+        used += t
+        held += 1
+    return groups
+
+
+def unit_columns(unit: int = 4) -> torch.Tensor:
+    """The column of a group that column e of unit u of `pack_plan` takes,
+    at index 4 u + e: in order where units go by 8; where they go by 4, the
+    half u // 16 of 8-column tile u % 16, so that the short epilogue's
+    reduce-scatter leaves a lane 8 units in order."""
+    u, e = torch.arange(UNITS).repeat_interleave(4), torch.arange(4).repeat(UNITS)
+    return 4 * u + e if unit == 8 else 8 * (u % MAX_TILES) + 4 * (u // MAX_TILES) + e
+
+
+def pack_buffers(groups: int, d: int, device) -> tuple:
+    """The wide launch's packing buffers at the host's bound of `groups`
+    column groups (`launch_plan`): packed bf16[groups * 128, Dp], qa
+    f32[groups * 128], plan int32[PLAN_HEAD + groups * 16]; the kernel fills
+    the live groups."""
+    dp = -(-d // K_STAGE) * K_STAGE
+    cols = groups * 8 * MAX_TILES
+    return (torch.empty((cols, dp), dtype=torch.bfloat16, device=device),
+            torch.empty(cols, dtype=torch.float32, device=device),
+            torch.empty(PLAN_HEAD + groups * UNITS, dtype=torch.int32, device=device))
+
+
+def pack_queries_plain(q, qadd, q_lens, width: int = K_STAGE, unit: int = 4):
+    """Plain version of csrc/scan_int8.cu's `pack_kernel`: q f32[B, qmax, D],
+    qadd f32[B, qmax] (read at real sentences), q_lens int[B] -> (packed
+    [G * 128, Dp] of the real sentences rounded to bf16 in the k order of
+    stages of `width` (`int8_query_layout`), zeros elsewhere; qa f32[G * 128],
+    -1e30 at pad columns; plan int32[PLAN_HEAD + G * 32]: G, 128 G, the real
+    sentences, then `pack_plan`'s units), the columns at `unit_columns`'
+    places.  The kernel writes the live groups of buffers sized by
+    `launch_plan`'s bound."""
+    bsz, qmax, d = q.shape
+    lens = [min(max(int(n), 0), qmax) for n in q_lens]
+    units = pack_plan(lens, qmax, unit)
+    width_g = 8 * MAX_TILES
+    cols = torch.zeros((len(units) * width_g, d), dtype=torch.float32)
+    qa = torch.full((len(units) * width_g,), NEG, dtype=torch.float32)
+    place = unit_columns(unit)
+    for g, owner in enumerate(units):
+        for u, b in enumerate(owner):
+            if b >= 0 and (u == 0 or owner[u - 1] != b):
+                n = lens[b]
+                at = g * width_g + place[4 * u:4 * u + n]
+                cols[at] = q[b, :n].float()
+                qa[at] = qadd[b, :n].float()
+    head = [len(units), width_g * len(units), sum(lens)]
+    plan = torch.tensor(head + [b for owner in units for b in owner], dtype=torch.int32)
+    return int8_query_layout(cols.to(torch.bfloat16), width), qa, plan
+
+
 def scan_wide(bsz: int, qmax: int, d: int) -> bool:
     """Whether a [bsz, qmax] query batch of width d runs the wide kernel
     (csrc/scan_int8.cu, int8 or bf16 rows): when its column groups are full
@@ -171,10 +270,12 @@ def launch_plan(dtype: torch.dtype, n: int, s: int, d: int, bsz: int, qmax: int,
                 sms: int = 132) -> ScanPlan:
     """The launch of a [bsz, qmax] query batch against a bucket [n, s, d] of
     `dtype` rows on a card of `sms` SMs.  bf16 and int8 rows: full column
-    groups at d <= 768 go to the wide kernel, one persistent block a group
-    and an SM (at most one a span), walking every (blocks / groups)-th span;
-    the rest to csrc/scan.cu's kernel, one block a (span, group).  f32 rows:
-    csrc/scan.cu's f32 kernel, one block a (64 documents, group)."""
+    groups at d <= 768 go to the wide kernel, one persistent block an SM
+    (every group one at least, at most one a span and group), whose packed
+    groups (`pack_plan`: at most `groups`, the tiling of a query a power of
+    two of columns) it counts on the device; the rest to csrc/scan.cu's
+    kernel, one block a (span, group).  f32 rows: csrc/scan.cu's f32 kernel,
+    one block a (64 documents, group)."""
     rows = n * s
     if dtype == torch.float32:
         tiles, tiles_q, groups, padded = _tiling(bsz, qmax, MAX_TILES)
@@ -186,9 +287,8 @@ def launch_plan(dtype: torch.dtype, n: int, s: int, d: int, bsz: int, qmax: int,
     spans = -(-rows // span)
     if scan_wide(bsz, qmax, d):
         tiles, tiles_q, groups, padded = _tiling(bsz, qmax, MAX_TILES)
-        a_group = min(max(sms // groups, 1), spans)
         return ScanPlan(f"aspire_scan_{kind}_wide", tiles, tiles_q, groups, padded, span,
-                        spans, groups * a_group)
+                        spans, min(max(sms, groups), groups * spans))
     tiles, tiles_q, groups, padded = _tiling(bsz, qmax, _max_tiles(d))
     return ScanPlan(f"aspire_scan_{kind}", tiles, tiles_q, groups, padded, span, spans,
                     groups * spans)
@@ -254,12 +354,18 @@ def int8_query_layout(q: torch.Tensor, width: int = K_STAGE) -> torch.Tensor:
     return torch.nn.functional.pad(q, (0, dp - d))[..., order].contiguous()
 
 
-def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
+def _launch(name: str, sents, scales, norms, q, qadd, q_lens=None,
+            scratch=None) -> torch.Tensor:
     """sents [n, s, d] (bf16, int8 or f32), norms (and scales) f32[n, s], q
     f32[B, qmax, d], qadd f32[B, qmax] -> f32[n, B], by the kernel
     `launch_plan` picks for the rows of C entry `name` (aspire_scan_bf16,
     _int8 or _f32; its _wide form where the groups are full).  The query goes
-    to the kernel in bf16, or in f32 for f32 rows."""
+    to the kernel in bf16, or in f32 for f32 rows.  csrc/scan.cu's kernels
+    take qadd at -1e30 past each query's length; the wide kernel takes the
+    lengths, int[B] on the device (q_lens), packs the real sentences itself
+    and reads qadd at them alone, into `scratch` where given (`pack_buffers`:
+    the packed query, its qadd and plan, as `pack_queries_plain` gives them
+    for the live groups)."""
     n, s, d = sents.shape
     bsz, qmax, _ = q.shape
     if d % 32 or d > MAX_DIM:
@@ -288,21 +394,13 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
     plan = launch_plan(sents.dtype, n, s, d, bsz, qmax, sms)
     if plan.kernel.removesuffix("_wide") != name:
         raise ValueError(f"{name} does not take {sents.dtype} rows")
-    # pad columns hold zero rows and -1e30, so they never win a max
-    qcols = 8 * plan.tiles_q
-    q_dtype = torch.float32 if sents.dtype == torch.float32 else torch.bfloat16
-    qp = torch.zeros((plan.padded, qcols, d), dtype=q_dtype, device=sents.device)
-    qp[:bsz, :qmax] = q
-    if wide:
-        qp = int8_query_layout(qp, K_STAGE if sents.dtype == torch.int8 else 32)
-    qa = torch.full((plan.padded, qcols), NEG, dtype=torch.float32,
-                    device=sents.device)
-    qa[:bsz, :qmax] = qadd
+    dev = sents.device
     # a document that straddles two spans is merged into -inf by atomic max;
     # spans of whole documents store every maximum
-    out = torch.empty((n, plan.padded), dtype=torch.float32, device=sents.device) \
+    cols = bsz if wide else plan.padded
+    out = torch.empty((n, cols), dtype=torch.float32, device=dev) \
         if plan.span % s == 0 else \
-        torch.full((n, plan.padded), -torch.inf, dtype=torch.float32, device=sents.device)
+        torch.full((n, cols), -torch.inf, dtype=torch.float32, device=dev)
     if n == 0:
         return out[:, :bsz]
     sents, norms = sents.contiguous(), norms.contiguous()
@@ -312,18 +410,39 @@ def _launch(name: str, sents, scales, norms, q, qadd) -> torch.Tensor:
         args.append(scales.data_ptr())
     if sents.data_ptr() % 16:
         raise ValueError("the bucket's rows must start at a 16-byte boundary")
-    if wide:
-        tail = (plan.tiles_q, plan.groups, plan.padded, plan.span,
-                plan.blocks // plan.groups)
-    elif sents.dtype == torch.float32:
-        tail = (plan.tiles, plan.tiles_q, plan.groups, plan.padded)
-    else:
-        tail = (plan.tiles, plan.tiles_q, plan.groups, plan.padded, plan.span)
     lib = _build.load()
-    with torch.cuda.device(sents.device):
-        err = getattr(lib, plan.kernel)(
-            *args, norms.data_ptr(), qp.data_ptr(), qa.data_ptr(),
-            out.data_ptr(), n, s, d, *tail, torch.cuda.current_stream().cuda_stream)
+    if wide:
+        if q_lens is None or q_lens.shape != (bsz,) or q_lens.device != dev:
+            raise ValueError("the wide kernel takes the queries' lengths, int[B] on the device")
+        if q_lens.dtype not in (torch.int32, torch.int64):
+            q_lens = q_lens.long()
+        q, qadd, q_lens = q.float().contiguous(), qadd.float().contiguous(), q_lens.contiguous()
+        if scratch is not None and any(
+                a.shape != b.shape or a.dtype != b.dtype or a.device != dev or
+                not a.is_contiguous() for a, b in zip(scratch, pack_buffers(plan.groups, d, "meta"))):
+            raise ValueError("scratch must be pack_buffers(launch_plan(...).groups, d) on the device")
+        packed, qa, table = scratch or pack_buffers(plan.groups, d, dev)
+        args += [norms.data_ptr(), q.data_ptr(), qadd.data_ptr(), q_lens.data_ptr(),
+                 packed.data_ptr(), qa.data_ptr(), table.data_ptr(), out.data_ptr(), n, s, d,
+                 bsz, qmax, int(q_lens.dtype == torch.int64), plan.tiles_q, plan.groups,
+                 plan.span, plan.blocks]
+        if profiling.tracing():
+            # the columns the launch computes and the real sentences it scores
+            profiling.count(columns=table[1], sentences=table[2])
+    else:
+        # pad columns hold zero rows and -1e30, so they never win a max
+        qcols = 8 * plan.tiles_q
+        q_dtype = torch.float32 if sents.dtype == torch.float32 else torch.bfloat16
+        qp = torch.zeros((plan.padded, qcols, d), dtype=q_dtype, device=dev)
+        qp[:bsz, :qmax] = q
+        qa = torch.full((plan.padded, qcols), NEG, dtype=torch.float32, device=dev)
+        qa[:bsz, :qmax] = qadd
+        tail = (plan.tiles, plan.tiles_q, plan.groups, plan.padded)
+        if sents.dtype != torch.float32:
+            tail += (plan.span,)
+        args += [norms.data_ptr(), qp.data_ptr(), qa.data_ptr(), out.data_ptr(), n, s, d, *tail]
+    with torch.cuda.device(dev):
+        err = getattr(lib, plan.kernel)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(err, plan.kernel)
     return out[:, :bsz]
 
@@ -349,14 +468,21 @@ def fused_l2max_scan(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
     if sents.is_cuda and sents.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the scan kernel takes bfloat16 or float32 rows, got "
                         f"{sents.dtype}")
-    valid = torch.arange(qpad, device=q.device) < q_n
+    groups = 1 if qpad <= cap else -(-qpad // cap)
+    rows = min(qpad, cap)
+    wide = sents.is_cuda and sents.dtype == torch.bfloat16 and scan_wide(
+        groups, rows, sents.shape[2])
     add = torch.zeros(qpad, dtype=torch.float32, device=q.device) \
         if qadd is None else qadd.float()
-    add = torch.where(valid, add, torch.full_like(add, NEG))
+    if not wide:
+        # csrc/scan.cu's kernels and the plain version take -1e30 past q_n;
+        # the wide kernel reads qadd only below the groups' lengths
+        valid = torch.arange(qpad, device=q.device) < q_n
+        add = torch.where(valid, add, torch.full_like(add, NEG))
     if qpad <= cap:
-        qg, ag, groups = q.float()[None], add[None], 1
+        qg, ag = q.float()[None], add[None]
     else:
-        qg, groups = query_groups(q.float()[None], cap)
+        qg, _ = query_groups(q.float()[None], cap)
         ag = torch.nn.functional.pad(add, (0, groups * cap - qpad),
                                      value=NEG).reshape(groups, cap)
     if not sents.is_cuda:
@@ -364,10 +490,13 @@ def fused_l2max_scan(sents, q, norms, q_n: int, qadd=None) -> torch.Tensor:
             fused_l2max_scan_plain(sents, qg[i], norms, cap, ag[i])
             for i in range(groups)], dim=1), groups)[:, 0]
     names = {torch.bfloat16: "aspire_scan_bf16", torch.float32: "aspire_scan_f32"}
-    out = _launch(names[sents.dtype], sents, None, norms, qg, ag)
+    # the groups' lengths, for the wide kernel's packing
+    lens = (q_n - rows * torch.arange(groups, device=q.device)).clamp(0, rows) \
+        if wide else None
+    out = _launch(names[sents.dtype], sents, None, norms, qg, ag, lens)
     if groups > 1:
         out = fold_groups(out, groups)
-    if sents.dtype == torch.bfloat16 and scan_wide(groups, qg.shape[1], sents.shape[2]):
+    if wide:
         fused_l2max_scan.wide_launches += 1
     else:
         fused_l2max_scan.launches += 1
@@ -410,13 +539,15 @@ def fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens,
         raise TypeError(f"the int8 scan kernel takes int8 rows, got {sents.dtype}")
     qf = q.float()
     q_norms = (qf * qf).sum(dim=2)
+    if scan_wide(q.shape[0], qmax, sents.shape[2]):
+        # the wide kernel packs the real sentences and reads qadd at them alone
+        out = _launch("aspire_scan_int8", sents, scales, norms, qf, -q_norms, q_lens)
+        fused_l2max_scan_int8_batched.wide_launches += 1
+        return out
     qadd = torch.where(_query_mask(qmax, q_lens), -q_norms,
                        torch.full_like(q_norms, NEG))
     out = _launch("aspire_scan_int8", sents, scales, norms, qf, qadd)
-    if scan_wide(q.shape[0], qmax, sents.shape[2]):
-        fused_l2max_scan_int8_batched.wide_launches += 1
-    else:
-        fused_l2max_scan_int8_batched.launches += 1
+    fused_l2max_scan_int8_batched.launches += 1
     return out
 
 

@@ -9,8 +9,10 @@ A span marks one stage of an entry call, where the stage runs:
     encode      > bert.embed, bert.layer (one name for all), pool or cls_mix
 
 with counts `queries` (the roots), `bytes` (gather: the index rows and
-scales indexed; reduce: the all_reduce's), `pairs` (rerank) and `tokens`
-(encode, padded).
+scales indexed; reduce: the all_reduce's), `pairs` (rerank), `tokens`
+(encode, padded), and on `scan` `columns` and `sentences` (the query columns
+the wide int8 and bf16 scans computed and the real query sentences they
+scored: device values, ops/scan_kernel).
 
 Tracing is off unless `recording()` is active or a `torch.profiler` is
 collecting.  Off, `span` checks this module's flag and the profiler's and
@@ -25,7 +27,9 @@ On, a span
     timing events on the current stream once CUDA is initialised, the id of
     its parent span, the id of its root span (its `call`: the spans of one
     entry call share it), and its counts: host integers taken from shapes
-    and dtypes, never a device value.
+    and dtypes, and those `count()` adds to the innermost open span, which
+    may be 0-dim device tensors, kept as they are and read only by
+    `records()`.
 
 Records stay in memory, the newest MAX_RECORDS of them; nothing is written
 while they are made.  `records()` synchronises once and reads them,
@@ -82,11 +86,12 @@ def _current_stream():
 
 
 class _Span:
-    __slots__ = ("name", "id", "call", "parent", "counts", "t0", "t1",
+    __slots__ = ("name", "id", "call", "parent", "counts", "added", "t0", "t1",
                  "ev0", "ev1", "device_ms", "_label", "_stream")
 
     def __init__(self, name: str, counts: dict):
         self.name, self.counts = name, counts
+        self.added = []                   # count()'s (name, value), unread
         self.device_ms = None
 
     def __enter__(self):
@@ -121,12 +126,26 @@ class _Span:
         return False
 
 
+def tracing() -> bool:
+    """Whether spans record: inside `recording()` or while a profiler collects."""
+    return bool(_recording or _autograd_profiler._is_profiler_enabled)
+
+
 def span(name: str, **counts):
     """Context manager marking one stage (see the module's docstring);
     counts: host integers from shapes and dtypes."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    if not tracing():
         return _NOOP
     return _Span(name, counts)
+
+
+def count(**counts) -> None:
+    """Add counts to the innermost open span of this thread: host integers
+    or 0-dim tensors, a device value read only when `records()` is.
+    Nothing with tracing off or outside every span."""
+    stack = getattr(_local, "stack", None)
+    if stack and tracing():
+        stack[-1].added.extend(counts.items())
 
 
 @contextlib.contextmanager
@@ -148,7 +167,8 @@ def reset() -> None:
 def records() -> list[dict]:
     """The records kept, oldest first: name, id, call (the root span's id),
     parent (None at a root), host_ms, device_ms (None off the card) and
-    counts.  Synchronises once when a record's device time is unread."""
+    counts.  Synchronises once when a record's device time is unread, and
+    reads the counts `count()` added."""
     spans = list(_records)
     pending = [s for s in spans if s.ev0 is not None]
     if pending:
@@ -156,6 +176,10 @@ def records() -> list[dict]:
         for s in pending:
             s.device_ms = s.ev0.elapsed_time(s.ev1)
             s.ev0 = s.ev1 = None
+    for s in spans:
+        for name, value in s.added:
+            s.counts[name] = s.counts.get(name, 0) + int(value)
+        s.added = []
     return [{"name": s.name, "id": s.id, "call": s.call, "parent": s.parent,
              "host_ms": (s.t1 - s.t0) / 1e6, "device_ms": s.device_ms,
              "counts": dict(s.counts)} for s in spans]

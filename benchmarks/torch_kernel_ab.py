@@ -69,7 +69,10 @@ which share the wide f32 kernels' code.  The int8 scan reading (`--scan-int8`) i
 (`fused_l2max_scan_int8_batched`) on buckets of the shapes of the
 125,000-document index (clip(poisson(9), 3, 20) sentences, seed 0, buckets 12
 and 24: [109440, 12, 768] and [15568, 24, 768]), made on the card from a seed,
-at B = 32 and B = 1 with 16 query sentences, and B = 5 with 20; the bf16
+at B = 32 and B = 1 with 16 query sentences, B = 5 with 20, and B = 32 with
+24 slots holding clip(poisson(9), 3, 20) real sentences (the search cell's
+batch), each with its scores' digest (`scores_sha256`: equal digests, equal
+scores bit for bit) and its real sentences; the bf16
 scan (K8) on the same rows in bf16 at B = 1 beside it.  The long scan reading
 (`--scan-long`) is K8 (`fused_l2max_scan`, one query of 300 sentences) and
 K7 (a batch of 8 queries of 300) on buckets of the shapes of the ranges
@@ -87,6 +90,7 @@ and power limit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import pathlib
@@ -167,6 +171,12 @@ def _median_ms(fn, calls: int = 10, readings: int = 30) -> dict:
         times.append(start.elapsed_time(end) / calls)
     return {"ms_median": statistics.median(times), "ms_min": min(times),
             "ms_max": max(times)}
+
+
+def _digest(scores) -> str:
+    """The first 16 hex digits of the SHA-256 of a result's bytes: two
+    checkouts' scores equal bit for bit where their digests do."""
+    return hashlib.sha256(scores.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def _inputs(b, nh, t, hd, dev, dtype="bfloat16"):
@@ -276,7 +286,7 @@ def measure_sinkhorn_wide() -> None:
 
 POOL_CASES = ((64, 256, 768, 20, "bfloat16"), (64, 256, 768, 20, "float32"),
               (16, 256, 768, 20, "bfloat16"), (16, 512, 768, 96, "bfloat16"))
-SCAN_CASES = ((32, 16), (1, 16), (5, 20))
+SCAN_CASES = ((32, 16), (1, 16), (5, 20), (32, 24))   # 32 x 24: the search cell's batch
 
 
 def measure_pool() -> None:
@@ -352,10 +362,15 @@ def measure_scan_int8() -> None:
             rng = np.random.default_rng(bsz + s)
             q = torch.from_numpy(rng.standard_normal((bsz, qmax, d)).astype(
                 np.float32) * 2.0).to(dev)
-            q_lens = torch.from_numpy(rng.integers(3, qmax + 1, bsz)).to(dev)
+            # 24 slots: an abstract's clip(poisson(9), 3, 20) real sentences
+            lens = (np.clip(rng.poisson(9, bsz), 3, 20) if qmax == 24
+                    else rng.integers(3, qmax + 1, bsz))
+            q_lens = torch.from_numpy(lens).to(dev)
             fn = lambda: sk.fused_l2max_scan_int8_batched(sents, scales, norms, q,
                                                            q_lens, qmax)
             print(json.dumps({"bucket": [n, s, d], "batch": bsz, "qmax": qmax,
+                              "real_sentences": int(lens.sum()),
+                              "scores_sha256": _digest(fn()),
                               "kernel": "scan_int8", **_median_ms(fn),
                               "device_ms_by_kernel": _by_kernel(fn)}), flush=True)
         rows = sents.to(torch.bfloat16)
@@ -381,12 +396,14 @@ def measure_scan_long() -> None:
         q_lens = torch.full((8,), 300, dtype=torch.int64, device=dev)
         fn = lambda: sk.fused_l2max_scan_int8_batched(sents, scales, norms, q, q_lens, 300)
         print(json.dumps({"bucket": [n, s, d], "batch": 8, "qmax": 300,
+                          "scores_sha256": _digest(fn()),
                           "kernel": "scan_int8", **_median_ms(fn, calls=3, readings=15),
                           "device_ms_by_kernel": _by_kernel(fn, calls=3)}), flush=True)
         rows, q1 = sents.to(torch.bfloat16), q[0]
         qadd = -(q1 * q1).sum(dim=1)
         fn = lambda: sk.fused_l2max_scan(rows, q1, norms, 300, qadd)
         print(json.dumps({"bucket": [n, s, d], "batch": 1, "qmax": 300,
+                          "scores_sha256": _digest(fn()),
                           "kernel": "scan_bf16", **_median_ms(fn, calls=3, readings=15),
                           "device_ms_by_kernel": _by_kernel(fn, calls=3)}), flush=True)
         del rows, sents, scales, norms

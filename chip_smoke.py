@@ -1039,11 +1039,16 @@ def case_pool(b, t, h, max_sents, dtype, dev, ragged=False) -> dict:
     return res
 
 
-def _scan_queries(bsz, qmax, seed, dev):
+def _scan_queries(bsz, qmax, seed, dev, lens="uniform"):
+    """bsz queries of qmax 768-d sentences and their lengths: uniform in
+    [3, qmax], or (lens="abstracts") the aspire-1m-b32 cell's abstracts,
+    clip(poisson(9), 3, 20) sentences; one query holds 10."""
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((bsz, qmax, 768)).astype(
         np.float32) * 2.0).to(dev)
-    q_lens = torch.from_numpy(rng.integers(3, qmax + 1, bsz)).to(dev)
+    drawn = rng.integers(3, qmax + 1, bsz) if lens == "uniform" else \
+        np.clip(rng.poisson(9, bsz), 3, min(20, qmax))
+    q_lens = torch.from_numpy(drawn).to(dev)
     if bsz == 1:
         q_lens[:] = 10
     return q, q_lens
@@ -1110,13 +1115,51 @@ def case_scan_bf16(bucket, label, dev, qmax=16, q_n=10) -> dict:
     return res
 
 
-def case_scan_int8(bucket, label, bsz, dev, qmax=16, doc_chunk=None) -> dict:
+def _check_pack(sents, scales, norms, q, q_lens, qmax, got) -> dict:
+    """K7's packing (`pack_kernel`) on the card against its plain version: a
+    wide launch into buffers of its own gives `got` bit for bit, and its
+    packed query, qadd and plan over the live groups equal
+    `pack_queries_plain`'s, the plan's header (live groups, their columns,
+    the real sentences) `pack_plan`'s on the lengths."""
+    from aspire_tpu_torch.ops import scan_kernel as sk
+    n, s, d = sents.shape
+    sms = torch.cuda.get_device_properties(sents.device).multi_processor_count
+    launch = sk.launch_plan(sents.dtype, n, s, d, q.shape[0], qmax, sms)
+    bound, unit = launch.groups, sk.pack_unit(launch, s)
+    scratch = sk.pack_buffers(bound, d, sents.device)
+    qf = q.float()
+    qadd = -(qf * qf).sum(dim=2)
+    again = sk._launch("aspire_scan_int8", sents, scales, norms, qf, qadd, q_lens, scratch)
+    packed, qa, table = (t.cpu() for t in scratch)
+    want_packed, want_qa, want_plan = sk.pack_queries_plain(qf.cpu(), qadd.cpu(), q_lens.cpu(),
+                                                            unit=unit)
+    lens = q_lens.cpu().clamp(0, qmax).tolist()
+    units = sk.pack_plan(lens, qmax, unit)
+    head = [len(units), 128 * len(units), sum(lens)]
+    cols = head[1]
+    faults = [what for what, ok in (
+        ("scores", torch.equal(again, got)),
+        ("header", table[:sk.PLAN_HEAD].tolist() == head),
+        ("plan", torch.equal(table[:want_plan.numel()], want_plan)),
+        ("packed query", torch.equal(packed[:cols], want_packed)),
+        ("qadd", torch.equal(qa[:cols], want_qa))) if not ok]
+    if faults:
+        raise AssertionError(f"scan_int8 packing: {', '.join(faults)} differ from "
+                             f"pack_queries_plain's (lengths {lens})")
+    return {"live_groups": head[0], "group_bound": bound, "sentences": head[2],
+            "columns": cols, "unit": unit}
+
+
+def case_scan_int8(bucket, label, bsz, dev, qmax=16, doc_chunk=None,
+                   lens="uniform") -> dict:
     """K7 on one int8 bucket against its plain version (and the library call)
-    computed `doc_chunk` documents at a time where given."""
+    computed `doc_chunk` documents at a time where given; queries of
+    `_scan_queries`' `lens`.  A wide launch of one group a query has its
+    packing checked too (`_check_pack`)."""
     from aspire_tpu_torch.ops import scan_kernel as sk
     sents, scales, norms = bucket["sents"], bucket["scales"], bucket["norms"]
     n, s, d = sents.shape
-    q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev)
+    q, q_lens = _scan_queries(bsz, qmax, 59 + bsz + s, dev, lens)
     live = bucket["doc_idx"] >= 0
     fn = sk.fused_l2max_scan_int8_batched
     docs = doc_chunk or n
@@ -1142,6 +1185,8 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16, doc_chunk=None) -> dict:
     res = check_close("scan_int8", got[live], want[live], atol=1e-2, rtol=2e-4)
     if not bool((got[~live] <= 0.5 * sk.NEG).all()):
         raise AssertionError("scan_int8: a padded document scored")
+    if wide and groups == 1:
+        res["packing"] = _check_pack(sents, scales, norms, q, q_lens, qmax, got)
     qb = q.to(torch.bfloat16).reshape(bsz * qmax, d)
 
     def library():
@@ -1157,7 +1202,8 @@ def case_scan_int8(bucket, label, bsz, dev, qmax=16, doc_chunk=None) -> dict:
         return _by_docs(part, n, docs)
 
     res.update(
-        case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}",
+        case=f"{label}: [{n},{s},{d}] int8, B={bsz} qmax={qmax}"
+             + ("" if lens == "uniform" else f", {lens}' lengths"),
         query_groups=groups,
         source="aspire_tpu_torch/csrc/" + ("scan_int8.cu" if wide else "scan.cu"),
         kernel_ms=cuda_ms(lambda: sk.fused_l2max_scan_int8_batched(
@@ -2206,7 +2252,9 @@ def scan_kernel_cases(big: dict, dev) -> dict:
     the first case of each is the query path's shape.  K7 runs two kernels,
     chosen by shape (`scan_wide`): csrc/scan.cu's for the single query
     (first case B=1) and four queries of 16, csrc/scan_int8.cu's for full
-    column groups (first case the batch of 32; B=5 x 20 sentences)."""
+    column groups (first case the batch of 32; B=5 x 20 sentences; the
+    aspire-1m-b32 cell's batch, 32 abstracts' queries padded to 24, on every
+    bucket, its packing checked)."""
     int8 = big["buckets"]["int8"]
     label = lambda b: f"bucket {b['sents'].shape[1]}"
     cases = {"scan_bf16": [case_scan_bf16(b, label(b), dev)
@@ -2214,7 +2262,9 @@ def scan_kernel_cases(big: dict, dev) -> dict:
              "scan_int8": [case_scan_int8(b, label(b), 1, dev) for b in int8]
              + [case_scan_int8(int8[0], label(int8[0]), 4, dev)],
              "scan_int8_wide": [case_scan_int8(b, label(b), 32, dev) for b in int8]
-             + [case_scan_int8(int8[0], label(int8[0]), 5, dev, qmax=20)]}
+             + [case_scan_int8(int8[0], label(int8[0]), 5, dev, qmax=20)]
+             + [case_scan_int8(b, label(b), 32, dev, qmax=24, lens="abstracts")
+                for b in int8]}
     # K8 on f32 rows: the bf16 bucket 12 in f32 (exact), true-f32 products
     b12 = big["buckets"]["bfloat16"][0]
     cases["scan_bf16"].append(case_scan_bf16(

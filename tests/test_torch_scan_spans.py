@@ -163,9 +163,9 @@ def test_a_span_touches_at_most_the_documents_a_block_keeps(s):
     (torch.bfloat16, 840, 1200, 768, 1, 16, "aspire_scan_bf16", 1, 657),
     # past 768 wide the groups hold 64 sentences and stay on csrc/scan.cu
     (torch.bfloat16, 40, 300, 1024, 5, 64, "aspire_scan_bf16", 5, 40),
-    # int8: 8 full-text queries are 40 groups of 64, two to a column group;
-    # 32 abstracts are 4 column groups
-    (torch.int8, 840, 1200, 768, 40, 64, "aspire_scan_int8_wide", 20, 120),
+    # int8: 8 full-text queries are 40 groups of 64, two to a column group
+    # (at most: the packing may need fewer); 32 abstracts are 4 column groups
+    (torch.int8, 840, 1200, 768, 40, 64, "aspire_scan_int8_wide", 20, 132),
     (torch.int8, 109440, 12, 768, 32, 16, "aspire_scan_int8_wide", 4, 132),
     (torch.int8, 15568, 24, 768, 1, 16, "aspire_scan_int8", 1, 244),
     (torch.float32, 100, 12, 768, 3, 128, "aspire_scan_f32", 3, 6),
@@ -178,8 +178,9 @@ def test_launch_plan(dtype, n, s, d, bsz, qmax, kernel, groups, blocks):
         assert plan.span == sk.span_rows(s) and plan.spans == -(-n * s // plan.span)
     wide = kernel.endswith("_wide")
     assert wide == (dtype != torch.float32 and sk.scan_wide(bsz, qmax, d))
-    # a wide launch: persistent blocks, a group's on every SM it can have
-    assert plan.blocks == (groups * min(132 // groups, plan.spans) if wide
+    # a wide launch: a persistent block an SM, which the live groups share on
+    # the device (every group one at least, a group at most one a span)
+    assert plan.blocks == (min(max(132, groups), groups * plan.spans) if wide
                            else groups * plan.spans)
 
 
@@ -244,7 +245,7 @@ def test_straddling_documents_are_merged_across_spans():
 def _recorded_cuda_route(monkeypatch, calls):
     """The wrappers' CUDA route on CPU tensors: `_launch` records its query
     batch and answers with the plain version's scores of it."""
-    def launch(name, sents, scales, norms, q, qadd):
+    def launch(name, sents, scales, norms, q, qadd, q_lens=None):
         calls.append((name, tuple(q.shape)))
         out = []
         for b in range(q.shape[0]):

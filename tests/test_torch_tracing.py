@@ -279,3 +279,37 @@ def test_mesh_records_the_merge_and_the_reduces():
                         ("cost", 2), ("solve", 2), ("scores", 1), ("reduce", 2)]
         # the diameter's MIN and MAX boxes (2 x 3 x 16 f32), then the [3, 5] scores
         assert reduces == [{"bytes": 2 * 3 * DIM * 4}, {"bytes": 3 * K * 4}]
+
+
+def test_a_device_count_is_read_when_the_records_are(monkeypatch):
+    """`count()` adds to the innermost open span: a 0-dim tensor (on the card
+    a device value, the wide scan's `columns` and `sentences`) is kept as it
+    is and read by `records()`, so a value written after the span closed is
+    the one read; host integers add as they are.  Off, it touches no torch
+    call (no synchronise, no launch) and records nothing."""
+    t = torch.tensor(5)
+
+    class Refuse:
+        def __getattr__(self, name):
+            raise AssertionError(f"torch.{name} called with tracing off")
+    monkeypatch.setattr(profiling, "torch", Refuse())
+    profiling.count(columns=t)                      # off, outside any span
+    with profiling.span("scan"):
+        profiling.count(columns=t)                  # off, inside the no-op
+    monkeypatch.undo()
+    assert profiling.records() == []
+    with profiling.recording():
+        profiling.count(columns=t)                  # on, outside every span
+        with profiling.span("scan", queries=2):
+            profiling.count(columns=t, sentences=3)
+            with profiling.span("gather"):
+                profiling.count(bytes=torch.tensor(7))
+            profiling.count(columns=torch.tensor(4), sentences=1)
+    (scan,) = [s for s in profiling._records if s.name == "scan"]
+    assert scan.counts == {"queries": 2} and scan.added[0] == ("columns", t)
+    t += 10                                         # the device writes it later
+    recs = {r["name"]: r for r in profiling.records()}
+    assert recs["scan"]["counts"] == {"queries": 2, "columns": 19, "sentences": 4}
+    assert recs["gather"]["counts"] == {"bytes": 7}
+    again = {r["name"]: r["counts"] for r in profiling.records()}   # read once
+    assert again == {name: r["counts"] for name, r in recs.items()}
